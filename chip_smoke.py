@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""chip_smoke.py — drive the PyTorch/CUDA port's kc-c4 path once on one GPU.
+"""chip_smoke.py — run the port's kc-c4 and yak-count paths on one GPU.
 
 Usage: python3 chip_smoke.py [--seed N]
 
@@ -17,8 +17,21 @@ Phases, each printing its own lines:
               kernel's launch count in that run must be > 0
   5. budget   32 Mbases under a budget small enough to force compactions
               (the weighted segment histogram), kernels vs plain
-  6. fixture  kc-c4 on tests/fixtures at k=21 and k=31: the port on the
-              GPU gives the bytes of the port on the CPU
+  6. yak      `yak-count -k31 -b30` through kmer_tpu_torch.tools on the
+              256 Mbase file: stdout and the `[M` stderr lines must equal
+              the same run with the plain kernel versions in the engine
+              and the admission tap; the (key, index) merge kernels must
+              launch in it
+  7. onepl    kc-c4 -k15 (one-plane keys) on 32 Mbases under the 64 MiB
+              budget, kernels vs plain; the one-plane merge kernels must
+              launch in it, the two-plane ones not
+  8. fixture  kc-c4 on tests/fixtures at k=15, 21 and 31, and yak-count
+              on the reads fixture: the port on the GPU gives the bytes of
+              the port on the CPU
+
+Each path's launch counts are set to 0 just before it runs and read just
+after; the kernels line takes kernels 1-4's counts from phase 4, the
+one-plane merge's from phase 7 and the (key, index) merge's from phase 6.
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero without
@@ -45,6 +58,9 @@ GENOME_BASES = 24 << 20
 K = 31
 MBASES = 256  # the e2e run's size: the JAX bench's headline file
 ERR_FREE = 0  # tolerance of every comparison: outputs are integers
+# the kernels of the kc-c4 -k31 path (phase 4); yak adds the (key, index)
+# merge (phase 6), k <= 15 swaps the merge for the one-plane one (phase 7)
+KC_PATH_KERNELS = ("extract", "seghist", "merge_tile", "merge_xstage")
 
 
 class SmokeFailure(Exception):
@@ -83,8 +99,15 @@ def time_ms(fn, setup=lambda: None, reps=5):
 
 
 def max_abs_err(a, b):
+    """Largest |a - b| over integer lanes.  Exact when it is 0: unequal
+    lanes count at least 1 even where float64 cannot tell them apart
+    (int64 keys above 2^53)."""
+    import torch
+
     need(a.shape == b.shape, f"shape {tuple(a.shape)} != {tuple(b.shape)}")
-    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+    if torch.equal(a, b):
+        return 0.0
+    return max(1.0, float((a.double() - b.double()).abs().max()))
 
 
 # -- synthetic reads ----------------------------------------------------
@@ -168,12 +191,73 @@ def phase_build():
     say("build", f"native reader ready in {time.perf_counter() - t0:.2f} s")
 
 
+def merge_rows(rows, name, halves, want, whole, whole_plain, xstage,
+               stage_plain, tiles, bits):
+    """Check one lane type's merge kernels on the card: the whole merge
+    (kernels and plain version) against torch.sort, then each kernel
+    alone against its plain stages: the top cross-tile stage, and the
+    tile pass on planes whose cross-tile stages are done.  Adds the rows
+    `{name}_xstage` and `{name}_tile` (with kernel names merge_xstage1
+    etc. for the suffixed lane types)."""
+    from kmer_tpu_torch.kernels import bitonic
+
+    suffix = name[len("merge"):]
+    n = halves[0].shape[0]
+    lg = n.bit_length() - 1
+
+    def clone(planes):
+        return tuple(p.clone() for p in planes)
+
+    def err(a, b):
+        return max(max_abs_err(x, y) for x, y in zip(a, b))
+
+    def tup(x):
+        return x if isinstance(x, tuple) else (x,)
+
+    e = err(tup(whole(*clone(halves))), want)
+    e2 = err(tup(whole_plain(*clone(halves))), want)
+    need(e == ERR_FREE and e2 == ERR_FREE,
+         f"{name} 2^{lg}: kernel err {e}, plain err {e2} vs torch.sort")
+    ms = time_ms(lambda p: whole(*p), lambda: clone(halves))
+    plain_ms = time_ms(lambda p: whole_plain(*p), lambda: clone(halves))
+    say("kernels", f"{name} 2^{lg} lanes: equal to torch.sort; whole merge "
+        f"kernels {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    seq = clone(halves)
+    bitonic._flip_second_half_(*seq)
+    e = err(tup(xstage(*clone(seq), n // 2)),
+            tup(stage_plain(*clone(seq), n // 2)))
+    need(e == ERR_FREE, f"merge_xstage{suffix}: kernel != plain "
+         f"(max err {e})")
+    ms = time_ms(lambda p: xstage(*p, n // 2), lambda: clone(seq))
+    plain_ms = time_ms(lambda p: stage_plain(*p, n // 2), lambda: clone(seq))
+    rows[f"merge_xstage{suffix}"] = (e, ms, plain_ms)
+    say("kernels", f"merge_xstage{suffix} stride 2^{lg - 1} on 2^{lg} lanes: "
+        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    upper = seq
+    for k in range(n.bit_length() - 2, bits - 1, -1):
+        stage_plain(*upper, 1 << k)
+
+    def tiles_plain(p):
+        for k in range(bits - 1, -1, -1):
+            stage_plain(*p, 1 << k)
+        return p
+
+    got = tup(tiles(*clone(upper), bits))
+    e = max(err(got, tiles_plain(clone(upper))), err(got, want))
+    need(e == ERR_FREE, f"merge_tile{suffix}: kernel != plain (max err {e})")
+    ms = time_ms(lambda p: tiles(*p, bits), lambda: clone(upper))
+    plain_ms = time_ms(tiles_plain, lambda: clone(upper))
+    rows[f"merge_tile{suffix}"] = (e, ms, plain_ms)
+    say("kernels", f"merge_tile{suffix} {bits} stages on 2^{lg} lanes: "
+        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+
+
 def phase_kernels(seed):
     import numpy as np
     import torch
 
     from kmer_tpu_torch.kernels import bitonic, extract, seghist
-    from kmer_tpu_torch.kernels.keys import SENT
+    from kmer_tpu_torch.kernels.keys import SENT, SENT32
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
@@ -231,78 +315,78 @@ def phase_kernels(seed):
     del keys, w
     torch.cuda.empty_cache()
 
-    # merge: 2^25 lanes, 15% sentinels, two sorted halves
+    # the three merges at 2^25 lanes, 15% sentinels, two sorted halves:
+    # biased int64 keys (kernels 3-4), one-plane int32 keys (5-6), and
+    # (int64 key, rising int64 index) lanes (7-8)
     n = 1 << 25
     v = torch.randint(-(1 << 62), 1 << 62, (n,), generator=g, device=dev)
     v[torch.rand(n, generator=g, device=dev) < 0.15] = SENT
-    halves = torch.cat([torch.sort(v[: n // 2]).values,
-                        torch.sort(v[n // 2:]).values])
-    want = torch.sort(v).values
-    got = bitonic.merge_sorted_halves_(halves.clone())
-    e = max_abs_err(got, want)
-    e2 = max_abs_err(bitonic.merge_sorted_halves_plain_(halves.clone()), want)
-    need(e == ERR_FREE and e2 == ERR_FREE,
-         f"merge 2^25: kernel err {e}, plain err {e2} vs torch.sort")
-    ms = time_ms(bitonic.merge_sorted_halves_, lambda: halves.clone())
-    plain_ms = time_ms(bitonic.merge_sorted_halves_plain_,
-                       lambda: halves.clone())
-    say("kernels", f"merge 2^25 lanes: equal to torch.sort; whole merge "
-        f"kernels {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    # each kernel alone: the top cross-tile stage, and the tile pass on a
-    # plane whose cross-tile stages are done
-    bitonic_seq = halves.clone()
-    bitonic_seq[n // 2:] = bitonic_seq[n // 2:].flip(0)
-    e = max_abs_err(bitonic.xstage_(bitonic_seq.clone(), n // 2),
-                    bitonic.stage_plain_(bitonic_seq.clone(), n // 2))
-    need(e == ERR_FREE, f"merge_xstage: kernel != plain (max err {e})")
-    ms = time_ms(lambda x: bitonic.xstage_(x, n // 2),
-                 lambda: bitonic_seq.clone())
-    plain_ms = time_ms(lambda x: bitonic.stage_plain_(x, n // 2),
-                       lambda: bitonic_seq.clone())
-    rows["merge_xstage"] = (e, ms, plain_ms)
-    say("kernels", f"merge_xstage stride 2^24 on 2^25 lanes: kernel "
-        f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
-    bits = bitonic.tile_bits()
-    upper = bitonic_seq.clone()
-    for k in range(n.bit_length() - 2, bits - 1, -1):
-        bitonic.stage_plain_(upper, 1 << k)
+    halves = (torch.cat([torch.sort(v[: n // 2]).values,
+                         torch.sort(v[n // 2:]).values]),)
+    merge_rows(rows, "merge", halves, (torch.sort(v).values,),
+               bitonic.merge_sorted_halves_,
+               bitonic.merge_sorted_halves_plain_, bitonic.xstage_,
+               bitonic.stage_plain_, bitonic.merge_tiles_,
+               bitonic.tile_bits())
+    del v, halves
+    v = torch.randint(0, 1 << 30, (n,), generator=g, device=dev,
+                      dtype=torch.int32)
+    v[torch.rand(n, generator=g, device=dev) < 0.15] = SENT32
+    halves = (torch.cat([torch.sort(v[: n // 2]).values,
+                         torch.sort(v[n // 2:]).values]),)
+    merge_rows(rows, "merge1", halves, (torch.sort(v).values,),
+               bitonic.merge_sorted_halves1_,
+               bitonic.merge_sorted_halves1_plain_, bitonic.xstage1_,
+               bitonic.stage1_plain_, bitonic.merge_tiles1_,
+               bitonic.tile_bits1())
+    del v, halves
+    key = torch.randint(-(1 << 62), 1 << 62, (n // 4,), generator=g,
+                        device=dev)[torch.randint(0, n // 4, (n,),
+                                                  generator=g, device=dev)]
+    key[torch.rand(n, generator=g, device=dev) < 0.15] = SENT
+    idx = torch.arange(n, device=dev) + (1 << 31)
 
-    def tiles_plain(x):
-        for k in range(bits - 1, -1, -1):
-            bitonic.stage_plain_(x, 1 << k)
-        return x
+    def key_idx_sort(k, i):  # i rises: a stable key sort is (key, i)
+        k, o = torch.sort(k, stable=True)
+        return k, i[o]
 
-    got = bitonic.merge_tiles_(upper.clone(), bits)
-    e = max(max_abs_err(got, tiles_plain(upper.clone())),
-            max_abs_err(got, want))
-    need(e == ERR_FREE, f"merge_tile: kernel != plain (max err {e})")
-    ms = time_ms(lambda x: bitonic.merge_tiles_(x, bits),
-                 lambda: upper.clone())
-    plain_ms = time_ms(tiles_plain, lambda: upper.clone())
-    rows["merge_tile"] = (e, ms, plain_ms)
-    say("kernels", f"merge_tile {bits} stages on 2^25 lanes: kernel "
-        f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
-    del v, halves, want, got, bitonic_seq, upper
+    h0, h1 = (key_idx_sort(key[a:a + n // 2], idx[a:a + n // 2])
+              for a in (0, n // 2))
+    halves = (torch.cat([h0[0], h1[0]]), torch.cat([h0[1], h1[1]]))
+    del h0, h1
+    merge_rows(rows, "merge3", halves, key_idx_sort(key, idx),
+               bitonic.merge_sorted_halves3_,
+               bitonic.merge_sorted_halves3_plain_, bitonic.xstage3_,
+               bitonic.stage3_plain_, bitonic.merge_tiles3_,
+               bitonic.tile_bits3())
+    del key, idx, halves
     torch.cuda.empty_cache()
     return rows
 
 
 @contextlib.contextmanager
-def recording_engines():
-    """Keep the engines that kc-c4 builds, to read their IngestStats."""
+def recording_engines(tool_module=None, plain_kernels=False):
+    """Keep the engines that a tool module (kc by default) builds, to read
+    their IngestStats; with plain_kernels, build them with the kernels'
+    plain versions (the yak tap follows its engine's switch)."""
+    from kmer_tpu_torch.pipeline.counter import SortCountEngine
     from kmer_tpu_torch.tools import kc
 
-    made, real = [], kc.make_count_engine
+    mod = tool_module or kc
+    made, real = [], mod.make_count_engine
 
-    def record(*a, **kw):
-        made.append(real(*a, **kw))
+    def record(k, block_bases=10_000_000, qual_policy=None):
+        made.append(SortCountEngine(k, block_bases, qual_policy=qual_policy,
+                                    plain_kernels=plain_kernels)
+                    if plain_kernels else
+                    real(k, block_bases=block_bases, qual_policy=qual_policy))
         return made[-1]
 
-    kc.make_count_engine = record
+    mod.make_count_engine = record
     try:
         yield made
     finally:
-        kc.make_count_engine = real
+        mod.make_count_engine = real
 
 
 def hist_text(eng):
@@ -314,14 +398,21 @@ def hist_text(eng):
     return buf.getvalue()
 
 
-def run_kc_c4(args):
+def run_tool(tool, args):
+    """(stdout, the `[M` stderr lines) of one tool run, which must exit 0."""
     from kmer_tpu_torch.tools import get_tool
 
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc = get_tool("kc-c4")(args)
-    need(rc == 0, f"kc-c4 {' '.join(args)} exited {rc}")
-    return buf.getvalue()
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = get_tool(tool)(args)
+    need(rc == 0, f"{tool} {' '.join(args)} exited {rc}: "
+         f"{err.getvalue()[-2000:]}")
+    return out.getvalue(), [ln for ln in err.getvalue().splitlines()
+                            if ln.startswith("[M")]
+
+
+def run_kc_c4(args):
+    return run_tool("kc-c4", args)[0]
 
 
 def check_hist_text(text):
@@ -369,7 +460,7 @@ def phase_e2e(seed):
     say("e2e", f"IngestStats: {eng.stats.report()}; finalize (hist) "
         f"{wall - eng.stats.loop_s:.3f} s")
     say("e2e", f"launches in this run: {json.dumps(launches)}")
-    need(all(launches[name] > 0 for name in launches),
+    need(all(launches[name] > 0 for name in KC_PATH_KERNELS),
          f"a kernel of the path was never launched: {launches}")
 
     plain = SortCountEngine(K, qual_policy=("resume", K, 3),
@@ -403,20 +494,180 @@ def phase_budget(seed):
         f"kernels == plain, {check_hist_text(texts[0])} distinct")
 
 
+@contextlib.contextmanager
+def platform(name):
+    """Run the tools on KMER_TPU_PLATFORM=name (kmer_tpu_torch's device
+    rule), restoring the environment after."""
+    old = os.environ.get("KMER_TPU_PLATFORM")
+    os.environ["KMER_TPU_PLATFORM"] = name
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["KMER_TPU_PLATFORM"]
+        else:
+            os.environ["KMER_TPU_PLATFORM"] = old
+
+
 def phase_fixture():
     from kmer_tpu_torch.pipeline.counter import SortCountEngine
 
     for name in ("reads_small.fq.gz", "genome_small.fa.gz"):
         path = os.path.join(HERE, "tests", "fixtures", name)
-        for k in (21, 31):
+        for k in (15, 21, 31):
             gpu = run_kc_c4([f"-k{k}", path])
             cpu = SortCountEngine(k, qual_policy=("resume", k, 3),
                                   device="cpu")
             cpu.count_paths([path])
             need(gpu == hist_text(cpu),
                  f"fixture {name} k={k}: GPU bytes != CPU bytes")
-            say("fixture", f"{name} k={k}: GPU == CPU "
+            say("fixture", f"{name} kc-c4 k={k}: GPU == CPU "
                 f"({check_hist_text(gpu)} distinct)")
+    path = os.path.join(HERE, "tests", "fixtures", "reads_small.fq.gz")
+    for args in (["-k21", "-b19", "-K30000"], ["-k15", "-b20"]):
+        gpu = run_tool("yak-count", [*args, path])
+        with platform("cpu"):
+            cpu = run_tool("yak-count", [*args, path])
+        need(gpu == cpu, f"fixture yak-count {' '.join(args)}: GPU != CPU")
+        check_yak_text(gpu)
+        say("fixture", f"reads_small.fq.gz yak-count {' '.join(args)}: "
+            f"GPU == CPU (stdout and {len(gpu[1])} [M lines; "
+            f"{gpu[1][-1]})")
+
+
+def check_yak_text(result):
+    """yak-count's 1023 rows numbered 1..1023, and its last `[M` line
+    giving their sum."""
+    text, mlines = result
+    rows = [line.split("\t") for line in text.splitlines()]
+    need(len(rows) == 1023 and all(len(r) == 2 for r in rows)
+         and [int(r[0]) for r in rows] == list(range(1, 1024)),
+         "yak-count output is not 1023 numbered count/distinct rows")
+    total = sum(int(r[1]) for r in rows)
+    need(total > 0 and all(int(r[1]) >= 0 for r in rows),
+         "yak-count output has negative or no distinct k-mers")
+    need(mlines and mlines[-1] == f"[M::main] {total} distinct k-mers "
+         "after shrinking", f"yak-count's last [M line does not give "
+         f"{total}: {mlines[-1:]}")
+    return total
+
+
+@contextlib.contextmanager
+def recording_taps():
+    """Keep the admission taps that yak-count builds, and time their
+    finalization (the deferred admission's sorts, ending in a readback)."""
+    from kmer_tpu_torch.tools import yak_count
+
+    made, real = [], yak_count.YakSimTap
+
+    class Tap(real):
+        finish_s = None
+
+        def finish_batches(self):
+            t0 = time.perf_counter()
+            super().finish_batches()
+            self.finish_s = time.perf_counter() - t0
+
+    def record(*a, **kw):
+        made.append(Tap(*a, **kw))
+        return made[-1]
+
+    yak_count.YakSimTap = record
+    try:
+        yield made
+    finally:
+        yak_count.YakSimTap = real
+
+
+YAK_ARGS = ["-k31", "-b30"]
+
+
+def phase_yak(seed):
+    import torch
+
+    from kmer_tpu_torch.kernels import _build
+    from kmer_tpu_torch.tools import yak_count
+
+    path = reads_file(MBASES, seed)
+    bases = MBASES * 1_000_000 // READ_LEN * READ_LEN
+    args = [*YAK_ARGS, path]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    with recording_engines(yak_count) as made, recording_taps() as taps:
+        t0 = time.perf_counter()
+        got = run_tool("yak-count", args)
+        wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    eng, tap = made[0], taps[0]
+    need(eng.total_bases == bases,
+         f"engine counted {eng.total_bases} bases, file has {bases}")
+    need(tap.adm.fs.stream_sorted and not eng.plain_kernels,
+         "the tap is not in stream-sorted mode on the kernels")
+    total = check_yak_text(got)
+    n_batches = len(tap.batch_seq_counts)
+    need(len(got[1]) == 2 * n_batches + 1 and n_batches > 1,
+         f"{len(got[1])} [M lines for {n_batches} batches")
+    need(sum(tap.batch_seq_counts) == eng.total_seqs,
+         "the [M lines do not add up to the reads counted")
+    flags = " ".join(YAK_ARGS)
+    say("yak", f"yak-count {flags} {MBASES} Mbases: {wall:.3f} s = "
+        f"{bases / 1e6 / wall:.2f} Mbases/s, {total} distinct after "
+        f"shrinking, {tap.tot} admitted in pass 1, {n_batches} batches, "
+        f"peak device memory {peak:.2f} GiB, tap budget trips "
+        f"{tap.budget_trips}")
+    say("yak", f"IngestStats: {eng.stats.report()}; tap finalize "
+        f"{tap.finish_s:.3f} s; engine finalize (hist) "
+        f"{wall - eng.stats.loop_s - tap.finish_s:.3f} s")
+    say("yak", f"launches in this run: {json.dumps(launches)}")
+    need(all(launches[name] > 0 for name in
+             (*KC_PATH_KERNELS, "merge_tile3", "merge_xstage3")),
+         f"a kernel of the yak path was never launched: {launches}")
+
+    with recording_engines(yak_count, plain_kernels=True) as made:
+        t0 = time.perf_counter()
+        want = run_tool("yak-count", args)
+        pwall = time.perf_counter() - t0
+    need(made[0].plain_kernels, "the plain run did not use plain versions")
+    need(got == want, "yak-count with kernels != the plain versions on the "
+         "card (stdout or [M lines)")
+    say("yak", f"plain versions on the card (engine and tap): same stdout "
+        f"and [M lines, {pwall:.3f} s = {bases / 1e6 / pwall:.2f} Mbases/s")
+    return launches
+
+
+def phase_onepl(seed):
+    from kmer_tpu_torch.kernels import _build
+    from kmer_tpu_torch.pipeline.counter import SortCountEngine
+
+    path = reads_file(32, seed + 1)
+    k = 15
+    out = {}
+    for plain_kernels in (False, True):
+        _build.reset_launches()
+        eng = SortCountEngine(k, budget_bytes=64 << 20,
+                              qual_policy=("resume", k, 3),
+                              plain_kernels=plain_kernels)
+        need(eng.compactor.one_plane and eng.compactor.stream_sorted,
+             "k=15 does not run the one-plane stream ladder")
+        t0 = time.perf_counter()
+        eng.count_paths([path])
+        text = hist_text(eng)
+        out[plain_kernels] = (text, time.perf_counter() - t0,
+                              dict(_build.LAUNCHES))
+    need(out[False][0] == out[True][0], "kc-c4 -k15: kernels != plain")
+    launches = out[False][2]
+    need(launches["merge_tile1"] > 0 and launches["merge_xstage1"] > 0,
+         f"the one-plane merge kernels never launched: {launches}")
+    need(launches["merge_tile"] == launches["merge_xstage"] == 0,
+         f"k=15 ran the two-plane merge: {launches}")
+    need(not any(out[True][2].values()), "the plain run launched kernels")
+    say("onepl", f"kc-c4 -k15 32 Mbases, 64 MiB budget: kernels == plain "
+        f"({check_hist_text(out[False][0])} distinct), {out[False][1]:.3f} "
+        f"s vs plain {out[True][1]:.3f} s")
+    say("onepl", f"launches in this run: {json.dumps(launches)}")
+    return launches
 
 
 KERNELS = [
@@ -428,6 +679,14 @@ KERNELS = [
      "kmer_tpu/kernels/bitonic.py:194"),
     ("merge_xstage", "kmer_tpu_torch/csrc/bitonic.cu",
      "kmer_tpu/kernels/bitonic.py:103"),
+    ("merge_tile1", "kmer_tpu_torch/csrc/bitonic.cu",
+     "kmer_tpu/kernels/bitonic.py:277"),
+    ("merge_xstage1", "kmer_tpu_torch/csrc/bitonic.cu",
+     "kmer_tpu/kernels/bitonic.py:138"),
+    ("merge_tile3", "kmer_tpu_torch/csrc/bitonic.cu",
+     "kmer_tpu/kernels/bitonic.py:232"),
+    ("merge_xstage3", "kmer_tpu_torch/csrc/bitonic.cu",
+     "kmer_tpu/kernels/bitonic.py:121"),
 ]
 
 
@@ -460,12 +719,21 @@ def main(argv=None):
         launches = phase_e2e(args.seed)
         phase = "budget"
         phase_budget(args.seed)
+        phase = "yak"
+        yak_launches = phase_yak(args.seed)
+        phase = "onepl"
+        onepl_launches = phase_onepl(args.seed)
         phase = "fixture"
         phase_fixture()
     except Exception:  # noqa: BLE001 - report which phase failed, exit 1
         traceback.print_exc()
         print(f"[{phase}] FAILED", flush=True)
         return 1
+    # each kernel's count from the path that it serves (module docstring)
+    for name in ("merge_tile1", "merge_xstage1"):
+        launches[name] = onepl_launches[name]
+    for name in ("merge_tile3", "merge_xstage3"):
+        launches[name] = yak_launches[name]
     print(card)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

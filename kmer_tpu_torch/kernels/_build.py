@@ -1,13 +1,15 @@
 """Build and load the port's CUDA kernels (csrc/*.cu).
 
-The sources are compiled at first use with
+The sources are compiled at first use, one nvcc process per source,
+all started together, with
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -c
 
-into one shared library under build/kmer_tpu_torch/ at the repository
-root, named by a hash of the sources and flags (a changed source builds
-anew; an unchanged one loads the library already built).  The library
+and linked (`nvcc -shared`) into one shared library under
+build/kmer_tpu_torch/ at the repository root, named by a hash of the
+sources and flags (a changed source builds anew; an unchanged one loads
+the library already built).  The library
 has a plain C interface and is bound with ctypes: every pointer and the
 CUDA stream pass as c_void_p.  Each entry point returns
 cudaGetLastError() after its launches; `check` raises when that is not
@@ -33,9 +35,11 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kmer_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
-LAUNCHES = {"extract": 0, "seghist": 0, "merge_tile": 0, "merge_xstage": 0}
+LAUNCHES = {"extract": 0, "seghist": 0, "merge_tile": 0, "merge_xstage": 0,
+            "merge_tile1": 0, "merge_xstage1": 0, "merge_tile3": 0,
+            "merge_xstage3": 0}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -49,6 +53,12 @@ _SIGNATURES = {
     "ktt_merge_xstage": [_P, _I64, _I64, _P],
     "ktt_merge_tiles": [_P, _I64, _I32, _P],
     "ktt_merge_tile_bits": [],
+    "ktt_merge_xstage1": [_P, _I64, _I64, _P],
+    "ktt_merge_tiles1": [_P, _I64, _I32, _P],
+    "ktt_merge_tile_bits1": [],
+    "ktt_merge_xstage3": [_P, _P, _I64, _I64, _P],
+    "ktt_merge_tiles3": [_P, _P, _I64, _I32, _P],
+    "ktt_merge_tile_bits3": [],
 }
 
 _lock = threading.Lock()
@@ -77,18 +87,40 @@ def _library_path() -> str:
     return os.path.join(BUILD_DIR, f"libkmer_tpu_torch_{h.hexdigest()[:16]}.so")
 
 
+def _run_all(cmds) -> None:
+    """Run the nvcc commands concurrently; raise on the first failure
+    after every one has ended."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    errs = []
+    for p in procs:
+        _out, err = p.communicate()
+        if p.returncode != 0:
+            errs.append(f"nvcc failed ({p.returncode}):\n{err}")
+    if errs:
+        raise RuntimeError("kmer_tpu_torch: " + "\n".join(errs))
+
+
 def _build(so: str) -> None:
     global build_seconds
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.tmp.{os.getpid()}"
+    tag = f"tmp.{os.getpid()}"
+    nvcc = _nvcc()
     cus = [s for s in sources() if s.endswith(".cu")]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus]
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(c)}.{tag}.o")
+            for c in cus]
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(
-            f"kmer_tpu_torch: nvcc failed ({r.returncode}):\n{r.stderr}")
-    os.replace(tmp, so)  # atomic publish for concurrent builds
+    try:
+        _run_all([nvcc, *NVCC_FLAGS, "-c", "-o", o, c]
+                 for c, o in zip(cus, objs))
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", f"{so}.{tag}",
+                   *objs]])
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
+    os.replace(f"{so}.{tag}", so)  # atomic publish for concurrent builds
     build_seconds = time.perf_counter() - t0
 
 

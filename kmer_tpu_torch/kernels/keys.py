@@ -14,6 +14,12 @@ top bit maps unsigned order onto signed order:
 
 Conversions go to and from the JAX package's (hi, lo) uint32 numpy
 planes; the tests use them at every boundary.
+
+One-plane keys (k <= 15, kmer_tpu's one-plane compactor mode): data keys
+are < 2^30, so the stream ladder keeps them as one int32 plane.  The
+JAX one-plane sentinel is u32 0xFFFFFFFF, which as int32 is -1 and would
+sort first; here it is INT32_MAX (`SENT32`), which sorts last.  `narrow`
+and `widen` convert between the two layouts and keep the order.
 """
 
 from __future__ import annotations
@@ -25,6 +31,9 @@ _BIAS = np.uint64(1 << 63)
 
 # the all-ones u64 sentinel, biased
 SENT = (1 << 63) - 1
+# the one-plane sentinel
+SENT32 = (1 << 31) - 1
+BIAS_I64 = -(1 << 63)  # key ^ BIAS_I64 flips the top bit: biased <-> raw
 
 
 def from_u64(keys: np.ndarray) -> np.ndarray:
@@ -49,3 +58,15 @@ def to_hi_lo(keys: torch.Tensor):
     k = to_u64(keys.detach().cpu().numpy())
     return ((k >> np.uint64(32)).astype(np.uint32),
             (k & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+
+
+def narrow(keys: torch.Tensor) -> torch.Tensor:
+    """Biased int64 keys below 2^31 - 1 (and SENT) -> one int32 plane:
+    the key itself, SENT -> SENT32."""
+    return torch.where(keys == SENT, SENT32,
+                       keys ^ BIAS_I64).to(torch.int32)
+
+
+def widen(x: torch.Tensor) -> torch.Tensor:
+    """The inverse of `narrow`: int32 plane -> biased int64 keys."""
+    return torch.where(x == SENT32, SENT, x.to(torch.int64) ^ BIAS_I64)

@@ -224,10 +224,13 @@ class SortCountEngine:
         # separator headroom: one reference batch per buffer
         self.capacity = int(block_bases) + max(4096, int(block_bases) // 32)
         self.qual_policy = qual_policy  # see io.fastx.FastxReader
+        self.plain_kernels = plain_kernels
         self._extract = (extract.extract_keys_plain if plain_kernels
                          else extract.extract_keys)
+        # hash64 output is < 2^(2k): for k <= 15 the stream ladder runs
+        # one int32 plane (table/compactor.py)
         self.compactor = KmerCompactor(
-            self.device, budget_bytes=budget_bytes,
+            self.device, budget_bytes=budget_bytes, key_bits=2 * k,
             stream_sorted=stream_sorted_default(self.device),
             plain_kernels=plain_kernels,
         )
@@ -251,8 +254,12 @@ class SortCountEngine:
         self._nk_dev.clear()
         self._nk_host = int(v)
 
-    def count_paths(self, paths: Sequence[str]) -> None:
-        """Stream every path's k-mers into the compactor."""
+    def count_paths(self, paths: Sequence[str], tap=None) -> None:
+        """Stream every path's k-mers into the compactor.  `tap`, when
+        given, is called per block as tap(keys, n_valid, n_seqs,
+        batch_end) after the block is appended, on the same (row-sliced)
+        key plane: single-file yak-count runs its admission simulation on
+        it (tools/yak_count.py)."""
         st = self.stats = IngestStats()
         t_loop = time.perf_counter()
         thr0 = self.compactor.throttle_wait_s
@@ -263,7 +270,7 @@ class SortCountEngine:
         while True:
             t0 = time.perf_counter()
             try:
-                buf, n_bases, n_seqs, row_bytes, _batch_end = next(it)
+                buf, n_bases, n_seqs, row_bytes, batch_end = next(it)
             except StopIteration:
                 st.wait_s += time.perf_counter() - t0
                 break
@@ -279,6 +286,8 @@ class SortCountEngine:
             self.total_bases += int(n_bases)
             self.total_seqs += n_seqs
             self._nk_dev.append(n_kmers)
+            if tap is not None:
+                tap(keys, n_kmers, n_seqs, batch_end)
             st.dispatch_s += time.perf_counter() - t1
         st.loop_s = time.perf_counter() - t_loop
         st.throttle_s = self.compactor.throttle_wait_s - thr0

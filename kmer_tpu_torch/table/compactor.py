@@ -1,10 +1,18 @@
-"""Sort-based k-mer count engine ("compactor"), two-plane mode (port of
+"""Sort-based k-mer count engine ("compactor") (port of
 kmer_tpu/table/compactor.py `KmerCompactor`).
 
 Keys are biased int64 (kernels/keys.py): one plane carries what the JAX
-package keeps as (hi, lo), so its two-plane mode is the only mode here
-(at k <= 15 the JAX one-plane mode gives the same output).  Counts are
-int32 holding the JAX package's uint32 counts.
+package keeps as (hi, lo).  Counts are int32 holding the JAX package's
+uint32 counts.
+
+One-plane mode (`key_bits <= 30`, i.e. k <= 15): as in the JAX package,
+the stream ladder then holds one 32-bit key plane, sorts and merges it
+(kernels/bitonic.py `merge_sorted_halves1_`, the one-plane kernels) and
+counts 4 bytes a raw lane against the budget.  Keys narrow to int32 once,
+where they enter the ladder, and widen back to biased int64 where the
+ladder folds into `_compact` / `_hist_sorted` (as the JAX package derives
+its hi plane there, compactor.py:165-171), so the segment histogram
+stays the int64 kernel.  Classic mode keeps int64 lanes.
 
   add_raw      append sentinelized key planes; classic mode keeps a run
                list, stream-sorted mode sorts 2^24-lane chunks as they
@@ -33,7 +41,7 @@ import numpy as np
 import torch
 
 from ..kernels import bitonic, seghist
-from ..kernels.keys import SENT
+from ..kernels.keys import SENT, SENT32, narrow, widen
 from ..kernels.segops import segment_starts
 
 # stream-sorted mode: raw keys fold into sorted runs of this many lanes
@@ -102,16 +110,27 @@ class KmerCompactor:
     # Budget default 2 GiB of raw keys (8 bytes a lane), as in the JAX
     # package: compaction peaks near 3x the accumulated run bytes.
     def __init__(self, device, budget_bytes: int = 2 << 30,
+                 key_bits: Optional[int] = None,
                  stream_sorted: bool = False, plain_kernels: bool = False):
         self.device = torch.device(device)
         self.runs: List[Run] = []
         self.budget_bytes = budget_bytes
         self._bytes = 0
         self.stream_sorted = bool(stream_sorted)
+        # keys < 2^30 (k <= 15 after hash64) fit one int32 plane whose
+        # sentinel INT32_MAX no key can equal (compactor.py:311-313 takes
+        # key_bits <= 31 for its u32 plane, whose sentinel is 2^32 - 1)
+        self.one_plane = key_bits is not None and key_bits <= 30
         self._seg_bins = (seghist.segment_bins_sorted_plain if plain_kernels
                           else seghist.segment_bins_sorted)
-        self._merge_ = (bitonic.merge_sorted_halves_plain_ if plain_kernels
-                        else bitonic.merge_sorted_halves_)
+        if self.one_plane:
+            self._merge_ = (bitonic.merge_sorted_halves1_plain_
+                            if plain_kernels
+                            else bitonic.merge_sorted_halves1_)
+        else:
+            self._merge_ = (bitonic.merge_sorted_halves_plain_
+                            if plain_kernels
+                            else bitonic.merge_sorted_halves_)
         self._events: deque = deque()
         # time the host spent blocked on the stream throttle
         self.throttle_wait_s = 0.0
@@ -120,11 +139,15 @@ class KmerCompactor:
 
     def add_raw(self, keys: torch.Tensor) -> None:
         """Append sentinelized keys (invalid lanes already SENT)."""
-        if self.stream_sorted:
-            self.stream.add((keys,))
-        else:
+        if not self.stream_sorted:
             self.runs.append((keys, None))
-        self._bytes += int(keys.shape[0]) * 8
+            self._bytes += int(keys.shape[0]) * 8
+        elif self.one_plane:
+            self.stream.add((narrow(keys),))
+            self._bytes += int(keys.shape[0]) * 4
+        else:
+            self.stream.add((keys,))
+            self._bytes += int(keys.shape[0]) * 8
         if self._bytes > self.budget_bytes:
             self.compact()
 
@@ -174,14 +197,21 @@ class KmerCompactor:
         n = planes[0].shape[0]
         if target == n:
             return planes
-        pad = planes[0].new_full((target - n,), SENT)
+        sent = SENT32 if planes[0].dtype == torch.int32 else SENT
+        pad = planes[0].new_full((target - n,), sent)
         return (torch.cat([planes[0], pad]),)
+
+    def _keys_of(self, planes) -> torch.Tensor:
+        """A sorted ladder plane as biased int64 keys (one-plane widens)."""
+        return widen(planes[0]) if self.one_plane else planes[0]
+
+    def _stream_keys(self) -> torch.Tensor:
+        return self._keys_of(self.stream.planes())
 
     def _absorb_stream(self) -> None:
         """Mixed state (counted runs + stream runs): hand the merged
         stream plane to the classic path as one raw run."""
-        (keys,) = self.stream.planes()
-        self.runs.append((keys, None))
+        self.runs.append((self._stream_keys(), None))
         self.stream.clear()
 
     def _compact_stream_piecewise(self) -> None:
@@ -200,7 +230,7 @@ class KmerCompactor:
         lad.clear()
         runs.sort(key=lambda p: p[0].shape[0], reverse=True)
         while runs:
-            (keys,) = runs.pop(0)
+            keys = self._keys_of(runs.pop(0))
             self.runs.append(_compact(keys, None, pre_sorted=True))
 
     def compact(self) -> None:
@@ -208,7 +238,7 @@ class KmerCompactor:
         if self.stream:
             if (not self.runs
                     and self.stream.data_lanes <= _STREAM_CHUNK * 2):
-                (keys,) = self.stream.planes()
+                keys = self._stream_keys()
                 self.stream.clear()
                 self._store_compacted(_compact(keys, None, pre_sorted=True))
                 return
@@ -234,7 +264,7 @@ class KmerCompactor:
             if self.runs:
                 self._absorb_stream()
             else:
-                (keys,) = self.stream.planes()
+                keys = self._stream_keys()
                 counts, pre_sorted = None, True
         if not pre_sorted:
             if not self.runs:

@@ -13,6 +13,7 @@ _TOOLS = {
     "kc-c2": ("kmer_tpu_torch.tools.kc", "main_kc_c2"),
     "kc-c3": ("kmer_tpu_torch.tools.kc", "main_kc_c3"),
     "kc-c4": ("kmer_tpu_torch.tools.kc", "main_kc_c4"),
+    "yak-count": ("kmer_tpu_torch.tools.yak_count", "main"),
 }
 
 

@@ -183,3 +183,56 @@ def test_device_rule(monkeypatch):
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             kmer_tpu_torch.default_device()
+
+
+@pytest.mark.parametrize("budget", [2 << 30, 20_000])
+@pytest.mark.parametrize("stream", [False, True])
+@pytest.mark.parametrize("k", [11, 15])
+def test_one_plane_matches_jax(k, stream, budget, small_chunk):
+    """KmerCompactor(key_bits=2k) at k <= 15 runs one-plane: in stream
+    mode the ladder holds int32 lanes and merges them with the one-plane
+    merge; with or without budget trips its histograms equal the JAX
+    one-plane compactor's (which counts without trips)."""
+    rng = np.random.default_rng(k + 10 * stream + (budget < 1 << 20))
+    batches = _batches(rng, 10, 300, 5000, key_bits=2 * k)
+    j = JC.KmerCompactor(key_bits=2 * k, stream_sorted=stream)
+    t = TC.KmerCompactor("cpu", budget_bytes=budget, key_bits=2 * k,
+                         stream_sorted=stream)
+    assert j.one_plane and t.one_plane
+    merges = []
+    if stream:
+        real = t._merge_
+        t._merge_ = lambda x: merges.append(x.dtype) or real(x)
+    held = set()  # dtypes the ladder held between adds (trips empty it)
+    for hi, lo in batches:
+        j.add_raw(jnp.asarray(hi), jnp.asarray(lo))
+        t.add_raw(keys.from_hi_lo(hi, lo))
+        if stream:
+            held |= {p[0].dtype for p in
+                     list(t.stream.ladder.values()) + t.stream.pending}
+    if stream:
+        assert held == {torch.int32}
+        assert merges and set(merges) == {torch.int32}
+    if budget < 1 << 20:
+        assert t.runs and t.runs[0][1] is not None  # compacted
+    _same_hists(j, t)
+
+
+def test_one_plane_engine_matches_jax(monkeypatch):
+    """The port's engine at k=15 (one-plane, stream mode, small chunk)
+    against the JAX engine on the fixture."""
+    from kmer_tpu.pipeline.counter import SortCountEngine as JEngine
+    from kmer_tpu_torch.pipeline.counter import SortCountEngine
+
+    monkeypatch.setattr(TC, "_STREAM_CHUNK", 1 << 14)
+    monkeypatch.setenv("KMER_TPU_STREAM_SORT", "1")
+    je = JEngine(k=15, block_bases=1 << 16)
+    je.count_paths([READS])
+    te = SortCountEngine(k=15, block_bases=1 << 16, device="cpu",
+                         budget_bytes=1 << 18)
+    assert te.compactor.one_plane and te.compactor.stream_sorted
+    te.count_paths([READS])
+    for cfg in CFGS:
+        assert np.array_equal(je.hist(*cfg), te.hist(*cfg))
+        assert te._n_distinct == je._n_distinct
+    assert not SortCountEngine(k=16, device="cpu").compactor.one_plane

@@ -215,3 +215,99 @@ def test_merge_small_and_wrapper():
                            torch.sort(v).values)
     with pytest.raises(ValueError):
         bitonic.merge_sorted_halves_(torch.zeros(6, dtype=torch.int64))
+
+
+def _sorted_halves_u32(planes, n):
+    """Sort each half of u32 planes lexicographically (all planes keys)."""
+    half = n // 2
+    out = [jax.lax.sort(tuple(jnp.asarray(p[a:a + half]) for p in planes),
+                        num_keys=len(planes)) for a in (0, half)]
+    return [jnp.concatenate([h0, h1]) for h0, h1 in zip(*out)]
+
+
+def test_one_plane_narrow_widen():
+    """The one-plane layout: data keys < 2^30 as int32, the sentinel as
+    INT32_MAX (the JAX u32 0xFFFFFFFF would be -1 and sort first)."""
+    rng = np.random.default_rng(4)
+    u = rng.integers(0, 1 << 30, 3000, dtype=np.uint64)
+    u[:3] = [0, (1 << 30) - 1, 0xFFFFFFFFFFFFFFFF]
+    b = torch.from_numpy(keys.from_u64(u))
+    x = keys.narrow(b)
+    assert x.dtype == torch.int32
+    assert int(x[2]) == keys.SENT32 == (1 << 31) - 1
+    assert np.array_equal(x[3:].numpy(), u[3:].astype(np.int32))
+    assert torch.equal(keys.widen(x), b)
+    assert torch.equal(torch.sort(x).indices, torch.sort(b).indices)
+
+
+@pytest.mark.parametrize("n", [1 << 18, 1 << 19])
+def test_merge1_plain_matches_pallas_interpret(n):
+    """One-plane merge (kernels 5-6, _merge_tile_kernel1/_xstage_kernel1)
+    with 20% sentinels: the port's int32 twin equals the JAX u32 merge."""
+    from kmer_tpu.kernels import bitonic as jb
+
+    rng = np.random.default_rng(n + 1)
+    lo = rng.integers(0, 1 << 30, n, dtype=np.uint64).astype(np.uint32)
+    lo[rng.random(n) < 0.2] = 0xFFFFFFFF
+    (cl,) = _sorted_halves_u32([lo], n)
+    ml = np.asarray(jb.merge_sorted_halves1(cl, use_pallas=True))
+    x = keys.narrow(keys.from_hi_lo(np.where(np.asarray(cl) == 0xFFFFFFFF,
+                                             0xFFFFFFFF, 0), np.asarray(cl)))
+    out = bitonic.merge_sorted_halves1_plain_(x)
+    assert out is x and out.dtype == torch.int32
+    want = np.where(ml == 0xFFFFFFFF, keys.SENT32, ml).astype(np.int32)
+    assert np.array_equal(out.numpy(), want)
+    assert (out == keys.SENT32).sum() == (lo == 0xFFFFFFFF).sum()
+
+
+@pytest.mark.parametrize("n", [1 << 17, 1 << 18])
+def test_merge3_plain_matches_pallas_interpret(n):
+    """Three-plane merge (kernels 7-8, _merge_tile_kernel3/_xstage_kernel3;
+    2^17 is the tile pass alone, 2^18 adds one cross-tile stage): the
+    port's (int64 key, int64 index) twin equals the JAX (hi, lo, idx)
+    merge, with repeated keys so the index decides ties, and 15%
+    sentinel lanes."""
+    from kmer_tpu.kernels import bitonic as jb
+
+    rng = np.random.default_rng(n + 3)
+    pool = rng.integers(0, 1 << 40, 2000, dtype=np.uint64)
+    u = pool[rng.integers(0, 2000, n)]
+    hi = (u >> np.uint64(32)).astype(np.uint32)
+    lo = u.astype(np.uint32)
+    idx = rng.permutation(n).astype(np.uint32)
+    idx[: n // 4] += np.uint32((1 << 32) - (1 << 26) - n)  # high indices
+    m = rng.random(n) < 0.15
+    hi[m], lo[m], idx[m] = 0xFFFFFFFF, 0xFFFFFFFF, 0xFFFFFFFF
+    ch, cl, cx = _sorted_halves_u32([hi, lo, idx], n)
+    mh, ml, mx = jb.merge_sorted_halves3(ch, cl, cx, use_pallas=True)
+    k = _jax_keys(ch, cl)
+    i = torch.from_numpy(np.asarray(cx).astype(np.int64))
+    ok, oi = bitonic.merge_sorted_halves3_plain_(k, i)
+    assert ok is k and oi is i
+    assert torch.equal(ok, _jax_keys(mh, ml))
+    assert np.array_equal(oi.numpy(), np.asarray(mx).astype(np.int64))
+
+
+def test_merge1_merge3_small_and_wrappers():
+    rng = np.random.default_rng(8)
+    for lg in (1, 2, 7, 12):
+        n = 1 << lg
+        v = torch.from_numpy(rng.integers(-50, 50, n).astype(np.int32))
+        x = torch.cat([torch.sort(v[: n // 2]).values,
+                       torch.sort(v[n // 2:]).values])
+        assert torch.equal(bitonic.merge_sorted_halves1_(x.clone()),
+                           torch.sort(v).values)
+        k = torch.from_numpy(rng.integers(0, 5, n))
+        i = torch.from_numpy(rng.permutation(n))
+        halves = [np.lexsort((i[a:a + n // 2].numpy(),
+                              k[a:a + n // 2].numpy())) + a
+                  for a in (0, n // 2)]
+        o = torch.from_numpy(np.concatenate(halves))
+        ok, oi = bitonic.merge_sorted_halves3_(k[o].clone(), i[o].clone())
+        want = np.lexsort((i.numpy(), k.numpy()))
+        assert torch.equal(ok, k[want]) and torch.equal(oi, i[want])
+    with pytest.raises(ValueError):
+        bitonic.merge_sorted_halves1_(torch.zeros(8, dtype=torch.int64))
+    with pytest.raises(ValueError):
+        bitonic.merge_sorted_halves3_(torch.zeros(8, dtype=torch.int64),
+                                      torch.zeros(4, dtype=torch.int64))
