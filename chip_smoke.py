@@ -8,7 +8,15 @@ Phases, each printing its own lines:
   2. build    the kernels from kmer_tpu_torch/csrc/ (first-use nvcc build)
   3. kernels  each CUDA kernel against its plain PyTorch version on the
               card, lane for lane (tolerance 0: integer outputs), at the
-              main path's shapes, with both times (CUDA events)
+              main path's shapes, with both times (CUDA events), its
+              bound (bytes at 3.35 TB/s) and, where one PyTorch call
+              computes the same function, that call's time; the
+              two-plane merge (merge_partition + merge_path) against
+              torch.sort on edge cases and at 2^25 and 2^28 lanes, timed
+              in turns with its plain version, torch.sort and the old
+              int64 bitonic merge (with the concatenation it needs),
+              whose two kernels are still checked and timed one by one
+              (printed, not in the kernels line: no path launches them)
   4. e2e      `kc-c4 -k31` through kmer_tpu_torch.tools on a synthetic
               gzipped FASTQ (24 MiB genome, 150 bp reads, 0.5% errors,
               256 Mbases, made from --seed and cached under
@@ -30,8 +38,11 @@ Phases, each printing its own lines:
               the port on the CPU
 
 Each path's launch counts are set to 0 just before it runs and read just
-after; the kernels line takes kernels 1-4's counts from phase 4, the
-one-plane merge's from phase 7 and the (key, index) merge's from phase 6.
+after; the kernels line takes the counts of extract, seghist and the
+merge path from phase 4, the one-plane merge's from phase 7 and the
+(key, index) merge's from phase 6.  No path may launch the int64 bitonic
+merge, and after every phase neither jax nor any module of the JAX
+package (kmer_tpu) may be loaded.
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero without
@@ -42,6 +53,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import io
 import json
 import os
@@ -60,7 +72,17 @@ MBASES = 256  # the e2e run's size: the JAX bench's headline file
 ERR_FREE = 0  # tolerance of every comparison: outputs are integers
 # the kernels of the kc-c4 -k31 path (phase 4); yak adds the (key, index)
 # merge (phase 6), k <= 15 swaps the merge for the one-plane one (phase 7)
-KC_PATH_KERNELS = ("extract", "seghist", "merge_tile", "merge_xstage")
+KC_PATH_KERNELS = ("extract", "seghist", "merge_partition", "merge_path")
+# the int64 bitonic pair, off the main path since the merge path replaced
+# it: phase 3 times it beside the merge path, and no path may launch it
+OLD_INT64_MERGE = ("merge_tile", "merge_xstage")
+
+
+def no_jax_package(phase):
+    """The port imports neither jax nor anything of the JAX package."""
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("kmer_tpu", "jax"))
+    need(not bad, f"[{phase}] the port imported {bad[:10]}")
 
 
 class SmokeFailure(Exception):
@@ -191,19 +213,51 @@ def phase_build():
     say("build", f"native reader ready in {time.perf_counter() - t0:.2f} s")
 
 
+HBM_BYTES_PER_S = 3.35e12  # one H100 SXM, the published peak at 700 W
+
+
+def kernel_row(err, ms, plain_ms, nbytes, library_ms=None):
+    """One kernel's numbers for the kernels line: its bound is the bytes
+    it must move (each input read once, each output written once) at
+    the card's memory rate.  The operation bound is not taken: NVIDIA's
+    published peak rates give no integer-ALU rate, and these kernels
+    compare and shift integers."""
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": library_ms}
+
+
+def timing_text(row):
+    lib = row["library_ms"]
+    return (f"kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
+            f"bound {row['bound_ms']:.3f} ms, torch.sort "
+            + ("none" if lib is None else f"{lib:.3f} ms"))
+
+
+def changed_lanes(before, after):
+    """Lanes an in-place pass must write: those whose value changed."""
+    return sum(int((x != y).sum()) for x, y in zip(before, after))
+
+
 def merge_rows(rows, name, halves, want, whole, whole_plain, xstage,
-               stage_plain, tiles, bits):
-    """Check one lane type's merge kernels on the card: the whole merge
-    (kernels and plain version) against torch.sort, then each kernel
-    alone against its plain stages: the top cross-tile stage, and the
-    tile pass on planes whose cross-tile stages are done.  Adds the rows
-    `{name}_xstage` and `{name}_tile` (with kernel names merge_xstage1
-    etc. for the suffixed lane types)."""
+               stage_plain, tiles, bits, library=True):
+    """Check one lane type's bitonic merge kernels on the card: the whole
+    merge (kernels and plain version) against torch.sort, then each
+    kernel alone against its plain stages: the top cross-tile stage, and
+    the tile pass on planes whose cross-tile stages are done.  Adds the
+    rows `merge_xstage{suffix}` and `merge_tile{suffix}`.  Each kernel's
+    bytes: every lane read, the changed lanes written (both work in
+    place).  With `library`, one torch.sort call that computes the same
+    function is timed beside each (a sort of every compare-exchange pair,
+    a sort of every tile)."""
+    import torch
+
     from kmer_tpu_torch.kernels import bitonic
 
     suffix = name[len("merge"):]
     n = halves[0].shape[0]
     lg = n.bit_length() - 1
+    lane_bytes = sum(p.element_size() for p in halves)
 
     def clone(planes):
         return tuple(p.clone() for p in planes)
@@ -222,17 +276,29 @@ def merge_rows(rows, name, halves, want, whole, whole_plain, xstage,
     plain_ms = time_ms(lambda p: whole_plain(*p), lambda: clone(halves))
     say("kernels", f"{name} 2^{lg} lanes: equal to torch.sort; whole merge "
         f"kernels {ms:.3f} ms, plain {plain_ms:.3f} ms")
+
+    def lib_ms(planes, view, got):
+        if not library:
+            return None
+        lib = torch.sort(view(planes[0]), dim=1).values.reshape(-1)
+        need(torch.equal(lib, got[0]), f"{name}: torch.sort != kernel")
+        return time_ms(lambda p: torch.sort(view(p[0]), dim=1).values,
+                       lambda: planes)
+
     seq = clone(halves)
     bitonic._flip_second_half_(*seq)
-    e = err(tup(xstage(*clone(seq), n // 2)),
-            tup(stage_plain(*clone(seq), n // 2)))
+    got = tup(xstage(*clone(seq), n // 2))
+    e = err(got, tup(stage_plain(*clone(seq), n // 2)))
     need(e == ERR_FREE, f"merge_xstage{suffix}: kernel != plain "
          f"(max err {e})")
+    nbytes = n * lane_bytes + changed_lanes(seq, got) * lane_bytes // len(seq)
     ms = time_ms(lambda p: xstage(*p, n // 2), lambda: clone(seq))
     plain_ms = time_ms(lambda p: stage_plain(*p, n // 2), lambda: clone(seq))
-    rows[f"merge_xstage{suffix}"] = (e, ms, plain_ms)
+    library_ms = lib_ms(seq, lambda x: x.view(-1, 2, n // 2), got)
+    rows[f"merge_xstage{suffix}"] = kernel_row(e, ms, plain_ms, nbytes,
+                                               library_ms)
     say("kernels", f"merge_xstage{suffix} stride 2^{lg - 1} on 2^{lg} lanes: "
-        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        f"{timing_text(rows[f'merge_xstage{suffix}'])}")
     upper = seq
     for k in range(n.bit_length() - 2, bits - 1, -1):
         stage_plain(*upper, 1 << k)
@@ -245,11 +311,115 @@ def merge_rows(rows, name, halves, want, whole, whole_plain, xstage,
     got = tup(tiles(*clone(upper), bits))
     e = max(err(got, tiles_plain(clone(upper))), err(got, want))
     need(e == ERR_FREE, f"merge_tile{suffix}: kernel != plain (max err {e})")
+    nbytes = (n * lane_bytes
+              + changed_lanes(upper, got) * lane_bytes // len(upper))
     ms = time_ms(lambda p: tiles(*p, bits), lambda: clone(upper))
     plain_ms = time_ms(tiles_plain, lambda: clone(upper))
-    rows[f"merge_tile{suffix}"] = (e, ms, plain_ms)
+    library_ms = lib_ms(upper, lambda x: x.view(-1, 1 << bits), got)
+    rows[f"merge_tile{suffix}"] = kernel_row(e, ms, plain_ms, nbytes,
+                                             library_ms)
     say("kernels", f"merge_tile{suffix} {bits} stages on 2^{lg} lanes: "
-        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        f"{timing_text(rows[f'merge_tile{suffix}'])}")
+
+
+def partition_bytes(na, nb, tile):
+    """Bytes merge_partition must move for these run lengths: per split,
+    two lanes for each step of its binary search, and the split out."""
+    import numpy as np
+
+    n = na + nb
+    d = np.minimum(np.arange(0, -(-n // tile) + 1, dtype=np.int64) * tile, n)
+    width = np.minimum(d, na) - np.maximum(0, d - nb)
+    steps = np.ceil(np.log2(width + 1.0))
+    return int(16 * steps.sum() + 8 * d.shape[0])
+
+
+def merge_path_rows(rows, g, dev):
+    """The two-plane merge (kernels 3-4 redesigned): merge_partition and
+    merge_path against torch.sort of the concatenation lane for lane, on
+    edge cases and at 2^25 and 2^28 lanes (15% SENT lanes), and four
+    ways to compute the whole merge timed in turns on the same runs: the
+    kernels, the plain version, torch.sort (library_ms) and the old
+    bitonic merge with the concatenation it needs.  The kernels line
+    takes the 2^25 numbers (the ladder's first merge)."""
+    import torch
+
+    from kmer_tpu_torch.kernels import bitonic, merge
+    from kmer_tpu_torch.kernels.keys import SENT
+
+    tile = merge.tile_lanes()
+
+    def runs(na, nb, pool=None):
+        v = torch.randint(-(1 << 62), 1 << 62, (pool or na + nb,),
+                          generator=g, device=dev)
+        if pool:
+            v = v[torch.randint(0, pool, (na + nb,), generator=g,
+                                device=dev)]
+        v[torch.rand(na + nb, generator=g, device=dev) < 0.15] = SENT
+        return torch.sort(v[:na]).values, torch.sort(v[na:]).values
+
+    def full(m, x):
+        return torch.full((m,), x, dtype=torch.int64, device=dev)
+
+    cases = {f"{na}+{nb}": runs(na, nb) for na, nb in
+             ((0, 0), (0, 5), (5, 0), (4095, 1), (4097, 12345),
+              (777_777, 12_345))}
+    cases["dups"] = runs(100_003, 99_999, pool=50)
+    cases["all_equal"] = (full(3 * tile + 5, 7), full(3 * tile, 7))
+    cases["all_sentinel"] = (full(tile + 1, SENT), full(2 * tile, SENT))
+    for label, (a, b) in cases.items():
+        want = torch.sort(torch.cat([a, b])).values
+        need(torch.equal(merge.merge_runs(a, b), want),
+             f"merge_path {label}: != torch.sort")
+    say("kernels", f"merge_path: equal to torch.sort on {len(cases)} edge "
+        f"cases ({', '.join(cases)})")
+    del cases
+
+    for lg in (25, 28):
+        n = 1 << lg
+        a, b = runs(n // 2, n // 2)
+        want = torch.sort(torch.cat([a, b])).values
+        splits = merge.merge_partition(a, b)
+        e_part = max_abs_err(splits,
+                             merge.merge_partition_plain(a, b, tile))
+        e = max(max_abs_err(merge.merge_path(a, b, splits), want),
+                max_abs_err(merge.merge_runs_plain(a, b), want))
+        e_old = max_abs_err(
+            bitonic.merge_sorted_halves_(torch.cat([a, b])), want)
+        need(e == e_part == e_old == ERR_FREE,
+             f"merge 2^{lg}: kernel or plain err {e}, partition err "
+             f"{e_part}, bitonic err {e_old}")
+        del want
+        ways = {
+            "merge_path": lambda: merge.merge_path(a, b, splits),
+            "merge_partition": lambda: merge.merge_partition(a, b),
+            "merge_runs": lambda: merge.merge_runs(a, b),
+            "plain": lambda: merge.merge_runs_plain(a, b),
+            "partition_plain":
+                lambda: merge.merge_partition_plain(a, b, tile),
+            "torch.sort": lambda: torch.sort(torch.cat([a, b])).values,
+            "bitonic+cat":
+                lambda: bitonic.merge_sorted_halves_(torch.cat([a, b])),
+        }
+        times = {w: [] for w in ways}
+        for w in [*ways, *reversed(ways)]:  # in turns, both ways round
+            times[w].append(time_ms(lambda _: ways[w](), reps=3))
+        t = {w: sum(v) / len(v) for w, v in times.items()}
+        nbytes = 16 * n + 8 * splits.shape[0]
+        say("kernels", f"merge 2^{lg} lanes (two 2^{lg - 1}-lane runs): "
+            f"equal to torch.sort; merge_path {t['merge_path']:.3f} ms + "
+            f"merge_partition {t['merge_partition']:.3f} ms (together "
+            f"{t['merge_runs']:.3f} ms), bound {nbytes / HBM_BYTES_PER_S * 1e3:.3f} "
+            f"ms; plain {t['plain']:.3f} ms; torch.sort {t['torch.sort']:.3f} "
+            f"ms; bitonic merge + cat {t['bitonic+cat']:.3f} ms")
+        if lg == 25:
+            rows["merge_path"] = kernel_row(e, t["merge_path"], t["plain"],
+                                            nbytes, t["torch.sort"])
+            rows["merge_partition"] = kernel_row(
+                e_part, t["merge_partition"], t["partition_plain"],
+                partition_bytes(n // 2, n // 2, tile))
+        del a, b, splits
+        torch.cuda.empty_cache()
 
 
 def phase_kernels(seed):
@@ -281,7 +451,8 @@ def phase_kernels(seed):
             f"{int(nv)} valid lanes")
     ms = time_ms(lambda _: extract.extract_keys(block, K))
     plain_ms = time_ms(lambda _: extract.extract_keys_plain(block, K))
-    rows["extract"] = (err, ms, plain_ms)
+    # one byte in and one int64 key out per lane, and the valid count
+    rows["extract"] = kernel_row(err, ms, plain_ms, block.numel() * 9 + 8)
     say("kernels", f"extract k={K}: kernel {ms:.3f} ms, plain "
         f"{plain_ms:.3f} ms")
     del block
@@ -309,14 +480,21 @@ def phase_kernels(seed):
     ms = time_ms(lambda _: seghist.segment_bins_sorted(keys, None, cfg))
     plain_ms = time_ms(
         lambda _: seghist.segment_bins_sorted_plain(keys, None, cfg), reps=2)
-    rows["seghist"] = (err, ms, plain_ms)
+    bins, fin = seghist.segment_bins_sorted(keys, None, cfg)
+    nbytes = (n * 8 + bins.numel() * bins.element_size()
+              + fin.numel() * fin.element_size())
+    rows["seghist"] = kernel_row(err, ms, plain_ms, nbytes)
     say("kernels", f"seghist 2^27 lanes unweighted {cfg}: kernel "
         f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
-    del keys, w
+    del keys, w, bins
     torch.cuda.empty_cache()
 
-    # the three merges at 2^25 lanes, 15% sentinels, two sorted halves:
-    # biased int64 keys (kernels 3-4), one-plane int32 keys (5-6), and
+    # the two-plane merge: merge path (kernels 3-4 redesigned)
+    merge_path_rows(rows, g, dev)
+
+    # the bitonic merges at 2^25 lanes, 15% sentinels, two sorted halves:
+    # biased int64 keys (the bitonic form of kernels 3-4: off the main
+    # path, not in the kernels line), one-plane int32 keys (5-6), and
     # (int64 key, rising int64 index) lanes (7-8)
     n = 1 << 25
     v = torch.randint(-(1 << 62), 1 << 62, (n,), generator=g, device=dev)
@@ -354,11 +532,12 @@ def phase_kernels(seed):
               for a in (0, n // 2))
     halves = (torch.cat([h0[0], h1[0]]), torch.cat([h0[1], h1[1]]))
     del h0, h1
+    # no one PyTorch call sorts (key, index) lanes lexicographically
     merge_rows(rows, "merge3", halves, key_idx_sort(key, idx),
                bitonic.merge_sorted_halves3_,
                bitonic.merge_sorted_halves3_plain_, bitonic.xstage3_,
                bitonic.stage3_plain_, bitonic.merge_tiles3_,
-               bitonic.tile_bits3())
+               bitonic.tile_bits3(), library=False)
     del key, idx, halves
     torch.cuda.empty_cache()
     return rows
@@ -439,6 +618,9 @@ def phase_e2e(seed):
         f"({os.path.getsize(path) / 1e6:.0f} MB gz) ready in "
         f"{time.perf_counter() - t0:.1f} s")
     bases = MBASES * 1_000_000 // READ_LEN * READ_LEN
+    # earlier phases' engines are reference cycles (compactor <-> ladder
+    # callbacks): free their device memory before the peak is read
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
@@ -462,6 +644,8 @@ def phase_e2e(seed):
     say("e2e", f"launches in this run: {json.dumps(launches)}")
     need(all(launches[name] > 0 for name in KC_PATH_KERNELS),
          f"a kernel of the path was never launched: {launches}")
+    need(not any(launches[name] for name in OLD_INT64_MERGE),
+         f"kc-c4 -k{K} ran the int64 bitonic merge: {launches}")
 
     plain = SortCountEngine(K, qual_policy=("resume", K, 3),
                             plain_kernels=True)
@@ -591,6 +775,9 @@ def phase_yak(seed):
     path = reads_file(MBASES, seed)
     bases = MBASES * 1_000_000 // READ_LEN * READ_LEN
     args = [*YAK_ARGS, path]
+    # earlier phases' engines are reference cycles (compactor <-> ladder
+    # callbacks): free their device memory before the peak is read
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
@@ -624,6 +811,8 @@ def phase_yak(seed):
     need(all(launches[name] > 0 for name in
              (*KC_PATH_KERNELS, "merge_tile3", "merge_xstage3")),
          f"a kernel of the yak path was never launched: {launches}")
+    need(not any(launches[name] for name in OLD_INT64_MERGE),
+         f"yak-count ran the int64 bitonic merge: {launches}")
 
     with recording_engines(yak_count, plain_kernels=True) as made:
         t0 = time.perf_counter()
@@ -660,8 +849,9 @@ def phase_onepl(seed):
     launches = out[False][2]
     need(launches["merge_tile1"] > 0 and launches["merge_xstage1"] > 0,
          f"the one-plane merge kernels never launched: {launches}")
-    need(launches["merge_tile"] == launches["merge_xstage"] == 0,
-         f"k=15 ran the two-plane merge: {launches}")
+    need(not any(launches[name] for name in
+                 ("merge_partition", "merge_path", *OLD_INT64_MERGE)),
+         f"k=15 ran a two-plane merge: {launches}")
     need(not any(out[True][2].values()), "the plain run launched kernels")
     say("onepl", f"kc-c4 -k15 32 Mbases, 64 MiB budget: kernels == plain "
         f"({check_hist_text(out[False][0])} distinct), {out[False][1]:.3f} "
@@ -675,9 +865,9 @@ KERNELS = [
      "kmer_tpu/kernels/extract_tpu.py:111"),
     ("seghist", "kmer_tpu_torch/csrc/seghist.cu",
      "kmer_tpu/kernels/seghist.py:63"),
-    ("merge_tile", "kmer_tpu_torch/csrc/bitonic.cu",
+    ("merge_path", "kmer_tpu_torch/csrc/merge.cu",
      "kmer_tpu/kernels/bitonic.py:194"),
-    ("merge_xstage", "kmer_tpu_torch/csrc/bitonic.cu",
+    ("merge_partition", "kmer_tpu_torch/csrc/merge.cu",
      "kmer_tpu/kernels/bitonic.py:103"),
     ("merge_tile1", "kmer_tpu_torch/csrc/bitonic.cu",
      "kmer_tpu/kernels/bitonic.py:277"),
@@ -708,37 +898,32 @@ def main(argv=None):
     except ImportError as e:
         sys.stderr.write(f"chip_smoke: the port is not here ({e})\n")
         return 2
-    phase = "card"
+    phases = (("card", phase_card), ("build", phase_build),
+              ("kernels", lambda: phase_kernels(args.seed)),
+              ("e2e", lambda: phase_e2e(args.seed)),
+              ("budget", lambda: phase_budget(args.seed)),
+              ("yak", lambda: phase_yak(args.seed)),
+              ("onepl", lambda: phase_onepl(args.seed)),
+              ("fixture", phase_fixture))
+    out = {}
     try:
-        card = phase_card()
-        phase = "build"
-        phase_build()
-        phase = "kernels"
-        rows = phase_kernels(args.seed)
-        phase = "e2e"
-        launches = phase_e2e(args.seed)
-        phase = "budget"
-        phase_budget(args.seed)
-        phase = "yak"
-        yak_launches = phase_yak(args.seed)
-        phase = "onepl"
-        onepl_launches = phase_onepl(args.seed)
-        phase = "fixture"
-        phase_fixture()
+        for phase, fn in phases:
+            out[phase] = fn()
+            no_jax_package(phase)
     except Exception:  # noqa: BLE001 - report which phase failed, exit 1
         traceback.print_exc()
         print(f"[{phase}] FAILED", flush=True)
         return 1
+    card, rows, launches = out["card"], out["kernels"], out["e2e"]
     # each kernel's count from the path that it serves (module docstring)
     for name in ("merge_tile1", "merge_xstage1"):
-        launches[name] = onepl_launches[name]
+        launches[name] = out["onepl"][name]
     for name in ("merge_tile3", "merge_xstage3"):
-        launches[name] = yak_launches[name]
+        launches[name] = out["yak"][name]
     print(card)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": rows[name][0],
-         "ms": rows[name][1], "plain_ms": rows[name][2]}
+         "launches": launches[name], **rows[name]}
         for name, src, rep in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,9 +11,11 @@ raises when no GPU is present.  `KMER_TPU_PLATFORM=cpu` (the JAX
 package's platform knob) selects the CPU explicitly, and there every
 kernel runs its plain PyTorch version.
 
-Host code without jax is reused by import, unchanged: the FASTA/FASTQ
-readers (`kmer_tpu.io.fastx`, `kmer_tpu.io.packing`, the native C++
-reader `kmer_tpu.io.native`) and the CLI helpers (`kmer_tpu.utils.cli`).
+The port imports nothing of `kmer_tpu` (nor jax).  The host code it
+shares with the JAX package is copied, not imported: the FASTA/FASTQ
+readers (`io/fastx.py`, `io/packing.py`, and the native C++ reader in
+`io/native/`, built at first use into build/kmer_tpu_torch/) and the CLI
+and log helpers (`utils/cli.py`, `utils/log.py`).
 """
 
 from __future__ import annotations

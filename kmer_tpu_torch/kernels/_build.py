@@ -37,7 +37,8 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kmer_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
-LAUNCHES = {"extract": 0, "seghist": 0, "merge_tile": 0, "merge_xstage": 0,
+LAUNCHES = {"extract": 0, "seghist": 0, "merge_partition": 0,
+            "merge_path": 0, "merge_tile": 0, "merge_xstage": 0,
             "merge_tile1": 0, "merge_xstage1": 0, "merge_tile3": 0,
             "merge_xstage3": 0}
 
@@ -59,6 +60,9 @@ _SIGNATURES = {
     "ktt_merge_xstage3": [_P, _P, _I64, _I64, _P],
     "ktt_merge_tiles3": [_P, _P, _I64, _I32, _P],
     "ktt_merge_tile_bits3": [],
+    "ktt_merge_tile_lanes": [],
+    "ktt_merge_partition": [_P, _I64, _P, _I64, _P, _P],
+    "ktt_merge_path": [_P, _I64, _P, _I64, _P, _P, _P],
 }
 
 _lock = threading.Lock()

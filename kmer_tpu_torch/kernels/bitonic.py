@@ -3,7 +3,10 @@
 Three lane types, one per JAX merge:
 
   merge_sorted_halves_    one biased int64 plane: the JAX two-plane
-                          (hi, lo) merge (`merge_sorted_halves`)
+                          (hi, lo) merge (`merge_sorted_halves`).  Off
+                          the main path: the two-plane ladder merges
+                          with kernels/merge.py `merge_runs`, and only
+                          chip_smoke.py still times this one beside it
   merge_sorted_halves1_   one int32 plane: the JAX one-plane merge of
                           keys < 2^31 (`merge_sorted_halves1`); the
                           sentinel is INT32_MAX (table/compactor.py)

@@ -1,8 +1,8 @@
 """The end-to-end k-mer counting engine (port of
 kmer_tpu/pipeline/counter.py, ASCII ingest on one device).
 
-  reader thread:  the native C++ reader (kmer_tpu.io.native, reused
-                  unchanged) decompresses, parses and packs reads into
+  reader thread:  the native C++ reader (io/native, a copy of the JAX
+                  package's) decompresses, parses and packs reads into
                   flat ASCII blocks, one invalid byte between reads; the
                   same thread stages each block in pinned host memory
   main thread:    copies the block to the device (non-blocking, from
@@ -10,9 +10,9 @@ kmer_tpu/pipeline/counter.py, ASCII ingest on one device).
                   extraction kernel and appends them to the sort-based
                   compactor (table/compactor.py)
 
-The JAX package's counter.py imports jax at module top, so its host
-helpers (_iter_packed, _trim_to_class, _prefetch, _timed_iter,
-IngestStats) are ported here rather than imported.
+The port imports nothing of kmer_tpu, so the JAX counter's host helpers
+(_iter_packed, _trim_to_class, _prefetch, _timed_iter, IngestStats) are
+ported here rather than imported.
 """
 
 from __future__ import annotations
@@ -25,9 +25,8 @@ from typing import Iterator, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from kmer_tpu.io import fastx, packing
-
 from .. import default_device
+from ..io import fastx, native, packing
 from ..kernels import extract
 from ..table.compactor import KmerCompactor, stream_sorted_default
 
@@ -99,11 +98,9 @@ def _trim_to_class(buf: np.ndarray, n: int) -> np.ndarray:
 
 
 def native_reader() -> bool:
-    """Whether the native C++ reader (kmer_tpu.io.native) is usable; it
-    builds with g++ at first use, and the pure-Python reader runs when it
+    """Whether the native C++ reader (io/native) is usable; it builds
+    with g++ at first use, and the pure-Python reader runs when it
     cannot."""
-    from kmer_tpu.io import native
-
     return native.available()
 
 
@@ -118,8 +115,6 @@ def _iter_packed(
     reference pipeline batch.  Uses the native C++ reader when it builds,
     the pure-Python reader otherwise."""
     if all(p != "-" for p in paths) and native_reader():
-        from kmer_tpu.io import native
-
         for buf, used, n_bases, n_seqs, rb, be in native.iter_packed_native(
             paths, k, block_bases, capacity, qual_policy
         ):

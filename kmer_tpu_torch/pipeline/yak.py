@@ -14,9 +14,8 @@ from __future__ import annotations
 
 import os
 
-from kmer_tpu.utils.log import warn
-
 from ..kernels.bloom import BLK_SHIFT, BloomSpec
+from ..utils.log import warn
 
 YAK_COUNTER_BITS = 10  # yak-count.c:9
 YAK_N_COUNTS = 1 << YAK_COUNTER_BITS

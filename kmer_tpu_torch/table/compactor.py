@@ -17,7 +17,9 @@ stays the int64 kernel.  Classic mode keeps int64 lanes.
   add_raw      append sentinelized key planes; classic mode keeps a run
                list, stream-sorted mode sorts 2^24-lane chunks as they
                arrive and carry-merges them up a binary ladder
-               (table/stream_ladder.py) with the bitonic merge kernel.
+               (table/stream_ladder.py): int64 runs with the merge-path
+               kernels (kernels/merge.py `merge_runs`, out of place),
+               one-plane int32 runs with the bitonic merge kernels.
   compact      fold everything into one (key, count) run: sort, segment
                ends, counts.  A budget trip in stream mode compacts
                ladder run by ladder run (`_compact_stream_piecewise`).
@@ -40,12 +42,12 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..kernels import bitonic, seghist
+from ..kernels import bitonic, merge, seghist
 from ..kernels.keys import SENT, SENT32, narrow, widen
 from ..kernels.segops import segment_starts
 
 # stream-sorted mode: raw keys fold into sorted runs of this many lanes
-# as they arrive, and finalization pays only the bitonic merges
+# as they arrive, and finalization pays only the ladder merges
 _STREAM_CHUNK = 1 << 24
 _STREAM_MIN = 1 << 16
 # pushed chunks the host may run ahead of the device in stream mode
@@ -128,9 +130,8 @@ class KmerCompactor:
                             if plain_kernels
                             else bitonic.merge_sorted_halves1_)
         else:
-            self._merge_ = (bitonic.merge_sorted_halves_plain_
-                            if plain_kernels
-                            else bitonic.merge_sorted_halves_)
+            self._merge_two_plane = (merge.merge_runs_plain
+                                     if plain_kernels else merge.merge_runs)
         self._events: deque = deque()
         # time the host spent blocked on the stream throttle
         self.throttle_wait_s = 0.0
@@ -188,6 +189,8 @@ class KmerCompactor:
             self.throttle_wait_s += time.perf_counter() - t0
 
     def _merge_runs(self, a, b):
+        if not self.one_plane:
+            return (self._merge_two_plane(a[0], b[0]),)
         # the concatenation is a throwaway temporary: merge it in place
         # (the JAX package donates it, compactor.py:440-447)
         return (self._merge_(torch.cat([a[0], b[0]])),)

@@ -9,9 +9,8 @@ from __future__ import annotations
 
 import sys
 
-from kmer_tpu.utils.cli import c_atoi, ketopt
-
 from ..pipeline.counter import make_count_engine
+from ..utils.cli import c_atoi, ketopt
 
 KC_BITS = 10  # kc-c2.c:10 / kc-c4.c:11
 

@@ -18,11 +18,10 @@ from __future__ import annotations
 import os
 import sys
 
-from kmer_tpu.utils.cli import c_atoi, ketopt
-
 from ..pipeline.counter import make_count_engine
 from ..pipeline.yak import (YAK_COUNTER_BITS, YAK_MAX_COUNT, YAK_N_COUNTS,
                             YakSimTap)
+from ..utils.cli import c_atoi, ketopt
 
 
 def _log(n_seqs, tot):

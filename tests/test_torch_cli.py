@@ -2,8 +2,8 @@
 against kmer_tpu.tools: kc stdout must be byte-identical on both fixtures
 at k in {15, 21, 31, 32}; yak-count stdout and its ordered `[M` stderr
 lines on the reads fixture, with stream-sorted accumulation off and on.
-Also pins that the port and the host modules it reuses never import
-jax."""
+Also pins that the port never imports jax nor anything of kmer_tpu (it
+carries its own copies of the host modules it shares with it)."""
 
 import os
 import subprocess
@@ -58,6 +58,9 @@ sys.path.insert(0, {repo!r})
 {body}
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert not bad, bad
+bad = sorted(m for m in sys.modules
+             if m == "kmer_tpu" or m.startswith("kmer_tpu."))
+assert not bad, bad
 """
 
 
@@ -82,11 +85,24 @@ def test_port_cli_never_imports_jax():
 
 
 def test_reused_host_modules_never_import_jax():
+    """Every module of the port imports, and kc-c4 and yak-count run
+    through the pure-Python reader copy (KMER_TPU_NO_NATIVE), with
+    neither jax nor any kmer_tpu module loaded."""
     r = _python(
-        "import kmer_tpu.io.fastx, kmer_tpu.io.packing, kmer_tpu.io.native\n"
-        "import kmer_tpu.utils.cli\n"
-        "import kmer_tpu_torch.pipeline.counter, kmer_tpu_torch.tools.kc\n")
+        "import importlib, pkgutil, kmer_tpu_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(\n"
+        "    kmer_tpu_torch.__path__, 'kmer_tpu_torch.')]\n"
+        "assert 'kmer_tpu_torch.io.native' in mods, mods\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "from kmer_tpu_torch.pipeline.counter import native_reader\n"
+        "assert not native_reader()\n"
+        "from kmer_tpu_torch.tools import get_tool\n"
+        f"assert get_tool('kc-c4')(['-k31', {READS!r}]) == 0\n"
+        f"assert get_tool('yak-count')(['-k21', '-b19', {READS!r}]) == 0\n",
+        {"KMER_TPU_PLATFORM": "cpu", "KMER_TPU_NO_NATIVE": "1"})
     assert r.returncode == 0, r.stderr
+    assert len(r.stdout.splitlines()) == 255 + 1023
 
 
 def test_launcher_runs_a_tool():

@@ -72,6 +72,38 @@ def test_hist_matches_jax(stream, key_bits, small_chunk):
     _same_hists(j, t)
 
 
+@pytest.mark.parametrize("plain_kernels", [False, True])
+def test_two_plane_ladder_merges_with_merge_path(plain_kernels, small_chunk):
+    """The two-plane stream ladder merges its int64 runs with
+    kernels/merge.py (merge_runs, or its plain version under
+    plain_kernels), out of place: no concatenation, the runs left as they
+    were; the histograms still equal the JAX bitonic ladder's."""
+    from kmer_tpu_torch.kernels import merge
+
+    rng = np.random.default_rng(17)
+    batches = _batches(rng, 9, 300, 5000)
+    j, _ = _pair(batches, stream=True)
+    t = TC.KmerCompactor("cpu", stream_sorted=True,
+                         plain_kernels=plain_kernels)
+    assert t._merge_two_plane is (merge.merge_runs_plain if plain_kernels
+                                  else merge.merge_runs)
+    merges = []
+    real = t._merge_two_plane
+
+    def record(a, b):
+        a0, b0 = a.clone(), b.clone()
+        out = real(a, b)
+        assert torch.equal(a, a0) and torch.equal(b, b0)
+        merges.append((a.dtype, a.shape[0], b.shape[0]))
+        return out
+
+    t._merge_two_plane = record
+    for hi, lo in batches:
+        t.add_raw(keys.from_hi_lo(hi, lo))
+    assert merges and {m[0] for m in merges} == {torch.int64}
+    _same_hists(j, t)
+
+
 @pytest.mark.parametrize("stream", [False, True])
 def test_default_chunk_small_input(stream):
     """Input far below one chunk: the tail-only fold (pad + sort)."""

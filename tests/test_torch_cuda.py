@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from kmer_tpu_torch.kernels import bitonic, extract, seghist
+from kmer_tpu_torch.kernels import bitonic, extract, merge, seghist
 from kmer_tpu_torch.kernels.keys import SENT, SENT32
 
 pytestmark = pytest.mark.cuda
@@ -70,6 +70,65 @@ def test_merge_kernel_matches_sort(dev, log2n):
     want = torch.sort(v).values
     assert torch.equal(bitonic.merge_sorted_halves_(x.clone()), want)
     assert torch.equal(bitonic.merge_sorted_halves_plain_(x.clone()), want)
+
+
+def _runs(dev, na, nb, seed, pool=None, sent=0.15):
+    """Two ascending int64 runs of na and nb lanes (keys drawn from
+    `pool` distinct values when given, so they repeat), with a `sent`
+    share of SENT lanes."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    v = torch.randint(-(1 << 62), 1 << 62, (pool or na + nb,), generator=g,
+                      device=dev)
+    if pool:
+        v = v[torch.randint(0, pool, (na + nb,), generator=g, device=dev)]
+    v[torch.rand(na + nb, generator=g, device=dev) < sent] = SENT
+    return torch.sort(v[:na]).values, torch.sort(v[na:]).values
+
+
+@pytest.mark.parametrize("na,nb", [(0, 0), (0, 5), (5, 0), (1, 1),
+                                   (4095, 1), (4096, 4096), (4097, 12345),
+                                   (1 << 20, 1 << 20), (777_777, 12_345)])
+@pytest.mark.parametrize("pool", [None, 100])
+def test_merge_path_kernels_match_sort(dev, na, nb, pool):
+    """merge_partition and merge_path (through merge_runs) against
+    torch.sort of the concatenation and against their plain versions."""
+    a, b = _runs(dev, na, nb, na + 3 * nb, pool)
+    want = torch.sort(torch.cat([a, b])).values
+    a0, b0 = a.clone(), b.clone()
+    assert torch.equal(merge.merge_runs(a, b), want)
+    assert torch.equal(a, a0) and torch.equal(b, b0)  # out of place
+    assert torch.equal(merge.merge_runs_plain(a, b), want)
+    if na + nb:
+        assert torch.equal(merge.merge_partition(a, b),
+                           merge.merge_partition_plain(a, b,
+                                                       merge.tile_lanes()))
+
+
+@pytest.mark.parametrize("case", ["all_equal", "all_sentinel", "one_long"])
+def test_merge_path_kernels_edge_cases(dev, case):
+    n = 3 * 4096 + 5
+    if case == "all_equal":
+        a, b = (torch.full((m,), 7, dtype=torch.int64, device=dev)
+                for m in (n, n + 2))
+    elif case == "all_sentinel":
+        a, b = (torch.full((m,), SENT, dtype=torch.int64, device=dev)
+                for m in (n, 100))
+    else:  # every lane of b below every lane of a
+        a = torch.arange(n, device=dev)
+        b = torch.arange(n, 2 * n + 9, device=dev)
+        a, b = b, a
+    want = torch.sort(torch.cat([a, b])).values
+    assert torch.equal(merge.merge_runs(a, b), want)
+
+
+def test_merge_path_refuses_bad_input(dev):
+    x = torch.arange(8, device=dev)
+    with pytest.raises(ValueError):
+        merge.merge_runs(x, x.cpu())
+    with pytest.raises(ValueError):
+        merge.merge_runs(x.int(), x)
+    with pytest.raises(ValueError):
+        merge.merge_runs(x[::2], x)
 
 
 def _halves1(dev, n, seed):

@@ -16,7 +16,7 @@ import jax
 import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
-from kmer_tpu_torch.kernels import bitonic, extract, keys, seghist
+from kmer_tpu_torch.kernels import bitonic, extract, keys, merge, seghist
 from kmer_tpu_torch.kernels.encode import encode_bases
 from kmer_tpu_torch.kernels.hash64 import HASH64_K32_ZERO, hash64, hash64_int
 
@@ -215,6 +215,96 @@ def test_merge_small_and_wrapper():
                            torch.sort(v).values)
     with pytest.raises(ValueError):
         bitonic.merge_sorted_halves_(torch.zeros(6, dtype=torch.int64))
+
+
+# -- merge path (the two-plane ladder's merge) --------------------------
+
+def _dup_keys_u32(rng, n, sent=0.15):
+    """(hi, lo) u32 planes of repeated 64-bit keys (a pool of n // 8)
+    with a `sent` share of all-ones sentinel lanes."""
+    pool = rng.integers(0, 1 << 64, max(2, n // 8), dtype=np.uint64)
+    u = pool[rng.integers(0, pool.shape[0], n)]
+    u[rng.random(n) < sent] = U64_SENT
+    return (u >> np.uint64(32)).astype(np.uint32), u.astype(np.uint32)
+
+
+@pytest.mark.parametrize("n", [16, 1 << 10, 1 << 18, 1 << 19])
+def test_merge_runs_plain_matches_pallas_interpret(n):
+    """merge_runs_plain on the two sorted halves equals the JAX two-plane
+    bitonic merge (`merge_sorted_halves`, Pallas interpret from 2^18
+    lanes, its XLA stages below) lane for lane."""
+    from kmer_tpu.kernels import bitonic as jb
+
+    hi, lo = _dup_keys_u32(np.random.default_rng(n + 7), n)
+    ch, cl = _sorted_halves_u32([hi, lo], n)
+    mh, ml = jb.merge_sorted_halves(ch, cl, use_pallas=True)
+    x = _jax_keys(ch, cl)
+    a, b = x[: n // 2].clone(), x[n // 2:].clone()
+    out = merge.merge_runs_plain(a, b)
+    assert torch.equal(out, _jax_keys(mh, ml))
+    # out of place: the runs are left as they were
+    assert torch.equal(torch.cat([a, b]), x)
+    # the CPU wrapper is the plain version
+    assert torch.equal(merge.merge_runs(a, b), out)
+
+
+def _merge_cases():
+    rng = np.random.default_rng(21)
+    big = rng.integers(-(1 << 63), 1 << 63, 5000, dtype=np.int64)
+    small = rng.integers(-20, 20, 3000, dtype=np.int64)
+    sent = np.full(700, keys.SENT, np.int64)
+    return {
+        "unequal": (big[:4093], big[4093:]),
+        "dups_unequal": (small[:17], small[17:]),
+        "a_empty": (big[:0], big[:999]),
+        "b_empty": (big[:1234], big[:0]),
+        "both_empty": (big[:0], big[:0]),
+        "all_equal": (np.full(4096, 5, np.int64), np.full(4100, 5, np.int64)),
+        "all_sentinel": (sent[:300], sent),
+        "sentinel_tails": (np.concatenate([small[:900], sent[:100]]),
+                           np.concatenate([big[:3], sent[:1]])),
+    }
+
+
+@pytest.mark.parametrize("case", list(_merge_cases()))
+def test_merge_runs_plain_matches_numpy_sort(case):
+    a, b = (np.sort(x) for x in _merge_cases()[case])
+    want = np.sort(np.concatenate([a, b]), kind="stable")
+    got = merge.merge_runs_plain(torch.from_numpy(a), torch.from_numpy(b))
+    assert got.dtype == torch.int64
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("case", ["unequal", "dups_unequal", "a_empty",
+                                  "b_empty", "all_equal", "sentinel_tails"])
+@pytest.mark.parametrize("tile", [1, 7, 4096])
+def test_merge_partition_plain(case, tile):
+    """The splits the CUDA partition writes: at each tile boundary d,
+    the lanes of a among the first d merged lanes (ties to a), checked
+    against a stable numpy argsort of the concatenation."""
+    a, b = (np.sort(x) for x in _merge_cases()[case])
+    n = a.shape[0] + b.shape[0]
+    from_a = np.argsort(np.concatenate([a, b]), kind="stable") < a.shape[0]
+    d = np.minimum(np.arange(0, -(-n // tile) + 1) * tile, n)
+    want = np.concatenate([[0], np.cumsum(from_a)])[d]
+    got = merge.merge_partition_plain(torch.from_numpy(a),
+                                      torch.from_numpy(b), tile)
+    assert np.array_equal(got.numpy(), want)
+
+
+def test_merge_runs_refuses_bad_input():
+    x = torch.arange(8, dtype=torch.int64)
+    for a, b in ((x.int(), x), (x, x.float()), (x[::2], x),
+                 (x, x.view(2, 4)), (x, x[1::2])):
+        with pytest.raises(ValueError):
+            merge.merge_runs(a, b)
+        with pytest.raises(ValueError):
+            merge.merge_runs_plain(a, b)
+    # the kernels' wrappers take CUDA tensors only: merge_runs picks
+    with pytest.raises(ValueError, match="CUDA"):
+        merge.merge_partition(x, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        merge.merge_path(x, x, torch.zeros(2, dtype=torch.int64))
 
 
 def _sorted_halves_u32(planes, n):
