@@ -9,8 +9,14 @@ Phases, each printing its own lines:
   3. kernels  each CUDA kernel against its plain PyTorch version on the
               card, lane for lane (tolerance 0: integer outputs), at the
               main path's shapes, with both times (CUDA events), its
-              bound (bytes at 3.35 TB/s) and, where one PyTorch call
-              computes the same function, that call's time; the
+              bound (bytes at 3.35 TB/s) and, where PyTorch computes the
+              same function, that call's time: extract in both forms
+              (flat, and row-sliced on a 10 Mbase block of 150 bp reads)
+              at k = 1, 15, 21, 31, 32, with its issue-side bound from
+              the kernel's SASS; the one-pass segment histogram at 2^27
+              and 2^28 lanes (unweighted and weighted, kc's and
+              yak-count's bins, an all-equal plane, a ragged n), beside
+              bincount(unique_consecutive) as its yardstick; the
               two-plane merge (merge_partition + merge_path) against
               torch.sort on edge cases and at 2^25 and 2^28 lanes, timed
               in turns with its plain version, torch.sort and the old
@@ -21,8 +27,9 @@ Phases, each printing its own lines:
               gzipped FASTQ (24 MiB genome, 150 bp reads, 0.5% errors,
               256 Mbases, made from --seed and cached under
               build/chip_smoke/); its stdout must equal the same engine's
-              with the plain kernel versions on the card, and every
-              kernel's launch count in that run must be > 0
+              with the plain kernel versions on the card, every kernel's
+              launch count in that run must be > 0, and the engine's
+              hist must run no torch.bincount (phases 6 and 7 too)
   5. budget   32 Mbases under a budget small enough to force compactions
               (the weighted segment histogram), kernels vs plain
   6. yak      `yak-count -k31 -b30` through kmer_tpu_torch.tools on the
@@ -227,11 +234,12 @@ def kernel_row(err, ms, plain_ms, nbytes, library_ms=None):
             "library_ms": library_ms}
 
 
-def timing_text(row):
+def timing_text(row, library="torch.sort"):
     lib = row["library_ms"]
-    return (f"kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
-            f"bound {row['bound_ms']:.3f} ms, torch.sort "
-            + ("none" if lib is None else f"{lib:.3f} ms"))
+    return (f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, "
+            f"bound {row['bound_ms']:.4f} ms, "
+            + (f"{library} {lib:.3f} ms" if lib is not None
+               else "no one PyTorch call computes it"))
 
 
 def changed_lanes(before, after):
@@ -422,11 +430,217 @@ def merge_path_rows(rows, g, dev):
         torch.cuda.empty_cache()
 
 
+def reads_block(rng, dev):
+    """One block as the engine's reader packs it from the e2e file: 150
+    bp reads of ACGT with 0.5% errors and a rare N, one NUL after each,
+    66,666 reads (10 Mbases) in a buffer of the engine's capacity
+    (10,312,500 bytes, zeros after the last read)."""
+    import numpy as np
+    import torch
+
+    capacity = 10_000_000 + 10_000_000 // 32
+    n_reads = 10_000_000 // READ_LEN
+    rows = np.zeros((n_reads, READ_LEN + 1), np.uint8)
+    rows[:, :READ_LEN] = np.frombuffer(b"ACGT", np.uint8)[
+        rng.integers(0, 4, (n_reads, READ_LEN))]
+    rows[:, :READ_LEN][rng.random((n_reads, READ_LEN)) < 1e-4] = ord("N")
+    buf = np.zeros(capacity, np.uint8)
+    buf[:rows.size] = rows.reshape(-1)
+    return torch.from_numpy(buf).to(dev)
+
+
+def sass_per_thread(symbol):
+    """Static SASS instruction count of the one kernel whose mangled name
+    holds `symbol`, from cuobjdump of the built library (None when the
+    toolkit has no cuobjdump).  The extract kernel has no loop left, so
+    this counts each branch once."""
+    import re
+    import shutil
+
+    from kmer_tpu_torch.kernels import _build
+
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    tool = next((c for c in (os.path.join(home, "bin", "cuobjdump"),
+                             shutil.which("cuobjdump"))
+                 if c and os.path.exists(c)), None)
+    if tool is None:
+        return None
+    r = subprocess.run([tool, "-sass", _build._library_path()],
+                       capture_output=True, text=True, timeout=120)
+    if r.returncode != 0:
+        return None
+    count, inside = 0, False
+    for line in r.stdout.splitlines():
+        if "Function :" in line:
+            inside = symbol in line
+        elif inside and re.match(r"\s*/\*[0-9a-f]{4}\*/\s+[A-Z@]", line) \
+                and " NOP" not in line:
+            count += 1
+    return count or None
+
+
+def sm_clock_mhz():
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                        "--format=csv,noheader,nounits"],
+                       capture_output=True, text=True, timeout=60)
+    return float(r.stdout.split()[0]) if r.returncode == 0 else None
+
+
+def extract_rows(rows, rng, dev):
+    """Both extract forms against their plain versions on one reads block
+    at k = 1, 15, 21, 31, 32 and on a dirty flat block; times at k = 31.
+    The kernels line takes the rows form, the main path's on 150 bp
+    reads.  Bound: one byte read a position, 8 bytes a key written, and
+    the valid count; beside it the issue side: static SASS instructions
+    a thread / the positions a thread handles, over 4 warp-issues a clock
+    on each SM at the card's max SM clock."""
+    import numpy as np
+    import torch
+
+    from kmer_tpu_torch.kernels import _build, extract
+
+    block = reads_block(rng, dev)
+    rb = READ_LEN + 1
+    alphabet = np.frombuffer(b"ACGTacgtN\x00x", np.uint8)
+    dirty = torch.from_numpy(rng.choice(
+        alphabet, size=10_000_000 + 7, p=[0.124] * 8 + [0.008 / 3] * 3)).to(dev)
+    err = 0.0
+    for k in (1, 15, 21, 31, 32):
+        for label, x, fn, plain, args in (
+                ("flat", dirty, extract.extract_keys,
+                 extract.extract_keys_plain, ()),
+                ("flat", block, extract.extract_keys,
+                 extract.extract_keys_plain, ()),
+                ("rows", block, extract.extract_keys_rows,
+                 extract.extract_keys_rows_plain, (rb,))):
+            got, nv = fn(x, k, *args)
+            want, nw = plain(x, k, *args)
+            e = max_abs_err(got, want)
+            need(e == ERR_FREE and int(nv) == int(nw),
+                 f"extract {label} k={k}: kernel != plain (max err {e}, "
+                 f"{int(nv)} vs {int(nw)} valid)")
+            err = max(err, e)
+        say("kernels", f"extract k={k}: flat (dirty 10 Mbase block, reads "
+            f"block) and rows forms equal to plain, {int(nv)} valid lanes")
+    n = block.numel()
+    kept = n // rb * (rb - K)
+    t = {}
+    for name, fn in (
+            ("rows", lambda _: extract.extract_keys_rows(block, K, rb)),
+            ("flat", lambda _: extract.extract_keys(block, K)),
+            ("rows_plain",
+             lambda _: extract.extract_keys_rows_plain(block, K, rb)),
+            ("flat_plain", lambda _: extract.extract_keys_plain(block, K))):
+        t[name] = time_ms(fn, reps=20 if "plain" not in name else 3)
+    rows["extract"] = kernel_row(err, t["rows"], t["rows_plain"],
+                                 n + 8 * kept + 8)
+    flat_bound = (9 * n + 8) / HBM_BYTES_PER_S * 1e3
+    say("kernels", f"extract rows k={K} (10 Mbase reads block, {n} "
+        f"positions, {kept} keys): {timing_text(rows['extract'])}; flat "
+        f"form {t['flat']:.4f} ms (bound {flat_bound:.4f} ms), plain "
+        f"{t['flat_plain']:.3f} ms")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = sm_clock_mhz()
+    per_thread = _build.library().ktt_extract_per_thread()
+    for label, sym in (("rows", "extract_kernelILb1E"),
+                       ("flat", "extract_kernelILb0E")):
+        sass = sass_per_thread(sym)
+        if sass is None or mhz is None:
+            say("kernels", f"extract {label}: issue bound not measured (no "
+                "cuobjdump or SM clock)")
+            continue
+        per_lane = sass / per_thread
+        issue_ms = n * per_lane / 32 / (sms * 4 * mhz * 1e6) * 1e3
+        say("kernels", f"extract {label}: {sass} SASS instructions a thread "
+            f"(static), {per_thread} positions a thread = {per_lane:.1f} a "
+            f"position; issue bound at {sms} SMs "
+            f"x 4 warp-issues x {mhz:.0f} MHz: {issue_ms:.4f} ms")
+    del block, dirty
+
+
+def seghist_rows(rows, g, dev):
+    """The one-pass segment histogram against its plain version at 2^27
+    and 2^28 sorted lanes (keys from 2^25 values, a 20% sentinel tail),
+    unweighted and weighted, with kc's and yak-count's bins_cfg, then an
+    all-equal plane and a ragged n; its time beside its plain version
+    and beside three PyTorch calls that compute the same histogram
+    (bincount of the clamped unique_consecutive counts; unweighted).
+    The kernels line takes 2^28 lanes, unweighted, kc's config: the
+    shape of the kc-c4 -k31 fold."""
+    import torch
+
+    from kmer_tpu_torch.kernels import seghist
+    from kmer_tpu_torch.kernels.keys import SENT
+
+    def check(keys, w, cfg, label):
+        hist, nd = seghist.segment_hist_sorted(keys, w, cfg)
+        want, wnd = seghist.segment_hist_sorted_plain(keys, w, cfg)
+        e = max(max_abs_err(hist, want), max_abs_err(nd, wnd))
+        need(e == ERR_FREE, f"seghist {label} {cfg}: kernel != plain "
+             f"(max err {e})")
+        say("kernels", f"seghist {label} {cfg}: equal, {int(nd)} segments")
+        return e
+
+    err = 0.0
+    cfgs = ((256, None, 1), (1024, 1023, 2))
+    ragged = (1 << 24) + 12345
+    for label, keys in (("all-equal", torch.full((ragged,), 12345,
+                                                 dtype=torch.int64,
+                                                 device=dev)),
+                        ("ragged", torch.sort(torch.randint(
+                            0, 1 << 22, (ragged,), generator=g,
+                            device=dev)).values)):
+        for cfg in cfgs:
+            err = max(err, check(keys, None, cfg, f"{label} n={ragged}"))
+    del keys
+    for lg in (27, 28):
+        n = 1 << lg
+        keys = torch.sort(torch.randint(0, 1 << 25, (n,), generator=g,
+                                        device=dev)).values
+        keys[-(n // 5):] = SENT
+        w = torch.randint(1, 11, (n,), generator=g, device=dev,
+                          dtype=torch.int32)
+        for weights in (None, w):
+            for cfg in cfgs:
+                err = max(err, check(keys, weights, cfg,
+                                     f"2^{lg} weighted={weights is not None}"))
+        cfg = cfgs[0]
+        real = keys[: n - n // 5]  # the library calls cannot skip SENT
+
+        def library(_):
+            c = torch.unique_consecutive(real, return_counts=True)[1]
+            return torch.bincount(c.clamp(max=cfg[0] - 1), minlength=cfg[0])
+
+        lib_hist = library(None)
+        lib_hist[0] = 0
+        need(torch.equal(lib_hist,
+                         seghist.segment_hist_sorted(keys, None, cfg)[0]),
+             f"seghist 2^{lg}: != bincount(unique_consecutive)")
+        ms = time_ms(lambda _: seghist.segment_hist_sorted(keys, None, cfg),
+                     reps=10)
+        wms = time_ms(lambda _: seghist.segment_hist_sorted(keys, w, cfg),
+                      reps=10)
+        plain_ms = time_ms(
+            lambda _: seghist.segment_hist_sorted_plain(keys, None, cfg),
+            reps=2)
+        library_ms = time_ms(library, reps=3)
+        row = kernel_row(err, ms, plain_ms, 8 * n + 8 * (cfg[0] + 1),
+                         library_ms)
+        say("kernels", f"seghist 2^{lg} lanes unweighted {cfg}: "
+            f"{timing_text(row, 'bincount(unique_consecutive) (3 calls)')}; "
+            f"weighted {wms:.3f} ms (bound "
+            f"{(12 * n + 8 * (cfg[0] + 1)) / HBM_BYTES_PER_S * 1e3:.3f} ms)")
+        if lg == 28:
+            rows["seghist"] = row
+        del keys, w, real
+        torch.cuda.empty_cache()
+
+
 def phase_kernels(seed):
     import numpy as np
     import torch
 
-    from kmer_tpu_torch.kernels import bitonic, extract, seghist
+    from kmer_tpu_torch.kernels import bitonic
     from kmer_tpu_torch.kernels.keys import SENT, SENT32
 
     dev = torch.device("cuda")
@@ -434,60 +648,8 @@ def phase_kernels(seed):
     g = torch.Generator(device=dev).manual_seed(seed)
     rows = {}
 
-    # extract: one 10 Mbase dirty block
-    alphabet = np.frombuffer(b"ACGTacgtN\x00x", np.uint8)
-    block = torch.from_numpy(rng.choice(
-        alphabet, size=10_000_000, p=[0.124] * 8 + [0.008 / 3] * 3)).to(dev)
-    err = 0.0
-    for k in (1, 15, 21, 31, 32):
-        got, nv = extract.extract_keys(block, k)
-        want, nw = extract.extract_keys_plain(block, k)
-        e = max_abs_err(got, want)
-        need(e == ERR_FREE and int(nv) == int(nw),
-             f"extract k={k}: kernel != plain (max err {e}, "
-             f"{int(nv)} vs {int(nw)} valid)")
-        err = max(err, e)
-        say("kernels", f"extract k={k}: 10 Mbase block equal, "
-            f"{int(nv)} valid lanes")
-    ms = time_ms(lambda _: extract.extract_keys(block, K))
-    plain_ms = time_ms(lambda _: extract.extract_keys_plain(block, K))
-    # one byte in and one int64 key out per lane, and the valid count
-    rows["extract"] = kernel_row(err, ms, plain_ms, block.numel() * 9 + 8)
-    say("kernels", f"extract k={K}: kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms")
-    del block
-
-    # seghist: 2^27 sorted lanes with a sentinel tail
-    n = 1 << 27
-    keys = torch.sort(torch.randint(0, 1 << 25, (n,), generator=g,
-                                    device=dev)).values
-    keys[-(n // 5):] = SENT
-    w = torch.randint(1, 11, (n,), generator=g, device=dev,
-                      dtype=torch.int32)
-    err = 0.0
-    for weights in (None, w):
-        for cfg in ((256, None, 1), (1024, 1023, 2)):
-            bins, fin = seghist.segment_bins_sorted(keys, weights, cfg)
-            pbins, pfin = seghist.segment_bins_sorted_plain(keys, weights, cfg)
-            e = max(max_abs_err(bins, pbins), max_abs_err(fin, pfin))
-            need(e == ERR_FREE, f"seghist {cfg} weighted="
-                 f"{weights is not None}: kernel != plain (max err {e})")
-            err = max(err, e)
-            say("kernels", f"seghist 2^27 lanes {cfg} weighted="
-                f"{weights is not None}: equal")
-            del bins, pbins
-    cfg = (256, None, 1)
-    ms = time_ms(lambda _: seghist.segment_bins_sorted(keys, None, cfg))
-    plain_ms = time_ms(
-        lambda _: seghist.segment_bins_sorted_plain(keys, None, cfg), reps=2)
-    bins, fin = seghist.segment_bins_sorted(keys, None, cfg)
-    nbytes = (n * 8 + bins.numel() * bins.element_size()
-              + fin.numel() * fin.element_size())
-    rows["seghist"] = kernel_row(err, ms, plain_ms, nbytes)
-    say("kernels", f"seghist 2^27 lanes unweighted {cfg}: kernel "
-        f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
-    del keys, w, bins
-    torch.cuda.empty_cache()
+    extract_rows(rows, rng, dev)
+    seghist_rows(rows, g, dev)
 
     # the two-plane merge: merge path (kernels 3-4 redesigned)
     merge_path_rows(rows, g, dev)
@@ -543,6 +705,41 @@ def phase_kernels(seed):
     return rows
 
 
+def watch_hist_bincount(eng):
+    """Count the torch.bincount calls made inside eng's compactor.hist
+    (into eng.hist_bincounts, None until hist runs): the fused segment
+    histogram leaves none."""
+    import torch
+
+    inner = eng.compactor.hist
+
+    def hist(*args, **kw):
+        real, calls = torch.bincount, [0]
+
+        def counted(*a, **k):
+            calls[0] += 1
+            return real(*a, **k)
+
+        torch.bincount = counted
+        try:
+            return inner(*args, **kw)
+        finally:
+            torch.bincount = real
+            eng.hist_bincounts = calls[0]
+
+    eng.compactor.hist = hist
+    eng.hist_bincounts = None
+    return eng
+
+
+def need_fused_hist(eng, launches, phase):
+    """extract and seghist launched, and hist ran no bincount."""
+    need(launches["extract"] > 0 and launches["seghist"] > 0,
+         f"[{phase}] extract or seghist never launched: {launches}")
+    need(eng.hist_bincounts == 0,
+         f"[{phase}] the engine's hist ran {eng.hist_bincounts} bincounts")
+
+
 @contextlib.contextmanager
 def recording_engines(tool_module=None, plain_kernels=False):
     """Keep the engines that a tool module (kc by default) builds, to read
@@ -555,10 +752,11 @@ def recording_engines(tool_module=None, plain_kernels=False):
     made, real = [], mod.make_count_engine
 
     def record(k, block_bases=10_000_000, qual_policy=None):
-        made.append(SortCountEngine(k, block_bases, qual_policy=qual_policy,
-                                    plain_kernels=plain_kernels)
-                    if plain_kernels else
-                    real(k, block_bases=block_bases, qual_policy=qual_policy))
+        made.append(watch_hist_bincount(
+            SortCountEngine(k, block_bases, qual_policy=qual_policy,
+                            plain_kernels=plain_kernels)
+            if plain_kernels else
+            real(k, block_bases=block_bases, qual_policy=qual_policy)))
         return made[-1]
 
     mod.make_count_engine = record
@@ -644,6 +842,7 @@ def phase_e2e(seed):
     say("e2e", f"launches in this run: {json.dumps(launches)}")
     need(all(launches[name] > 0 for name in KC_PATH_KERNELS),
          f"a kernel of the path was never launched: {launches}")
+    need_fused_hist(eng, launches, "e2e")
     need(not any(launches[name] for name in OLD_INT64_MERGE),
          f"kc-c4 -k{K} ran the int64 bitonic merge: {launches}")
 
@@ -811,6 +1010,7 @@ def phase_yak(seed):
     need(all(launches[name] > 0 for name in
              (*KC_PATH_KERNELS, "merge_tile3", "merge_xstage3")),
          f"a kernel of the yak path was never launched: {launches}")
+    need_fused_hist(eng, launches, "yak")
     need(not any(launches[name] for name in OLD_INT64_MERGE),
          f"yak-count ran the int64 bitonic merge: {launches}")
 
@@ -835,9 +1035,9 @@ def phase_onepl(seed):
     out = {}
     for plain_kernels in (False, True):
         _build.reset_launches()
-        eng = SortCountEngine(k, budget_bytes=64 << 20,
-                              qual_policy=("resume", k, 3),
-                              plain_kernels=plain_kernels)
+        eng = watch_hist_bincount(SortCountEngine(
+            k, budget_bytes=64 << 20, qual_policy=("resume", k, 3),
+            plain_kernels=plain_kernels))
         need(eng.compactor.one_plane and eng.compactor.stream_sorted,
              "k=15 does not run the one-plane stream ladder")
         t0 = time.perf_counter()
@@ -845,6 +1045,8 @@ def phase_onepl(seed):
         text = hist_text(eng)
         out[plain_kernels] = (text, time.perf_counter() - t0,
                               dict(_build.LAUNCHES))
+        if not plain_kernels:
+            need_fused_hist(eng, out[False][2], "onepl")
     need(out[False][0] == out[True][0], "kc-c4 -k15: kernels != plain")
     launches = out[False][2]
     need(launches["merge_tile1"] > 0 and launches["merge_xstage1"] > 0,

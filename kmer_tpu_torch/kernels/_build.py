@@ -48,8 +48,9 @@ _I32 = ctypes.c_int
 # entry point -> argtypes (all return int: a cudaError_t)
 _SIGNATURES = {
     "ktt_extract": [_P, _I64, _I32, _P, _P, _P],
-    "ktt_seghist": [_P, _P, _I64, _I32, _I32, _I32, _I32, _P, _P, _P, _P,
-                    _P, _P],
+    "ktt_extract_rows": [_P, _I64, _I32, _I32, _P, _P, _P],
+    "ktt_extract_per_thread": [],
+    "ktt_seghist": [_P, _P, _I64, _I32, _I32, _I32, _P, _P, _P],
     "ktt_seghist_tile_lanes": [],
     "ktt_merge_xstage": [_P, _I64, _I64, _P],
     "ktt_merge_tiles": [_P, _I64, _I32, _P],

@@ -2,8 +2,9 @@
 
 Only `segment_starts` carries over: the JAX package's one-hot
 `histogram_by_matmul` (segops.py:62-96) exists for the TPU's matrix
-unit, and the port counts with an integer `torch.bincount` instead
-(table/compactor.py).
+unit, and the port folds the histogram into its segment-histogram
+kernel (kernels/seghist.py `segment_hist_sorted`; the plain twin counts
+with an integer `torch.bincount`).
 """
 
 from __future__ import annotations

@@ -187,17 +187,14 @@ def _stage(item, pin: bool, stats: IngestStats):
 
 
 def _extract_step_rows(ascii_u8: torch.Tensor, k: int, row_bytes: int,
-                       fn=extract.extract_keys):
-    """Extraction (`fn`, as extract.extract_keys) for uniform-length
+                       fn=extract.extract_keys_rows):
+    """Extraction (`fn`, as extract.extract_keys_rows) for uniform-length
     reads (kmer_tpu/pipeline/counter.py:473-487): every read occupies
     row_bytes = L+1 bytes, so only window ends at in-row offsets
-    k-1..L-1 can be valid; slicing those columns drops the lanes that
-    are invalid by layout before they reach the sort."""
-    keys, n_valid = fn(ascii_u8, k)
-    n_rows = ascii_u8.shape[0] // row_bytes
-    span = n_rows * row_bytes
-    keys = keys[:span].view(n_rows, row_bytes)[:, k - 1:row_bytes - 1]
-    return keys.reshape(-1), n_valid
+    k-1..L-1 can be valid; the row-sliced plane holds just those lanes,
+    written by the kernel in place of a slice and a copy of the flat
+    plane, and the lanes invalid by layout never reach the sort."""
+    return fn(ascii_u8, k, row_bytes)
 
 
 class SortCountEngine:
@@ -222,6 +219,8 @@ class SortCountEngine:
         self.plain_kernels = plain_kernels
         self._extract = (extract.extract_keys_plain if plain_kernels
                          else extract.extract_keys)
+        self._extract_rows = (extract.extract_keys_rows_plain
+                              if plain_kernels else extract.extract_keys_rows)
         # hash64 output is < 2^(2k): for k <= 15 the stream ladder runs
         # one int32 plane (table/compactor.py)
         self.compactor = KmerCompactor(
@@ -274,7 +273,7 @@ class SortCountEngine:
             buf = buf.to(self.device, non_blocking=True)
             if row_bytes and row_bytes > self.k:
                 keys, n_kmers = _extract_step_rows(buf, self.k, row_bytes,
-                                                   self._extract)
+                                                   self._extract_rows)
             else:
                 keys, n_kmers = self._extract(buf, self.k)
             self.compactor.add_raw(keys)

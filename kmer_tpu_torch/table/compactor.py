@@ -23,8 +23,9 @@ stays the int64 kernel.  Classic mode keeps int64 lanes.
   compact      fold everything into one (key, count) run: sort, segment
                ends, counts.  A budget trip in stream mode compacts
                ladder run by ladder run (`_compact_stream_piecewise`).
-  hist         histogram of per-key counts through the segment-histogram
-               kernel (kernels/seghist.py) and an integer bincount.
+  hist         histogram of per-key counts through the one-pass
+               segment-histogram kernel (kernels/seghist.py
+               `segment_hist_sorted`).
 
 `plain_kernels=True` makes the engine call the kernels' plain PyTorch
 versions on any device, so the same engine can be held against itself
@@ -123,8 +124,8 @@ class KmerCompactor:
         # sentinel INT32_MAX no key can equal (compactor.py:311-313 takes
         # key_bits <= 31 for its u32 plane, whose sentinel is 2^32 - 1)
         self.one_plane = key_bits is not None and key_bits <= 30
-        self._seg_bins = (seghist.segment_bins_sorted_plain if plain_kernels
-                          else seghist.segment_bins_sorted)
+        self._seg_hist = (seghist.segment_hist_sorted_plain if plain_kernels
+                          else seghist.segment_hist_sorted)
         if self.one_plane:
             self._merge_ = (bitonic.merge_sorted_halves1_plain_
                             if plain_kernels
@@ -276,19 +277,10 @@ class KmerCompactor:
         return self._hist_sorted(keys, counts, n_bins, max_count, min_keep)
 
     def _hist_sorted(self, keys, counts, n_bins, max_count, min_keep):
-        """The _hist_impl_tpu shape (compactor.py:176-217): segment bins
-        over sorted keys, an integer histogram, then the open final run."""
+        """The _hist_impl_tpu shape (compactor.py:176-217) after the sort:
+        the segment histogram of sorted keys, the open final run included."""
         if not keys.shape[0]:
             return np.zeros(n_bins, np.int64), 0
-        bins, final = self._seg_bins(keys, counts,
-                                     (n_bins, max_count, min_keep))
-        # an integer bincount is exact at any size (the JAX package's
-        # f32 one-hot product, segops.py:62-96, is for the TPU's MXU)
-        total = torch.bincount(bins, minlength=n_bins).cpu().numpy()
-        total[0] = 0
-        fin_key, fin_len = final.tolist()
-        if fin_key != SENT and fin_len >= min_keep:
-            if max_count is not None:
-                fin_len = min(fin_len, max_count)
-            total[min(fin_len, n_bins - 1)] += 1
-        return total, int(total[1:].sum())
+        hist, n_distinct = self._seg_hist(keys, counts,
+                                          (n_bins, max_count, min_keep))
+        return hist.cpu().numpy(), int(n_distinct)

@@ -29,34 +29,99 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n", [5, 4096 * 3 + 17, 1 << 20])
-@pytest.mark.parametrize("k", [1, 15, 21, 31, 32])
+@pytest.mark.parametrize("n", [1, 5, 2047, 2049, 4096 * 3 + 17,
+                               (1 << 20) + 3])
+@pytest.mark.parametrize("k", list(range(1, 33)))
 def test_extract_kernel_matches_plain(dev, n, k):
+    """Both extract forms: the flat plane, and the row-sliced plane at two
+    row widths, also from an input that is not 16-byte aligned."""
     rng = np.random.default_rng(n + k)
     alphabet = np.frombuffer(b"ACGTacgtN\x00x", np.uint8)
     x = torch.from_numpy(rng.choice(
-        alphabet, size=n, p=[0.12] * 8 + [0.04 / 3] * 3)).to(dev)
-    keys, nv = extract.extract_keys(x, k)
-    want, nw = extract.extract_keys_plain(x, k)
-    assert torch.equal(keys, want)
-    assert int(nv) == int(nw)
+        alphabet, size=n + 1, p=[0.12] * 8 + [0.04 / 3] * 3)).to(dev)
+    for block in (x[:n], x[1:]):
+        keys, nv = extract.extract_keys(block, k)
+        want, nw = extract.extract_keys_plain(block, k)
+        assert torch.equal(keys, want)
+        assert int(nv) == int(nw)
+        for row_bytes in (k + 1, 152):
+            keys, nv = extract.extract_keys_rows(block, k, row_bytes)
+            want, nw = extract.extract_keys_rows_plain(block, k, row_bytes)
+            assert torch.equal(keys, want)
+            assert int(nv) == int(nw)
+
+
+def _sorted_keys(dev, n, seed, pool=600, sent=0.1):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    keys = torch.sort(torch.randint(-pool // 2, pool // 2, (n,), generator=g,
+                                    device=dev)).values
+    if n > 10 and sent:
+        keys[-int(n * sent):] = SENT
+    return keys, g
+
+
+_CFGS = [(256, None, 1), (1024, 1023, 2), (1 << 15, None, 1)]
 
 
 @pytest.mark.parametrize("n", [1, 4095, 4097, (1 << 20) + 3])
 @pytest.mark.parametrize("weighted", [False, True])
-@pytest.mark.parametrize("bins_cfg", [(256, None, 1), (1024, 1023, 2)])
+@pytest.mark.parametrize("bins_cfg", _CFGS)
 def test_seghist_kernel_matches_plain(dev, n, weighted, bins_cfg):
-    g = torch.Generator(device=dev).manual_seed(n)
-    keys = torch.sort(torch.randint(-300, 300, (n,), generator=g,
-                                    device=dev)).values
-    if n > 10:
-        keys[-n // 10:] = SENT
+    keys, g = _sorted_keys(dev, n, n)
     w = (torch.randint(-5, 1 << 31, (n,), generator=g, device=dev,
                        dtype=torch.int32) if weighted else None)
-    bins, final = seghist.segment_bins_sorted(keys, w, bins_cfg)
-    want, wfinal = seghist.segment_bins_sorted_plain(keys, w, bins_cfg)
-    assert torch.equal(bins, want)
-    assert torch.equal(final, wfinal)
+    hist, nd = seghist.segment_hist_sorted(keys, w, bins_cfg)
+    want, wnd = seghist.segment_hist_sorted_plain(keys, w, bins_cfg)
+    assert torch.equal(hist, want)
+    assert int(nd) == int(wnd)
+
+
+@pytest.mark.parametrize("case", ["one_tile_plus", "over_1000_tiles",
+                                  "all_equal", "all_sentinel", "many_ones",
+                                  "ragged", "long_runs"])
+@pytest.mark.parametrize("bins_cfg", _CFGS)
+def test_seghist_kernel_tile_crossings(dev, case, bins_cfg):
+    """Segments that cross tiles (4096 lanes): one longer than a tile,
+    one longer than 1000 tiles, one over the whole plane (k = 32), an
+    all-sentinel plane, almost every segment of length 1 (bin 1 under
+    contention), a ragged n, and 2^24 lanes of 3000-lane runs (several
+    tiles a block, runs crossing tiles and blocks); unweighted and
+    weighted."""
+    tile = 4096
+    if case == "one_tile_plus":
+        parts = [torch.arange(100), torch.full((tile + 77,), 100),
+                 torch.arange(101, 5000)]
+    elif case == "over_1000_tiles":
+        parts = [torch.arange(50), torch.full((1000 * tile + 123,), 50),
+                 torch.arange(51, 3000).repeat_interleave(3)]
+    elif case == "all_equal":
+        parts = [torch.full((300 * tile + 5,), -7)]
+    elif case == "all_sentinel":
+        parts = [torch.full((3 * tile + 1,), SENT)]
+    elif case == "many_ones":
+        parts = [torch.arange(20 * tile), torch.full((17,), SENT)]
+    elif case == "ragged":
+        parts = [torch.arange(7 * tile + 3).div(5, rounding_mode="floor")]
+    else:
+        parts = [torch.arange((1 << 24) + 5).div(3000, rounding_mode="floor"),
+                 torch.full((999,), SENT)]
+    keys = torch.cat(parts).to(torch.int64).to(dev)
+    keys = torch.sort(keys).values
+    g = torch.Generator(device=dev).manual_seed(len(case))
+    for w in (None, torch.randint(-5, 1 << 31, keys.shape, generator=g,
+                                  device=dev, dtype=torch.int32)):
+        hist, nd = seghist.segment_hist_sorted(keys, w, bins_cfg)
+        want, wnd = seghist.segment_hist_sorted_plain(keys, w, bins_cfg)
+        assert torch.equal(hist, want) and int(nd) == int(wnd)
+
+
+def test_seghist_refuses_bad_input(dev):
+    x = torch.arange(8, device=dev)
+    with pytest.raises(ValueError):
+        seghist.segment_hist_sorted(x, torch.ones(8, dtype=torch.int32),
+                                    (256, None, 1))
+    with pytest.raises(ValueError):
+        seghist.segment_hist_sorted(x[:0], None, (256, None, 1))
 
 
 @pytest.mark.parametrize("log2n", [1, 5, 12, 13, 20])

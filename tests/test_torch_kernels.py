@@ -134,6 +134,44 @@ def test_extract_steps_match_jax(k):
     assert int(nk_t) == int(nk)
 
 
+@pytest.mark.parametrize("read_len", [150, 99])
+@pytest.mark.parametrize("k", [1, 15, 21, 31, 32])
+def test_extract_keys_rows_matches_jax(k, read_len):
+    """extract_keys_rows (the CPU wrapper and the plain version) against
+    kmer_tpu.pipeline.counter._extract_step_rows: the row-sliced plane
+    and the valid count over the whole block, with a ragged tail of
+    bases past the last whole row (valid windows there count, but are
+    not written)."""
+    from kmer_tpu.pipeline import counter as jc
+
+    rng = np.random.default_rng(300 + k + read_len)
+    rb, n_rows = read_len + 1, 257
+    rows = np.zeros((n_rows, rb), np.uint8)
+    rows[:, :read_len] = _dirty_block(rng, n_rows * read_len, bad=0.01) \
+        .reshape(n_rows, read_len)
+    tail = np.frombuffer(b"ACGTACGTACGTACGTACGTACGTACGTACGTACGTAC",
+                         np.uint8)[: rb - 1]
+    buf = np.concatenate([rows.reshape(-1), tail])
+    hi, lo, nk = jc._extract_step_rows(jnp.asarray(buf), k, rb)
+    for fn in (extract.extract_keys_rows, extract.extract_keys_rows_plain):
+        got, n_valid = fn(torch.from_numpy(buf), k, rb)
+        assert got.shape == (n_rows * (rb - k),)
+        assert torch.equal(got, _jax_keys(hi, lo))
+        assert int(n_valid) == int(nk)
+    flat, n_flat = extract.extract_keys_plain(torch.from_numpy(buf), k)
+    assert int(n_flat) == int(nk) > int((got != keys.SENT).sum())
+
+
+def test_extract_refuses_bad_input():
+    x = torch.zeros(64, dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        extract.extract_keys_rows(x, 31, 31)
+    with pytest.raises(ValueError):
+        extract.extract_keys_rows_plain(x, 0, 40)
+    with pytest.raises(ValueError):
+        extract.extract_keys_rows(x.int(), 21, 40)
+
+
 # -- segment histogram --------------------------------------------------
 
 def _sorted_planes(rng, n, n_real, n_keys=4000):
@@ -177,6 +215,80 @@ def test_seghist_plain_matches_pallas_interpret(weighted, bins_cfg,
     assert int(final[0]) == int(want_key[0])
     assert int(final[1]) == int(jf[2])
     assert (int(final[0]) == keys.SENT) == sent_tail
+
+
+@pytest.mark.parametrize("n", [1 << 17, 1 << 18])
+@pytest.mark.parametrize("bins_cfg", [(256, None, 1), (256, 255, 2),
+                                      (1024, 1023, 2)])
+@pytest.mark.parametrize("has_counts", [False, True])
+@pytest.mark.parametrize("tail", ["sent", "none", "all_equal"])
+def test_segment_hist_matches_jax_hist_impl(n, bins_cfg, has_counts, tail):
+    """segment_hist_sorted (plain, and the CPU wrapper) against JAX
+    `_hist_impl_tpu` (the Pallas seghist in interpret mode, then its
+    histogram and final-run fold): pre-sorted raw keys, and unsorted
+    counted runs (weights past 2^31, so int32 sums wrap), sorted here as
+    the compactor sorts them.  Exact."""
+    from kmer_tpu.table.compactor import _hist_impl_tpu
+
+    from kmer_tpu_torch.table.compactor import _sort
+
+    n_bins, max_count, min_keep = bins_cfg
+    rng = np.random.default_rng(n + n_bins + 7 * has_counts + len(tail))
+    if tail == "all_equal":  # one segment over every lane (k = 32)
+        hi = np.full(n, 0x77CFA1EE, np.uint32)
+        lo = np.full(n, 0xF01BCA90, np.uint32)
+    else:
+        hi, lo = _sorted_planes(rng, n, n - 5555 if tail == "sent" else n,
+                                300)
+    c = rng.integers(1, 7, size=n).astype(np.uint32)
+    c[rng.random(n) < 0.01] = 0xFFFFFFF0
+    if has_counts:  # counted runs arrive unsorted
+        perm = rng.permutation(n)
+        hi, lo, c = hi[perm], lo[perm], c[perm]
+    with pltpu.force_tpu_interpret_mode():
+        want, want_nd = _hist_impl_tpu(
+            jnp.asarray(hi), jnp.asarray(lo),
+            jnp.asarray(c) if has_counts else None, n_bins=n_bins,
+            max_count=max_count, min_keep=min_keep, has_counts=has_counts,
+            pre_sorted=not has_counts)
+    k = keys.from_hi_lo(hi, lo)
+    w = torch.from_numpy(c.view(np.int32)) if has_counts else None
+    if has_counts:
+        k, w = _sort(k, w)
+    for fn in (seghist.segment_hist_sorted_plain, seghist.segment_hist_sorted):
+        hist, nd = fn(k, w, bins_cfg)
+        assert hist.dtype == torch.int64 and hist.shape == (n_bins,)
+        assert np.array_equal(hist.numpy(), np.asarray(want).astype(np.int64))
+        assert int(nd) == int(want_nd) == int(hist[1:].sum())
+    if tail == "all_equal" and not has_counts:
+        assert int(nd) == 1
+
+
+def test_segment_hist_small_cases():
+    """n = 1, an all-sentinel plane, and a final run below min_keep."""
+    one = torch.tensor([5], dtype=torch.int64)
+    hist, nd = seghist.segment_hist_sorted(one, None, (256, None, 1))
+    assert int(hist[1]) == 1 and int(nd) == 1
+    hist, nd = seghist.segment_hist_sorted(one, None, (256, None, 2))
+    assert int(nd) == 0 and int(hist.sum()) == 0
+    sent = torch.full((1000,), keys.SENT, dtype=torch.int64)
+    hist, nd = seghist.segment_hist_sorted(sent, None, (1024, 1023, 1))
+    assert int(nd) == 0 and int(hist.sum()) == 0
+
+
+def test_segment_hist_refuses_bad_input():
+    x = torch.arange(8, dtype=torch.int64)
+    bad = [(x.int(), None, (256, None, 1)), (x[:0], None, (256, None, 1)),
+           (x.view(2, 4), None, (256, None, 1)),
+           (x, torch.ones(8, dtype=torch.int64), (256, None, 1)),
+           (x, torch.ones(7, dtype=torch.int32), (256, None, 1)),
+           (x, None, (0, None, 1)), (x, None, ((1 << 15) + 1, None, 1)),
+           (x, None, (256, None, 0)), (x, None, (256, 0, 1))]
+    for k, w, cfg in bad:
+        for fn in (seghist.segment_hist_sorted,
+                   seghist.segment_hist_sorted_plain):
+            with pytest.raises(ValueError):
+                fn(k, w, cfg)
 
 
 # -- bitonic merge ------------------------------------------------------
