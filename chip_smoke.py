@@ -16,12 +16,14 @@ Phases, each printing its own lines:
               the kernel's SASS; the one-pass segment histogram at 2^27
               and 2^28 lanes (unweighted and weighted, kc's and
               yak-count's bins, an all-equal plane, a ragged n), beside
-              bincount(unique_consecutive) as its yardstick; the
-              two-plane merge (merge_partition + merge_path) against
-              torch.sort on edge cases and at 2^25 and 2^28 lanes, timed
-              in turns with its plain version, torch.sort and the old
-              int64 bitonic merge (with the concatenation it needs),
-              whose two kernels are still checked and timed one by one
+              bincount(unique_consecutive) as its yardstick; the merge
+              path (merge_partition + merge_path) for its three lane
+              types, int64 keys, int32 keys and (int64 key, int64 index)
+              lanes, against a sort of the concatenation on edge cases
+              and at 2^25 and 2^28 (for (key, index) 2^27) output lanes,
+              timed in turns with its plain version, torch.sort and the
+              old bitonic merge (with the concatenation it needs), whose
+              six kernels are still checked and timed one by one
               (printed, not in the kernels line: no path launches them)
   4. e2e      `kc-c4 -k31` through kmer_tpu_torch.tools on a synthetic
               gzipped FASTQ (24 MiB genome, 150 bp reads, 0.5% errors,
@@ -35,21 +37,21 @@ Phases, each printing its own lines:
   6. yak      `yak-count -k31 -b30` through kmer_tpu_torch.tools on the
               256 Mbase file: stdout and the `[M` stderr lines must equal
               the same run with the plain kernel versions in the engine
-              and the admission tap; the (key, index) merge kernels must
-              launch in it
+              and the admission tap; the (key, index) merge-path kernels
+              must launch in it
   7. onepl    kc-c4 -k15 (one-plane keys) on 32 Mbases under the 64 MiB
-              budget, kernels vs plain; the one-plane merge kernels must
-              launch in it, the two-plane ones not
+              budget, kernels vs plain; the int32 merge-path kernels must
+              launch in it, the int64 and (key, index) ones not
   8. fixture  kc-c4 on tests/fixtures at k=15, 21 and 31, and yak-count
               on the reads fixture: the port on the GPU gives the bytes of
               the port on the CPU
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; the kernels line takes the counts of extract, seghist and the
-merge path from phase 4, the one-plane merge's from phase 7 and the
-(key, index) merge's from phase 6.  No path may launch the int64 bitonic
-merge, and after every phase neither jax nor any module of the JAX
-package (kmer_tpu) may be loaded.
+int64 merge path from phase 4, the int32 merge path's from phase 7 and
+the (key, index) merge path's from phase 6.  No path may launch a
+bitonic kernel, and after every phase neither jax nor any module of the
+JAX package (kmer_tpu) may be loaded.
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero without
@@ -78,11 +80,14 @@ K = 31
 MBASES = 256  # the e2e run's size: the JAX bench's headline file
 ERR_FREE = 0  # tolerance of every comparison: outputs are integers
 # the kernels of the kc-c4 -k31 path (phase 4); yak adds the (key, index)
-# merge (phase 6), k <= 15 swaps the merge for the one-plane one (phase 7)
+# merge (phase 6), k <= 15 swaps the merge for the int32 one (phase 7)
 KC_PATH_KERNELS = ("extract", "seghist", "merge_partition", "merge_path")
-# the int64 bitonic pair, off the main path since the merge path replaced
-# it: phase 3 times it beside the merge path, and no path may launch it
-OLD_INT64_MERGE = ("merge_tile", "merge_xstage")
+YAK_TAP_KERNELS = ("merge_partition3", "merge_path3")
+ONE_PLANE_KERNELS = ("merge_partition1", "merge_path1")
+# the bitonic kernels, off every path since the merge path replaced them:
+# phase 3 times them beside the merge path, and no path may launch them
+BITONIC_KERNELS = ("merge_tile", "merge_xstage", "merge_tile1",
+                   "merge_xstage1", "merge_tile3", "merge_xstage3")
 
 
 def no_jax_package(phase):
@@ -125,6 +130,25 @@ def time_ms(fn, setup=lambda: None, reps=5):
         torch.cuda.synchronize()
         total += a.elapsed_time(b)
     return total / reps
+
+
+def time_run_ms(fn, reps=5):
+    """Mean device time of fn() over a run of reps calls between two CUDA
+    events, after one warm-up call: the calls queue up, so the device
+    does not wait for the host between them (a kernel of ~0.1 ms timed
+    alone also counts the host's gap before its launch)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def max_abs_err(a, b):
@@ -330,104 +354,223 @@ def merge_rows(rows, name, halves, want, whole, whole_plain, xstage,
         f"{timing_text(rows[f'merge_tile{suffix}'])}")
 
 
-def partition_bytes(na, nb, tile):
+def partition_bytes(na, nb, tile, key_bytes):
     """Bytes merge_partition must move for these run lengths: per split,
-    two lanes for each step of its binary search, and the split out."""
+    two keys for each step of its binary search (an index only on a key
+    tie: not counted), and the split out."""
     import numpy as np
 
     n = na + nb
     d = np.minimum(np.arange(0, -(-n // tile) + 1, dtype=np.int64) * tile, n)
     width = np.minimum(d, na) - np.maximum(0, d - nb)
     steps = np.ceil(np.log2(width + 1.0))
-    return int(16 * steps.sum() + 8 * d.shape[0])
+    return int(2 * key_bytes * steps.sum() + 8 * d.shape[0])
 
 
-def merge_path_rows(rows, g, dev):
-    """The two-plane merge (kernels 3-4 redesigned): merge_partition and
-    merge_path against torch.sort of the concatenation lane for lane, on
-    edge cases and at 2^25 and 2^28 lanes (15% SENT lanes), and four
-    ways to compute the whole merge timed in turns on the same runs: the
-    kernels, the plain version, torch.sort (library_ms) and the old
-    bitonic merge with the concatenation it needs.  The kernels line
-    takes the 2^25 numbers (the ladder's first merge)."""
+def key_idx_sort(key, idx):
+    """(key, index) order of arbitrary lanes: by index, then stably by
+    key."""
+    import torch
+
+    idx, o = torch.sort(idx, stable=True)
+    key, o = torch.sort(key[o], stable=True)
+    return key, idx[o]
+
+
+def merge_path_rows(rows, sfx, runs, cases, sizes):
+    """One lane type's merge path (sfx "": int64 keys, "1": int32 keys,
+    "3": (int64 key, int64 index) lanes): merge_partition and merge_path
+    against a sort of the concatenation lane for lane (torch.sort, or for
+    (key, index) lanes a sort by index then stably by key), on edge cases
+    and at 2^lg output lanes for lg in sizes (two 2^(lg-1)-lane runs, 15%
+    sentinel lanes), and the ways to compute the whole merge timed in
+    turns on the same runs: the kernels, the plain version, torch.sort
+    (library_ms; no one PyTorch call sorts (key, index) lanes) and the
+    old bitonic merge with the concatenation it needs, each as a run of
+    calls between two events.  A run is a tuple of planes.  The kernels line takes the 2^25 numbers (the ladder's
+    first merge)."""
     import torch
 
     from kmer_tpu_torch.kernels import bitonic, merge
-    from kmer_tpu_torch.kernels.keys import SENT
 
-    tile = merge.tile_lanes()
+    if sfx == "3":
+        tile = merge.tile_lanes3()
+        partition, path, whole = (merge.merge_partition3, merge.merge_path3,
+                                  merge.merge_runs3)
+        plain, partition_plain = (merge.merge_runs3_plain,
+                                  merge.merge_partition3_plain)
+        old = bitonic.merge_sorted_halves3_
+        sort = key_idx_sort
+    else:
+        tile = merge.tile_lanes(torch.int32 if sfx else torch.int64)
+        partition, path, whole = (merge.merge_partition, merge.merge_path,
+                                  merge.merge_runs)
+        plain, partition_plain = (merge.merge_runs_plain,
+                                  merge.merge_partition_plain)
+        old = bitonic.merge_sorted_halves1_ if sfx else \
+            bitonic.merge_sorted_halves_
 
-    def runs(na, nb, pool=None):
+        def sort(x):
+            return torch.sort(x).values
+
+    def tup(x):
+        return x if isinstance(x, tuple) else (x,)
+
+    def cat(a, b):
+        return tuple(torch.cat([x, y]) for x, y in zip(a, b))
+
+    def err(got, want):
+        return max(max_abs_err(x, y) for x, y in zip(tup(got), want))
+
+    name = f"merge_path{sfx}"
+    cases = cases(tile)
+    for label, (a, b) in cases.items():
+        want = tup(sort(*cat(a, b)))
+        e = max(err(whole(*a, *b), want), err(plain(*a, *b), want))
+        need(e == ERR_FREE, f"{name} {label}: != the sort (max err {e})")
+        n = a[0].shape[0] + b[0].shape[0]
+        if n:
+            e = max_abs_err(partition(*a, *b), partition_plain(*a, *b, tile))
+            need(e == ERR_FREE, f"merge_partition{sfx} {label}: != plain")
+    say("kernels", f"{name} (tile {tile}): equal to the sort on the edge "
+        f"cases ({', '.join(cases)})")
+    del cases
+
+    for lg in sizes:
+        n = 1 << lg
+        a, b = runs(n // 2, n // 2)
+        lane_bytes = sum(p.element_size() for p in a)
+        want = tup(sort(*cat(a, b)))
+        splits = partition(*a, *b)
+        e_part = max_abs_err(splits, partition_plain(*a, *b, tile))
+        e = max(err(path(*a, *b, splits), want), err(plain(*a, *b), want))
+        e_old = err(old(*cat(a, b)), want)
+        need(e == e_part == e_old == ERR_FREE,
+             f"{name} 2^{lg}: kernel or plain err {e}, partition err "
+             f"{e_part}, bitonic err {e_old}")
+        del want
+        ways = {
+            "merge_path": lambda: path(*a, *b, splits),
+            "merge_partition": lambda: partition(*a, *b),
+            "merge_runs": lambda: whole(*a, *b),
+            "plain": lambda: plain(*a, *b),
+            "partition_plain": lambda: partition_plain(*a, *b, tile),
+            "bitonic+cat": lambda: old(*cat(a, b)),
+        }
+        if sfx != "3":
+            ways["torch.sort"] = lambda: sort(*cat(a, b))
+        times = {w: [] for w in ways}
+        for w in [*ways, *reversed(ways)]:  # in turns, both ways round
+            times[w].append(time_run_ms(ways[w]))
+        t = {w: sum(v) / len(v) for w, v in times.items()}
+        nbytes = 2 * lane_bytes * n + 8 * splits.shape[0]
+        lib = t.get("torch.sort")
+        say("kernels", f"{name} 2^{lg} lanes (two 2^{lg - 1}-lane runs): "
+            f"equal to the sort; merge_path{sfx} {t['merge_path']:.3f} ms + "
+            f"merge_partition{sfx} {t['merge_partition']:.3f} ms (together "
+            f"{t['merge_runs']:.3f} ms), bound "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms; plain "
+            f"{t['plain']:.3f} ms; "
+            + (f"torch.sort {lib:.3f} ms; " if lib is not None else "")
+            + f"bitonic merge + cat {t['bitonic+cat']:.3f} ms")
+        if lg == 25:
+            rows[name] = kernel_row(e, t["merge_path"], t["plain"], nbytes,
+                                    lib)
+            rows[f"merge_partition{sfx}"] = kernel_row(
+                e_part, t["merge_partition"], t["partition_plain"],
+                partition_bytes(n // 2, n // 2, tile, a[0].element_size()))
+        del a, b, splits
+        torch.cuda.empty_cache()
+
+
+def merge_path_lane_types(rows, g, dev):
+    """merge_path_rows for the three lane types, at the shapes of their
+    ladders: int64 (kc-c4 -k31: 2^25 lanes first, 2^28 at the fold), int32
+    (kc-c4 -k15, the same ladder) and (key, index) (yak-count's tap: 2^25
+    first, 2^27 at a budget trip)."""
+    import torch
+
+    from kmer_tpu_torch.kernels.keys import SENT, SENT32
+
+    idx_sent = (1 << 63) - 1  # the tap's pad index (pipeline/yak_admit.py)
+
+    def sprinkle(v, sent):
+        v[torch.rand(v.shape[0], generator=g, device=dev) < 0.15] = sent
+        return v
+
+    def runs64(na, nb, pool=None):
         v = torch.randint(-(1 << 62), 1 << 62, (pool or na + nb,),
                           generator=g, device=dev)
         if pool:
             v = v[torch.randint(0, pool, (na + nb,), generator=g,
                                 device=dev)]
-        v[torch.rand(na + nb, generator=g, device=dev) < 0.15] = SENT
-        return torch.sort(v[:na]).values, torch.sort(v[na:]).values
+        v = sprinkle(v, SENT)
+        return (torch.sort(v[:na]).values,), (torch.sort(v[na:]).values,)
 
-    def full(m, x):
-        return torch.full((m,), x, dtype=torch.int64, device=dev)
+    def runs32(na, nb, pool=None):
+        v = sprinkle(torch.randint(0, pool or 1 << 30, (na + nb,),
+                                   generator=g, device=dev,
+                                   dtype=torch.int32), SENT32)
+        return (torch.sort(v[:na]).values,), (torch.sort(v[na:]).values,)
 
-    cases = {f"{na}+{nb}": runs(na, nb) for na, nb in
-             ((0, 0), (0, 5), (5, 0), (4095, 1), (4097, 12345),
-              (777_777, 12_345))}
-    cases["dups"] = runs(100_003, 99_999, pool=50)
-    cases["all_equal"] = (full(3 * tile + 5, 7), full(3 * tile, 7))
-    cases["all_sentinel"] = (full(tile + 1, SENT), full(2 * tile, SENT))
-    for label, (a, b) in cases.items():
-        want = torch.sort(torch.cat([a, b])).values
-        need(torch.equal(merge.merge_runs(a, b), want),
-             f"merge_path {label}: != torch.sort")
-    say("kernels", f"merge_path: equal to torch.sort on {len(cases)} edge "
-        f"cases ({', '.join(cases)})")
-    del cases
+    def runs3(na, nb, pool=None):
+        """The ladder's shape: keys repeat (a pool of a quarter of the
+        lanes), the index rises over a then b, so a stable key sort of
+        each is its (key, index) order."""
+        n = na + nb
+        pool = pool or max(2, n // 4)
+        key = sprinkle(torch.randint(-(1 << 62), 1 << 62, (pool,),
+                                     generator=g, device=dev)[
+            torch.randint(0, pool, (n,), generator=g, device=dev)], SENT)
+        idx = torch.arange(n, device=dev) + (1 << 31)
 
-    for lg in (25, 28):
-        n = 1 << lg
-        a, b = runs(n // 2, n // 2)
-        want = torch.sort(torch.cat([a, b])).values
-        splits = merge.merge_partition(a, b)
-        e_part = max_abs_err(splits,
-                             merge.merge_partition_plain(a, b, tile))
-        e = max(max_abs_err(merge.merge_path(a, b, splits), want),
-                max_abs_err(merge.merge_runs_plain(a, b), want))
-        e_old = max_abs_err(
-            bitonic.merge_sorted_halves_(torch.cat([a, b])), want)
-        need(e == e_part == e_old == ERR_FREE,
-             f"merge 2^{lg}: kernel or plain err {e}, partition err "
-             f"{e_part}, bitonic err {e_old}")
-        del want
-        ways = {
-            "merge_path": lambda: merge.merge_path(a, b, splits),
-            "merge_partition": lambda: merge.merge_partition(a, b),
-            "merge_runs": lambda: merge.merge_runs(a, b),
-            "plain": lambda: merge.merge_runs_plain(a, b),
-            "partition_plain":
-                lambda: merge.merge_partition_plain(a, b, tile),
-            "torch.sort": lambda: torch.sort(torch.cat([a, b])).values,
-            "bitonic+cat":
-                lambda: bitonic.merge_sorted_halves_(torch.cat([a, b])),
-        }
-        times = {w: [] for w in ways}
-        for w in [*ways, *reversed(ways)]:  # in turns, both ways round
-            times[w].append(time_ms(lambda _: ways[w](), reps=3))
-        t = {w: sum(v) / len(v) for w, v in times.items()}
-        nbytes = 16 * n + 8 * splits.shape[0]
-        say("kernels", f"merge 2^{lg} lanes (two 2^{lg - 1}-lane runs): "
-            f"equal to torch.sort; merge_path {t['merge_path']:.3f} ms + "
-            f"merge_partition {t['merge_partition']:.3f} ms (together "
-            f"{t['merge_runs']:.3f} ms), bound {nbytes / HBM_BYTES_PER_S * 1e3:.3f} "
-            f"ms; plain {t['plain']:.3f} ms; torch.sort {t['torch.sort']:.3f} "
-            f"ms; bitonic merge + cat {t['bitonic+cat']:.3f} ms")
-        if lg == 25:
-            rows["merge_path"] = kernel_row(e, t["merge_path"], t["plain"],
-                                            nbytes, t["torch.sort"])
-            rows["merge_partition"] = kernel_row(
-                e_part, t["merge_partition"], t["partition_plain"],
-                partition_bytes(n // 2, n // 2, tile))
-        del a, b, splits
-        torch.cuda.empty_cache()
+        def run(lo, hi):
+            k, o = torch.sort(key[lo:hi], stable=True)
+            return k, idx[lo:hi][o]
+
+        return run(0, na), run(na, n)
+
+    def full(m, x, dtype=torch.int64):
+        return torch.full((m,), x, dtype=dtype, device=dev)
+
+    sizes = ((0, 0), (0, 5), (5, 0), (4095, 1), (4097, 12345),
+             (777_777, 12_345))
+
+    def cases1(runs, dtype, sent):
+        def cases(tile):
+            out = {f"{na}+{nb}": runs(na, nb) for na, nb in sizes}
+            out["dups"] = runs(100_003, 99_999, pool=50)
+            out["all_equal"] = ((full(3 * tile + 5, 7, dtype),),
+                                (full(3 * tile, 7, dtype),))
+            out["all_sentinel"] = ((full(tile + 1, sent, dtype),),
+                                   (full(2 * tile, sent, dtype),))
+            return out
+        return cases
+
+    def cases3(tile):
+        out = {f"{na}+{nb}": runs3(na, nb) for na, nb in sizes}
+        out["dups"] = runs3(100_003, 99_999, pool=50)
+        # one key on every lane (k = 32), the indices interleaved between
+        # the runs: the index decides every compare, across many tiles
+        n = 6 * tile + 5
+        i, key = torch.arange(n, device=dev), full(n, 7)
+        out["one_key_interleaved"] = (
+            (key[::2].contiguous(), i[::2].contiguous()),
+            (key[1::2].contiguous(), i[1::2].contiguous()))
+        # invalid lanes (SENT, real index) among (SENT, IDX_SENT) pads
+        idx = torch.where(torch.rand(n, generator=g, device=dev) < 0.5, i,
+                          idx_sent)
+        h = 2 * tile + 1
+        out["sentinels_and_pads"] = (
+            (full(h, SENT), torch.sort(idx[:h]).values),
+            (full(n - h, SENT), torch.sort(idx[h:]).values))
+        return out
+
+    merge_path_rows(rows, "", runs64, cases1(runs64, torch.int64, SENT),
+                    (25, 28))
+    merge_path_rows(rows, "1", runs32, cases1(runs32, torch.int32, SENT32),
+                    (25, 28))
+    merge_path_rows(rows, "3", runs3, cases3, (25, 27))
 
 
 def reads_block(rng, dev):
@@ -651,13 +794,13 @@ def phase_kernels(seed):
     extract_rows(rows, rng, dev)
     seghist_rows(rows, g, dev)
 
-    # the two-plane merge: merge path (kernels 3-4 redesigned)
-    merge_path_rows(rows, g, dev)
+    # the merge path for the three lane types (kernels 3-8 redesigned)
+    merge_path_lane_types(rows, g, dev)
 
     # the bitonic merges at 2^25 lanes, 15% sentinels, two sorted halves:
-    # biased int64 keys (the bitonic form of kernels 3-4: off the main
-    # path, not in the kernels line), one-plane int32 keys (5-6), and
-    # (int64 key, rising int64 index) lanes (7-8)
+    # biased int64 keys, one-plane int32 keys, and (int64 key, rising
+    # int64 index) lanes.  Off every path, not in the kernels line: each
+    # of the six kernels is still checked against its plain stages
     n = 1 << 25
     v = torch.randint(-(1 << 62), 1 << 62, (n,), generator=g, device=dev)
     v[torch.rand(n, generator=g, device=dev) < 0.15] = SENT
@@ -685,10 +828,6 @@ def phase_kernels(seed):
                                                   generator=g, device=dev)]
     key[torch.rand(n, generator=g, device=dev) < 0.15] = SENT
     idx = torch.arange(n, device=dev) + (1 << 31)
-
-    def key_idx_sort(k, i):  # i rises: a stable key sort is (key, i)
-        k, o = torch.sort(k, stable=True)
-        return k, i[o]
 
     h0, h1 = (key_idx_sort(key[a:a + n // 2], idx[a:a + n // 2])
               for a in (0, n // 2))
@@ -843,8 +982,8 @@ def phase_e2e(seed):
     need(all(launches[name] > 0 for name in KC_PATH_KERNELS),
          f"a kernel of the path was never launched: {launches}")
     need_fused_hist(eng, launches, "e2e")
-    need(not any(launches[name] for name in OLD_INT64_MERGE),
-         f"kc-c4 -k{K} ran the int64 bitonic merge: {launches}")
+    need(not any(launches[name] for name in BITONIC_KERNELS),
+         f"kc-c4 -k{K} ran a bitonic merge: {launches}")
 
     plain = SortCountEngine(K, qual_policy=("resume", K, 3),
                             plain_kernels=True)
@@ -1008,11 +1147,11 @@ def phase_yak(seed):
         f"{wall - eng.stats.loop_s - tap.finish_s:.3f} s")
     say("yak", f"launches in this run: {json.dumps(launches)}")
     need(all(launches[name] > 0 for name in
-             (*KC_PATH_KERNELS, "merge_tile3", "merge_xstage3")),
+             (*KC_PATH_KERNELS, *YAK_TAP_KERNELS)),
          f"a kernel of the yak path was never launched: {launches}")
     need_fused_hist(eng, launches, "yak")
-    need(not any(launches[name] for name in OLD_INT64_MERGE),
-         f"yak-count ran the int64 bitonic merge: {launches}")
+    need(not any(launches[name] for name in BITONIC_KERNELS),
+         f"yak-count ran a bitonic merge: {launches}")
 
     with recording_engines(yak_count, plain_kernels=True) as made:
         t0 = time.perf_counter()
@@ -1049,11 +1188,12 @@ def phase_onepl(seed):
             need_fused_hist(eng, out[False][2], "onepl")
     need(out[False][0] == out[True][0], "kc-c4 -k15: kernels != plain")
     launches = out[False][2]
-    need(launches["merge_tile1"] > 0 and launches["merge_xstage1"] > 0,
+    need(all(launches[name] > 0 for name in ONE_PLANE_KERNELS),
          f"the one-plane merge kernels never launched: {launches}")
     need(not any(launches[name] for name in
-                 ("merge_partition", "merge_path", *OLD_INT64_MERGE)),
-         f"k=15 ran a two-plane merge: {launches}")
+                 ("merge_partition", "merge_path", *YAK_TAP_KERNELS,
+                  *BITONIC_KERNELS)),
+         f"k=15 ran a two-plane or a bitonic merge: {launches}")
     need(not any(out[True][2].values()), "the plain run launched kernels")
     say("onepl", f"kc-c4 -k15 32 Mbases, 64 MiB budget: kernels == plain "
         f"({check_hist_text(out[False][0])} distinct), {out[False][1]:.3f} "
@@ -1071,13 +1211,13 @@ KERNELS = [
      "kmer_tpu/kernels/bitonic.py:194"),
     ("merge_partition", "kmer_tpu_torch/csrc/merge.cu",
      "kmer_tpu/kernels/bitonic.py:103"),
-    ("merge_tile1", "kmer_tpu_torch/csrc/bitonic.cu",
+    ("merge_path1", "kmer_tpu_torch/csrc/merge.cu",
      "kmer_tpu/kernels/bitonic.py:277"),
-    ("merge_xstage1", "kmer_tpu_torch/csrc/bitonic.cu",
+    ("merge_partition1", "kmer_tpu_torch/csrc/merge.cu",
      "kmer_tpu/kernels/bitonic.py:138"),
-    ("merge_tile3", "kmer_tpu_torch/csrc/bitonic.cu",
+    ("merge_path3", "kmer_tpu_torch/csrc/merge.cu",
      "kmer_tpu/kernels/bitonic.py:232"),
-    ("merge_xstage3", "kmer_tpu_torch/csrc/bitonic.cu",
+    ("merge_partition3", "kmer_tpu_torch/csrc/merge.cu",
      "kmer_tpu/kernels/bitonic.py:121"),
 ]
 
@@ -1118,9 +1258,9 @@ def main(argv=None):
         return 1
     card, rows, launches = out["card"], out["kernels"], out["e2e"]
     # each kernel's count from the path that it serves (module docstring)
-    for name in ("merge_tile1", "merge_xstage1"):
+    for name in ONE_PLANE_KERNELS:
         launches[name] = out["onepl"][name]
-    for name in ("merge_tile3", "merge_xstage3"):
+    for name in YAK_TAP_KERNELS:
         launches[name] = out["yak"][name]
     print(card)
     print(json.dumps({"kernels": [

@@ -38,9 +38,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
 LAUNCHES = {"extract": 0, "seghist": 0, "merge_partition": 0,
-            "merge_path": 0, "merge_tile": 0, "merge_xstage": 0,
-            "merge_tile1": 0, "merge_xstage1": 0, "merge_tile3": 0,
-            "merge_xstage3": 0}
+            "merge_path": 0, "merge_partition1": 0, "merge_path1": 0,
+            "merge_partition3": 0, "merge_path3": 0, "merge_tile": 0,
+            "merge_xstage": 0, "merge_tile1": 0, "merge_xstage1": 0,
+            "merge_tile3": 0, "merge_xstage3": 0}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -64,6 +65,12 @@ _SIGNATURES = {
     "ktt_merge_tile_lanes": [],
     "ktt_merge_partition": [_P, _I64, _P, _I64, _P, _P],
     "ktt_merge_path": [_P, _I64, _P, _I64, _P, _P, _P],
+    "ktt_merge_tile_lanes1": [],
+    "ktt_merge_partition1": [_P, _I64, _P, _I64, _P, _P],
+    "ktt_merge_path1": [_P, _I64, _P, _I64, _P, _P, _P],
+    "ktt_merge_tile_lanes3": [],
+    "ktt_merge_partition3": [_P, _P, _I64, _P, _P, _I64, _P, _P],
+    "ktt_merge_path3": [_P, _P, _I64, _P, _P, _I64, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()

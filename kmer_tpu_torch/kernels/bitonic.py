@@ -1,12 +1,12 @@
 """Bitonic merge of two sorted halves (port of kmer_tpu/kernels/bitonic.py).
 
-Three lane types, one per JAX merge:
+Off every path: the stream ladders merge with kernels/merge.py
+(`merge_runs`, `merge_runs3`), and only chip_smoke.py still checks these
+kernels and times them beside the merge path.  Three lane types, one per
+JAX merge:
 
   merge_sorted_halves_    one biased int64 plane: the JAX two-plane
-                          (hi, lo) merge (`merge_sorted_halves`).  Off
-                          the main path: the two-plane ladder merges
-                          with kernels/merge.py `merge_runs`, and only
-                          chip_smoke.py still times this one beside it
+                          (hi, lo) merge (`merge_sorted_halves`)
   merge_sorted_halves1_   one int32 plane: the JAX one-plane merge of
                           keys < 2^31 (`merge_sorted_halves1`); the
                           sentinel is INT32_MAX (table/compactor.py)

@@ -74,7 +74,7 @@ class YakSimTap:
     KMER_TPU_TAP_BUDGET (bytes, default 2 GiB) is the admission
     compactor's budget, as in the JAX package.  `device` is the engine's;
     `plain_kernels` makes the admission merges use the plain PyTorch
-    version (kernels/bitonic.py), as the engine's own switch does."""
+    version (kernels/merge.py), as the engine's own switch does."""
 
     def __init__(self, pre=10, bf_shift=0, bf_n_hash=4, log=None,
                  device=None, plain_kernels: bool = False):

@@ -41,7 +41,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..kernels import bitonic, bloom
+from ..kernels import bloom, merge
 from ..kernels.keys import SENT
 from ..kernels.segops import segment_starts
 
@@ -199,8 +199,9 @@ class FirstSeenCompactor:
     * stream-sorted (the CUDA default, table.compactor.
       stream_sorted_default): each 2^24-lane chunk is sorted by (key,
       idx) as it arrives and carry-merged up a ladder of sorted runs
-      with the (key, index) bitonic merge (kernels/bitonic.py), so trips
-      and the end pay merges and one keep pass, never a bulk re-sort.
+      with the (key, index) merge path (kernels/merge.py `merge_runs3`,
+      out of place), so trips and the end pay merges and one keep pass,
+      never a bulk re-sort.
       The index is unique, so (key, idx) is a total order.  16 B a raw
       lane (key and index) against classic's 8.
 
@@ -219,8 +220,8 @@ class FirstSeenCompactor:
         self.stream_sorted = (stream_sorted_default(self.device)
                               if stream_sorted is None
                               else bool(stream_sorted))
-        self._merge_ = (bitonic.merge_sorted_halves3_plain_ if plain_kernels
-                        else bitonic.merge_sorted_halves3_)
+        self._merge = (merge.merge_runs3_plain if plain_kernels
+                       else merge.merge_runs3)
         self.stream = self._make_ladder() if self.stream_sorted else None
         self._compacted: Optional[Tuple] = None  # stream mode first-2 run
         self.trips = 0  # budget-trip compactions
@@ -244,9 +245,9 @@ class FirstSeenCompactor:
         )
 
     def _merge_runs(self, a, b):
-        """Merge two equal-length (key, idx)-sorted runs in place of
-        their concatenation (a throwaway temporary)."""
-        return self._merge_(torch.cat([a[0], b[0]]), torch.cat([a[1], b[1]]))
+        """Merge two (key, idx)-sorted runs of any lengths into a new
+        one."""
+        return self._merge(a[0], a[1], b[0], b[1])
 
     @staticmethod
     def _pad_run(planes, target: int):
@@ -291,12 +292,10 @@ class FirstSeenCompactor:
         planes = self.stream.planes()
         self.stream.clear()
         if self._compacted is not None:
-            # merge the standing first-2 run with the new sorted lanes:
-            # pad both to one power of two (sentinels sort last)
-            p = 1 << max(int(planes[0].shape[0]) - 1,
-                         int(self._compacted[0].shape[0]) - 1).bit_length()
-            planes = self._merge_runs(self._pad_run(self._compacted, p),
-                                      self._pad_run(planes, p))
+            # merge the standing first-2 run with the new sorted lanes
+            # (the JAX package pads both to one power of two for its
+            # bitonic network; a merge path takes unequal runs)
+            planes = self._merge_runs(self._compacted, planes)
         self._shrink(*_first2_keep(*planes))
 
     def _shrink(self, keys: torch.Tensor, idx: torch.Tensor) -> None:

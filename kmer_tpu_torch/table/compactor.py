@@ -7,8 +7,8 @@ uint32 counts.
 
 One-plane mode (`key_bits <= 30`, i.e. k <= 15): as in the JAX package,
 the stream ladder then holds one 32-bit key plane, sorts and merges it
-(kernels/bitonic.py `merge_sorted_halves1_`, the one-plane kernels) and
-counts 4 bytes a raw lane against the budget.  Keys narrow to int32 once,
+(kernels/merge.py `merge_runs` on int32 runs) and counts 4 bytes a raw
+lane against the budget.  Keys narrow to int32 once,
 where they enter the ladder, and widen back to biased int64 where the
 ladder folds into `_compact` / `_hist_sorted` (as the JAX package derives
 its hi plane there, compactor.py:165-171), so the segment histogram
@@ -17,9 +17,9 @@ stays the int64 kernel.  Classic mode keeps int64 lanes.
   add_raw      append sentinelized key planes; classic mode keeps a run
                list, stream-sorted mode sorts 2^24-lane chunks as they
                arrive and carry-merges them up a binary ladder
-               (table/stream_ladder.py): int64 runs with the merge-path
-               kernels (kernels/merge.py `merge_runs`, out of place),
-               one-plane int32 runs with the bitonic merge kernels.
+               (table/stream_ladder.py) with the merge-path kernels
+               (kernels/merge.py `merge_runs`, out of place): int64
+               runs, or int32 runs in one-plane mode.
   compact      fold everything into one (key, count) run: sort, segment
                ends, counts.  A budget trip in stream mode compacts
                ladder run by ladder run (`_compact_stream_piecewise`).
@@ -43,7 +43,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..kernels import bitonic, merge, seghist
+from ..kernels import merge, seghist
 from ..kernels.keys import SENT, SENT32, narrow, widen
 from ..kernels.segops import segment_starts
 
@@ -126,13 +126,9 @@ class KmerCompactor:
         self.one_plane = key_bits is not None and key_bits <= 30
         self._seg_hist = (seghist.segment_hist_sorted_plain if plain_kernels
                           else seghist.segment_hist_sorted)
-        if self.one_plane:
-            self._merge_ = (bitonic.merge_sorted_halves1_plain_
-                            if plain_kernels
-                            else bitonic.merge_sorted_halves1_)
-        else:
-            self._merge_two_plane = (merge.merge_runs_plain
-                                     if plain_kernels else merge.merge_runs)
+        # both ladders' merge: int64 runs, or int32 runs in one-plane mode
+        self._merge = (merge.merge_runs_plain if plain_kernels
+                       else merge.merge_runs)
         self._events: deque = deque()
         # time the host spent blocked on the stream throttle
         self.throttle_wait_s = 0.0
@@ -190,11 +186,7 @@ class KmerCompactor:
             self.throttle_wait_s += time.perf_counter() - t0
 
     def _merge_runs(self, a, b):
-        if not self.one_plane:
-            return (self._merge_two_plane(a[0], b[0]),)
-        # the concatenation is a throwaway temporary: merge it in place
-        # (the JAX package donates it, compactor.py:440-447)
-        return (self._merge_(torch.cat([a[0], b[0]])),)
+        return (self._merge(a[0], b[0]),)
 
     @staticmethod
     def _pad_run(planes, target: int):

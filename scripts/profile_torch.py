@@ -9,8 +9,8 @@ Runs on one CUDA GPU, on the 256 Mbase FASTQ that chip_smoke.py makes
 (cached under build/chip_smoke/).  For each run:
 
   kc31   kc-c4 -k31               (the main path: merge path, seghist)
-  yak    yak-count -k31 -b30      (plus the tap's (key, index) merges)
-  kc15   kc-c4 -k15               (one-plane keys)
+  yak    yak-count -k31 -b30      (plus the tap's (key, index) merge path)
+  kc15   kc-c4 -k15               (one-plane keys: the int32 merge path)
 
 two warm passes, then one pass under torch.profiler (CPU and CUDA
 activities).  Each pass prints its wall; the profiled pass also prints

@@ -85,10 +85,10 @@ def test_two_plane_ladder_merges_with_merge_path(plain_kernels, small_chunk):
     j, _ = _pair(batches, stream=True)
     t = TC.KmerCompactor("cpu", stream_sorted=True,
                          plain_kernels=plain_kernels)
-    assert t._merge_two_plane is (merge.merge_runs_plain if plain_kernels
-                                  else merge.merge_runs)
+    assert t._merge is (merge.merge_runs_plain if plain_kernels
+                        else merge.merge_runs)
     merges = []
-    real = t._merge_two_plane
+    real = t._merge
 
     def record(a, b):
         a0, b0 = a.clone(), b.clone()
@@ -97,11 +97,45 @@ def test_two_plane_ladder_merges_with_merge_path(plain_kernels, small_chunk):
         merges.append((a.dtype, a.shape[0], b.shape[0]))
         return out
 
-    t._merge_two_plane = record
+    t._merge = record
     for hi, lo in batches:
         t.add_raw(keys.from_hi_lo(hi, lo))
     assert merges and {m[0] for m in merges} == {torch.int64}
     _same_hists(j, t)
+
+
+@pytest.mark.parametrize("plain_kernels", [False, True])
+def test_one_plane_ladder_merges_with_merge_path(plain_kernels, small_chunk):
+    """The one-plane stream ladder (k <= 15) merges its int32 runs with
+    the same functions, out of place: no concatenation, no flip, the runs
+    left as they were; the histograms equal the JAX one-plane ladder's."""
+    from kmer_tpu_torch.kernels import merge
+
+    rng = np.random.default_rng(23)
+    batches = _batches(rng, 9, 300, 5000, key_bits=30)
+    j = JC.KmerCompactor(key_bits=30, stream_sorted=True)
+    t = TC.KmerCompactor("cpu", key_bits=30, stream_sorted=True,
+                         plain_kernels=plain_kernels)
+    assert j.one_plane and t.one_plane
+    assert t._merge is (merge.merge_runs_plain if plain_kernels
+                        else merge.merge_runs)
+    merges = []
+    real = t._merge
+
+    def record(a, b):
+        a0, b0 = a.clone(), b.clone()
+        out = real(a, b)
+        assert torch.equal(a, a0) and torch.equal(b, b0)
+        assert out.data_ptr() not in (a.data_ptr(), b.data_ptr())
+        merges.append((a.dtype, out.dtype, out.shape[0]))
+        return out
+
+    t._merge = record
+    for hi, lo in batches:
+        j.add_raw(jnp.asarray(hi), jnp.asarray(lo))
+        t.add_raw(keys.from_hi_lo(hi, lo))
+    _same_hists(j, t)
+    assert merges and {m[:2] for m in merges} == {(torch.int32, torch.int32)}
 
 
 @pytest.mark.parametrize("stream", [False, True])
@@ -222,9 +256,9 @@ def test_device_rule(monkeypatch):
 @pytest.mark.parametrize("k", [11, 15])
 def test_one_plane_matches_jax(k, stream, budget, small_chunk):
     """KmerCompactor(key_bits=2k) at k <= 15 runs one-plane: in stream
-    mode the ladder holds int32 lanes and merges them with the one-plane
-    merge; with or without budget trips its histograms equal the JAX
-    one-plane compactor's (which counts without trips)."""
+    mode the ladder holds int32 lanes and merges them with merge_runs on
+    int32 runs; with or without budget trips its histograms equal the
+    JAX one-plane compactor's (which counts without trips)."""
     rng = np.random.default_rng(k + 10 * stream + (budget < 1 << 20))
     batches = _batches(rng, 10, 300, 5000, key_bits=2 * k)
     j = JC.KmerCompactor(key_bits=2 * k, stream_sorted=stream)
@@ -233,8 +267,8 @@ def test_one_plane_matches_jax(k, stream, budget, small_chunk):
     assert j.one_plane and t.one_plane
     merges = []
     if stream:
-        real = t._merge_
-        t._merge_ = lambda x: merges.append(x.dtype) or real(x)
+        real = t._merge
+        t._merge = lambda a, b: merges.append(a.dtype) or real(a, b)
     held = set()  # dtypes the ladder held between adds (trips empty it)
     for hi, lo in batches:
         j.add_raw(jnp.asarray(hi), jnp.asarray(lo))

@@ -196,6 +196,158 @@ def test_merge_path_refuses_bad_input(dev):
         merge.merge_runs(x[::2], x)
 
 
+_SIZES = [(0, 0), (0, 5), (5, 0), (1, 1), (4095, 1), (8191, 1), (8192, 8192),
+          (4097, 12345), (1 << 20, 1 << 20), (777_777, 12_345),
+          (3, (1 << 19) + 11)]
+
+
+def _runs1(dev, na, nb, seed, pool=None, sent=0.2):
+    """Two ascending int32 runs of one-plane keys (< 2^30, repeated when
+    drawn from `pool` values) with a `sent` share of SENT32 lanes."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    v = torch.randint(0, pool or 1 << 30, (na + nb,), generator=g,
+                      device=dev, dtype=torch.int32)
+    v[torch.rand(na + nb, generator=g, device=dev) < sent] = SENT32
+    return torch.sort(v[:na]).values, torch.sort(v[na:]).values
+
+
+@pytest.mark.parametrize("na,nb", _SIZES)
+@pytest.mark.parametrize("pool", [None, 100])
+def test_merge_path1_kernels_match_sort(dev, na, nb, pool):
+    """The int32 merge_partition and merge_path (through merge_runs)
+    against torch.sort of the concatenation and their plain versions."""
+    a, b = _runs1(dev, na, nb, na + 3 * nb + 1, pool)
+    want = torch.sort(torch.cat([a, b])).values
+    a0, b0 = a.clone(), b.clone()
+    got = merge.merge_runs(a, b)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert torch.equal(a, a0) and torch.equal(b, b0)  # out of place
+    assert torch.equal(merge.merge_runs_plain(a, b), want)
+    if na + nb:
+        assert torch.equal(
+            merge.merge_partition(a, b),
+            merge.merge_partition_plain(a, b, merge.tile_lanes(torch.int32)))
+
+
+def _lexsort(key, idx):
+    """(key, index) order of arbitrary lanes: by index, then stably by
+    key."""
+    idx, o = torch.sort(idx, stable=True)
+    key, o = torch.sort(key[o], stable=True)
+    return key, idx[o]
+
+
+def _runs3(dev, na, nb, seed, pool=None, sent=0.15):
+    """Two (key, index)-ascending runs: int64 keys (repeated when drawn
+    from `pool` values) with a `sent` share of SENT lanes, and a unique
+    index dealt at random between the runs, some near the top of the
+    lane-index range."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = na + nb
+    key = torch.randint(-(1 << 62), 1 << 62, (pool or n,), generator=g,
+                        device=dev)
+    if pool:
+        key = key[torch.randint(0, pool, (n,), generator=g, device=dev)]
+    key[torch.rand(n, generator=g, device=dev) < sent] = SENT
+    idx = torch.randperm(n, generator=g, device=dev)
+    idx[::3] += (1 << 32) - (1 << 26) - n
+    return (*_lexsort(key[:na], idx[:na]), *_lexsort(key[na:], idx[na:]))
+
+
+def _check_merge3(planes):
+    want = _lexsort(torch.cat(planes[::2]), torch.cat(planes[1::2]))
+    before = [p.clone() for p in planes]
+    gk, gi = merge.merge_runs3(*planes)
+    assert torch.equal(gk, want[0]) and torch.equal(gi, want[1])
+    assert all(torch.equal(p, q) for p, q in zip(planes, before))
+    pk, pi = merge.merge_runs3_plain(*planes)
+    assert torch.equal(pk, want[0]) and torch.equal(pi, want[1])
+    if gk.shape[0]:
+        assert torch.equal(
+            merge.merge_partition3(*planes),
+            merge.merge_partition3_plain(*planes, merge.tile_lanes3()))
+
+
+@pytest.mark.parametrize("na,nb", _SIZES)
+@pytest.mark.parametrize("pool", [None, 100, 1])
+def test_merge_path3_kernels_match_lexsort(dev, na, nb, pool):
+    """The (key, index) merge_partition3 and merge_path3 (through
+    merge_runs3) against a lexicographic sort of the concatenation and
+    their plain versions; pool 1 is one key on every data lane, so the
+    index decides every compare."""
+    _check_merge3(_runs3(dev, na, nb, na + 3 * nb + 2, pool))
+
+
+@pytest.mark.parametrize("case", ["one_key_interleaved", "one_key_blocks",
+                                  "all_sentinel_mixed", "all_pads",
+                                  "one_long", "ladder_shape"])
+def test_merge_path3_kernels_edge_cases(dev, case):
+    n = 5 * 4096 + 77
+    i = torch.arange(n, device=dev)
+    key = torch.full((n,), 7, dtype=torch.int64, device=dev)
+    idx_sent = (1 << 63) - 1
+    if case == "one_key_interleaved":  # the k = 32 plane, over many tiles
+        planes = (key[::2], i[::2], key[1::2], i[1::2])
+    elif case == "one_key_blocks":
+        in_a = (i // 3000) % 2 == 0
+        planes = (key[in_a], i[in_a], key[~in_a], i[~in_a])
+    elif case == "all_sentinel_mixed":  # invalid lanes among pad lanes
+        g = torch.Generator(device=dev).manual_seed(5)
+        idx = torch.where(torch.rand(n, generator=g, device=dev) < 0.5, i,
+                          idx_sent)
+        sent = torch.full_like(key, SENT)
+        h = n // 3
+        planes = (sent[:h], torch.sort(idx[:h]).values, sent[h:],
+                  torch.sort(idx[h:]).values)
+    elif case == "all_pads":
+        sent = torch.full_like(key, SENT)
+        pads = torch.full_like(key, idx_sent)
+        planes = (sent[:100], pads[:100], sent, pads)
+    elif case == "one_long":  # every lane of b below every lane of a
+        planes = (i + n, i, i[: n - 9], i[: n - 9])
+    else:  # a data run with a pad tail against a shorter padded run
+        a = _runs3(dev, 1 << 16, 0, 3, pool=500)[:2]
+        b = _runs3(dev, 5000, 0, 4, pool=500)[:2]
+        pad = (1 << 16) - 5000
+        planes = (*a, torch.cat([b[0], key.new_full((pad,), SENT)]),
+                  torch.cat([b[1] + (1 << 20), key.new_full((pad,),
+                                                             idx_sent)]))
+    _check_merge3(tuple(p.contiguous() for p in planes))
+
+
+@pytest.mark.parametrize("case", ["all_equal", "all_sentinel", "one_long"])
+def test_merge_path1_kernels_edge_cases(dev, case):
+    n = 3 * 8192 + 5
+    if case == "all_equal":
+        a, b = (torch.full((m,), 7, dtype=torch.int32, device=dev)
+                for m in (n, n + 2))
+    elif case == "all_sentinel":
+        a, b = (torch.full((m,), SENT32, dtype=torch.int32, device=dev)
+                for m in (n, 100))
+    else:  # every lane of b below every lane of a
+        b = torch.arange(n, device=dev, dtype=torch.int32)
+        a = torch.arange(n, 2 * n + 9, device=dev, dtype=torch.int32)
+    want = torch.sort(torch.cat([a, b])).values
+    assert torch.equal(merge.merge_runs(a, b), want)
+    # runs that start off the 16-byte grid (views one lane in)
+    assert torch.equal(merge.merge_runs(a[1:], b[3:]),
+                       torch.sort(torch.cat([a[1:], b[3:]])).values)
+
+
+def test_merge_path_lane_types_refuse_bad_input(dev):
+    x = torch.arange(8, device=dev)
+    y = x.int()
+    for a, b in ((y, x), (x, y), (y, y.cpu()), (y[::2], y)):
+        with pytest.raises(ValueError):
+            merge.merge_runs(a, b)
+    for planes in ((x, y, x, x), (x, x, x, x.cpu()), (x, x[:4], x, x),
+                   (x[::2], x[::2], x, x)):
+        with pytest.raises(ValueError):
+            merge.merge_runs3(*planes)
+    with pytest.raises(ValueError, match="CUDA"):
+        merge.merge_path3(*(x.cpu(),) * 4, torch.zeros(2, dtype=torch.int64))
+
+
 def _halves1(dev, n, seed):
     """Two ascending int32 halves of one-plane keys, 15% SENT32."""
     g = torch.Generator(device=dev).manual_seed(seed)

@@ -419,6 +419,36 @@ def test_merge_runs_refuses_bad_input():
         merge.merge_path(x, x, torch.zeros(2, dtype=torch.int64))
 
 
+@pytest.mark.parametrize("lanes", ["int32", "key_idx"])
+def test_merge_runs_lane_types_refuse_bad_input(lanes):
+    x = torch.arange(8, dtype=torch.int64)
+    splits = torch.zeros(2, dtype=torch.int64)
+    if lanes == "int32":
+        y = x.int()
+        for a, b in ((y, x), (x, y), (y, y.short()), (y[::2], y),
+                     (y, y.view(2, 4))):  # a mix of dtypes, strides, shapes
+            with pytest.raises(ValueError):
+                merge.merge_runs(a, b)
+            with pytest.raises(ValueError):
+                merge.merge_runs_plain(a, b)
+        with pytest.raises(ValueError, match="CUDA"):
+            merge.merge_partition(y, y)
+        with pytest.raises(ValueError, match="CUDA"):
+            merge.merge_path(y, y, splits)
+        return
+    for planes in ((x, x.int(), x, x), (x, x, x.int(), x), (x, x[:4], x, x),
+                   (x, x, x, x[:4]), (x[::2], x[::2], x, x),
+                   (x.view(2, 4), x.view(2, 4), x, x)):
+        with pytest.raises(ValueError):
+            merge.merge_runs3(*planes)
+        with pytest.raises(ValueError):
+            merge.merge_runs3_plain(*planes)
+    with pytest.raises(ValueError, match="CUDA"):
+        merge.merge_partition3(x, x, x, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        merge.merge_path3(x, x, x, x, splits)
+
+
 def _sorted_halves_u32(planes, n):
     """Sort each half of u32 planes lexicographically (all planes keys)."""
     half = n // 2
@@ -513,3 +543,170 @@ def test_merge1_merge3_small_and_wrappers():
     with pytest.raises(ValueError):
         bitonic.merge_sorted_halves3_(torch.zeros(8, dtype=torch.int64),
                                       torch.zeros(4, dtype=torch.int64))
+
+
+# -- merge path on the one-plane and (key, index) ladders ---------------
+
+@pytest.mark.parametrize("n", [1 << 18, 1 << 19])
+def test_merge_runs_plain_int32_matches_pallas_interpret(n):
+    """merge_runs_plain on int32 halves (20% sentinels) equals the JAX
+    one-plane merge (`merge_sorted_halves1`, Pallas interpret) lane for
+    lane; out of place, and the CPU wrapper is the plain version."""
+    from kmer_tpu.kernels import bitonic as jb
+
+    rng = np.random.default_rng(n + 11)
+    lo = rng.integers(0, 1 << 30, n, dtype=np.uint64).astype(np.uint32)
+    lo[rng.random(n) < 0.2] = 0xFFFFFFFF
+    (cl,) = _sorted_halves_u32([lo], n)
+    ml = np.asarray(jb.merge_sorted_halves1(cl, use_pallas=True))
+    x = keys.narrow(keys.from_hi_lo(np.where(np.asarray(cl) == 0xFFFFFFFF,
+                                             0xFFFFFFFF, 0), np.asarray(cl)))
+    a, b = x[: n // 2].clone(), x[n // 2:].clone()
+    out = merge.merge_runs_plain(a, b)
+    assert out.dtype == torch.int32
+    want = np.where(ml == 0xFFFFFFFF, keys.SENT32, ml).astype(np.int32)
+    assert np.array_equal(out.numpy(), want)
+    assert torch.equal(torch.cat([a, b]), x)
+    assert torch.equal(merge.merge_runs(a, b), out)
+
+
+@pytest.mark.parametrize("n", [1 << 17, 1 << 18])
+def test_merge_runs3_plain_matches_pallas_interpret(n):
+    """merge_runs3_plain on (key, index) halves equals the JAX
+    three-plane merge (`merge_sorted_halves3`, Pallas interpret): repeated
+    keys, so the index decides ties, high indices, 15% sentinel lanes."""
+    from kmer_tpu.kernels import bitonic as jb
+
+    rng = np.random.default_rng(n + 13)
+    pool = rng.integers(0, 1 << 40, 2000, dtype=np.uint64)
+    u = pool[rng.integers(0, 2000, n)]
+    hi = (u >> np.uint64(32)).astype(np.uint32)
+    lo = u.astype(np.uint32)
+    idx = rng.permutation(n).astype(np.uint32)
+    idx[: n // 4] += np.uint32((1 << 32) - (1 << 26) - n)  # high indices
+    m = rng.random(n) < 0.15
+    hi[m], lo[m], idx[m] = 0xFFFFFFFF, 0xFFFFFFFF, 0xFFFFFFFF
+    ch, cl, cx = _sorted_halves_u32([hi, lo, idx], n)
+    mh, ml, mx = jb.merge_sorted_halves3(ch, cl, cx, use_pallas=True)
+    k = _jax_keys(ch, cl)
+    i = torch.from_numpy(np.asarray(cx).astype(np.int64))
+    half = n // 2
+    planes = [k[:half].clone(), i[:half].clone(), k[half:].clone(),
+              i[half:].clone()]
+    ok, oi = merge.merge_runs3_plain(*planes)
+    assert torch.equal(ok, _jax_keys(mh, ml))
+    assert np.array_equal(oi.numpy(), np.asarray(mx).astype(np.int64))
+    # out of place, and the CPU wrapper is the plain version
+    assert torch.equal(torch.cat(planes[::2]), k)
+    assert torch.equal(torch.cat(planes[1::2]), i)
+    wk, wi = merge.merge_runs3(*planes)
+    assert torch.equal(wk, ok) and torch.equal(wi, oi)
+
+
+@pytest.mark.parametrize("case", list(_merge_cases()))
+def test_merge_runs_plain_int32_matches_numpy_sort(case):
+    """The int64 edge cases folded into int32 lanes (the sentinel becomes
+    INT32_MAX, the rest their low 30 bits)."""
+    a, b = (np.sort(np.where(x == keys.SENT, keys.SENT32,
+                             x & ((1 << 30) - 1)).astype(np.int32))
+            for x in _merge_cases()[case])
+    want = np.sort(np.concatenate([a, b]), kind="stable")
+    got = merge.merge_runs_plain(torch.from_numpy(a), torch.from_numpy(b))
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), want)
+    assert torch.equal(merge.merge_runs(torch.from_numpy(a),
+                                        torch.from_numpy(b)), got)
+
+
+IDX_SENT = (1 << 63) - 1  # the tap's pad index (pipeline/yak_admit.py)
+
+
+def _merge3_cases():
+    """(key_a, idx_a, key_b, idx_b) runs, each (key, index)-sorted: the
+    one-plane edge cases with a random unique index, then the cases where
+    the index decides."""
+    rng = np.random.default_rng(22)
+    out = {}
+    for name, (a, b) in _merge_cases().items():
+        idx = rng.permutation(a.shape[0] + b.shape[0]).astype(np.int64)
+        idx[::3] += (1 << 32) - (1 << 26) - idx.shape[0]  # high indices
+        out[name] = (a, idx[: a.shape[0]], b, idx[a.shape[0]:])
+    # one key on every lane (the k = 32 plane), the indices interleaved
+    # between the runs lane by lane and in blocks
+    n = 9001
+    idx = np.arange(n, dtype=np.int64)
+    key = np.full(n, 7, np.int64)
+    out["all_equal_interleaved"] = (key[::2], idx[::2], key[1::2], idx[1::2])
+    in_a = (idx // 700) % 2 == 0
+    out["all_equal_blocks"] = (key[in_a], idx[in_a], key[~in_a], idx[~in_a])
+    # invalid lanes (SENT, real index) among (SENT, IDX_SENT) pads
+    sent = np.full(n, keys.SENT, np.int64)
+    sidx = np.where(rng.random(n) < 0.5, idx, IDX_SENT)
+    out["sentinels_with_indices"] = (sent[:5000], sidx[:5000], sent[5000:],
+                                     sidx[5000:])
+    small = rng.integers(0, 5, n)
+    small[rng.random(n) < 0.2] = keys.SENT
+    pad = np.full(300, IDX_SENT, np.int64)
+    out["data_invalid_pads"] = (
+        np.concatenate([small[:6000], sent[:300]]),
+        np.concatenate([idx[:6000], pad]),
+        np.concatenate([small[6000:], sent[:300]]),
+        np.concatenate([idx[6000:], pad]))
+    return out
+
+
+def _sorted3(key, idx):
+    order = np.lexsort((idx, key))
+    return key[order], idx[order]
+
+
+@pytest.mark.parametrize("case", list(_merge3_cases()))
+def test_merge_runs3_plain_matches_numpy_lexsort(case):
+    ka, ia, kb, ib = _merge3_cases()[case]
+    (ka, ia), (kb, ib) = _sorted3(ka, ia), _sorted3(kb, ib)
+    wk, wi = _sorted3(np.concatenate([ka, kb]), np.concatenate([ia, ib]))
+    planes = [torch.from_numpy(x) for x in (ka, ia, kb, ib)]
+    gk, gi = merge.merge_runs3_plain(*planes)
+    assert gk.dtype == gi.dtype == torch.int64
+    assert np.array_equal(gk.numpy(), wk) and np.array_equal(gi.numpy(), wi)
+    ck, ci = merge.merge_runs3(*planes)  # the CPU wrapper
+    assert torch.equal(ck, gk) and torch.equal(ci, gi)
+
+
+@pytest.mark.parametrize("case", ["unequal", "dups_unequal", "a_empty",
+                                  "b_empty", "all_equal_interleaved",
+                                  "all_equal_blocks",
+                                  "sentinels_with_indices",
+                                  "data_invalid_pads"])
+@pytest.mark.parametrize("tile", [1, 7, 2048])
+def test_merge_partition3_plain(case, tile):
+    """The splits the (key, index) partition writes, against a numpy
+    lexsort of the concatenation with a's lanes first among identical
+    ones."""
+    ka, ia, kb, ib = _merge3_cases()[case]
+    (ka, ia), (kb, ib) = _sorted3(ka, ia), _sorted3(kb, ib)
+    n = ka.shape[0] + kb.shape[0]
+    from_b = np.arange(n) >= ka.shape[0]
+    order = np.lexsort((from_b, np.concatenate([ia, ib]),
+                        np.concatenate([ka, kb])))
+    d = np.minimum(np.arange(0, -(-n // tile) + 1) * tile, n)
+    want = np.concatenate([[0], np.cumsum(~from_b[order])])[d]
+    got = merge.merge_partition3_plain(
+        *(torch.from_numpy(x) for x in (ka, ia, kb, ib)), tile)
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("case", ["unequal", "dups_unequal", "all_equal",
+                                  "sentinel_tails"])
+@pytest.mark.parametrize("tile", [7, 8192])
+def test_merge_partition_plain_int32(case, tile):
+    a, b = (np.sort(np.where(x == keys.SENT, keys.SENT32,
+                             x & ((1 << 30) - 1)).astype(np.int32))
+            for x in _merge_cases()[case])
+    n = a.shape[0] + b.shape[0]
+    from_a = np.argsort(np.concatenate([a, b]), kind="stable") < a.shape[0]
+    d = np.minimum(np.arange(0, -(-n // tile) + 1) * tile, n)
+    want = np.concatenate([[0], np.cumsum(from_a)])[d]
+    got = merge.merge_partition_plain(torch.from_numpy(a),
+                                      torch.from_numpy(b), tile)
+    assert np.array_equal(got.numpy(), want)

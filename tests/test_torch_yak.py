@@ -123,6 +123,59 @@ def test_deferred_matches_jax_and_oracle(n, n_keys, n_shift, use_bloom, seed,
         assert adm.fs.stream.ladder == {} and adm.fs._compacted is not None
 
 
+@pytest.mark.parametrize("plain_kernels", [False, True])
+def test_tap_ladder_merges_with_merge_runs3(plain_kernels, monkeypatch):
+    """The tap's stream ladder merges (key, index) runs with
+    kernels/merge.py (merge_runs3, or its plain version under
+    plain_kernels), out of place; after a budget trip the standing
+    first-2 run merges with the new lanes unpadded, at unequal lengths.
+    The totals equal the JAX package's and the oracle's, and the first-2
+    planes equal the classic path's."""
+    from kmer_tpu_torch.kernels import merge
+    from kmer_tpu_torch.table import compactor
+
+    monkeypatch.setattr(compactor, "_STREAM_CHUNK", 1 << 10)
+    monkeypatch.setattr(compactor, "_STREAM_MIN", 1 << 8)
+    rng = np.random.default_rng(31)
+    n = 9000
+    hi, lo = _rand_planes(rng, n, 1200)
+    bounds = [2500, 6100, n]
+    jspec, tspec = _specs(14, True)
+    want = _oracle(hi, lo, bounds, jspec, True)
+    adm = TA.DeferredYakAdmission(tspec, True, budget_bytes=40_000,
+                                  stream_sorted=True,
+                                  plain_kernels=plain_kernels)
+    fs = adm.fs
+    assert fs._merge is (merge.merge_runs3_plain if plain_kernels
+                         else merge.merge_runs3)
+    sizes = []
+    real = fs._merge
+
+    def record(*planes):
+        before = [p.clone() for p in planes]
+        out = real(*planes)
+        assert all(torch.equal(p, q) for p, q in zip(planes, before))
+        assert not {o.data_ptr() for o in out} & {p.data_ptr()
+                                                  for p in planes}
+        sizes.append((planes[0].shape[0], planes[2].shape[0]))
+        return out
+
+    fs._merge = record
+    for a, b, end in _blocks(n, bounds, 997):
+        adm.add_block(_port_keys(hi[a:b], lo[a:b]), batch_end=end)
+    planes = fs.first2_planes()
+    assert fs.trips > 1
+    assert any(na != nb for na, nb in sizes)  # the standing run, unpadded
+    assert any(na == nb for na, nb in sizes)  # the ladder's carries
+    wk, wi = TA._first2_compact(_port_keys(hi, lo),
+                                torch.arange(n, dtype=torch.int64))
+    assert torch.equal(planes[0], wk) and torch.equal(planes[1], wi)
+    pb, tot = adm.finish()
+    jpb, jtot = _drive_jax(hi, lo, bounds, jspec, True)
+    assert list(pb) == list(jpb) == want[0]
+    assert tot == jtot == want[1]
+
+
 @pytest.mark.parametrize("stream", [False, True])
 @pytest.mark.parametrize("use_bloom", [True, False])
 def test_budget_trips_every_block(stream, use_bloom):
