@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""chip_smoke.py — run the port's kc-c4 and yak-count paths on one GPU.
+"""chip_smoke.py — run the port's kc-c4, yak-count and SNP-fingerprint
+paths on one GPU.
 
 Usage: python3 chip_smoke.py [--seed N]
 
@@ -42,9 +43,23 @@ Phases, each printing its own lines:
   7. onepl    kc-c4 -k15 (one-plane keys) on 32 Mbases under the 64 MiB
               budget, kernels vs plain; the int32 merge-path kernels must
               launch in it, the int64 and (key, index) ones not
-  8. fixture  kc-c4 on tests/fixtures at k=15, 21 and 31, and yak-count
-              on the reads fixture: the port on the GPU gives the bytes of
-              the port on the CPU
+  8. snp      the SNP-fingerprint chain at NGSCheckMate's panel size:
+              snp-pattern-gen -k21 on the smoke's 24 MiB genome (24
+              chromosomes, gzipped FASTA) with 21,000 seeded SNP sites,
+              vaf-counter -k21 -v on three samples (A: 256 Mbases and A2:
+              64 Mbases from genotype X, B: 64 Mbases from genotype Y;
+              each genotype homozygous alt at its own seeded half of the
+              sites), correlation-matrix -t and match-classifier -v -P,
+              all through kmer_tpu_torch.tools; every file must equal the
+              same chain's with the plain kernel versions, the classifier
+              must match A with A2 and neither with B, extract and the
+              int64 merge path must launch, seghist and the other merges
+              not; prints each tool's wall and peak memory, vaf-counter
+              A's -v report and counts_for's time over A's key plane
+  9. fixture  kc-c4 on tests/fixtures at k=15, 21 and 31, yak-count on the
+              reads fixture, and the SNP chain on the genome, BED and
+              sample fixtures: the port on the GPU gives the bytes of the
+              port on the CPU
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; the kernels line takes the counts of extract, seghist and the
@@ -165,17 +180,30 @@ def max_abs_err(a, b):
 
 # -- synthetic reads ----------------------------------------------------
 
+def genome_codes(seed: int):
+    """The smoke's random 24 MiB genome (2-bit codes), made from seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 4, GENOME_BASES, dtype=np.uint8), rng
+
+
 def reads_file(mbases: int, seed: int) -> str:
     """Gzipped FASTQ of mbases Mbases of 150 bp reads sampled with 0.5%
     substitution errors from a random 24 MiB genome (cached)."""
+    path = os.path.join(DATA_DIR, f"reads_{mbases}M_s{seed}.fq.gz")
+    if not os.path.exists(path):
+        genome, rng = genome_codes(seed)
+        write_reads(path, genome, mbases, rng)
+    return path
+
+
+def write_reads(path: str, genome, mbases: int, rng) -> None:
+    """Write mbases Mbases of 150 bp reads from genome (2-bit codes),
+    each base substituted with probability 0.5%, as gzipped FASTQ."""
     import numpy as np
 
-    path = os.path.join(DATA_DIR, f"reads_{mbases}M_s{seed}.fq.gz")
-    if os.path.exists(path):
-        return path
     os.makedirs(DATA_DIR, exist_ok=True)
-    rng = np.random.default_rng(seed)
-    genome = rng.integers(0, 4, GENOME_BASES, dtype=np.uint8)
     acgt = np.frombuffer(b"ACGT", np.uint8)
     n_reads = mbases * 1_000_000 // READ_LEN
     name_w = 10  # "@r" + 9 digits + "\n"
@@ -185,7 +213,7 @@ def reads_file(mbases: int, seed: int) -> str:
         comp = zlib.compressobj(1, zlib.DEFLATED, 16 + zlib.MAX_WBITS)
         for off in range(0, n_reads, 200_000):
             n = min(200_000, n_reads - off)
-            starts = rng.integers(0, GENOME_BASES - READ_LEN, n)
+            starts = rng.integers(0, genome.shape[0] - READ_LEN, n)
             codes = genome[starts[:, None] + np.arange(READ_LEN)]
             err = rng.random(codes.shape) < 0.005
             codes = np.where(err, rng.integers(0, 4, codes.shape), codes)
@@ -204,7 +232,6 @@ def reads_file(mbases: int, seed: int) -> str:
             f.write(comp.compress(out.tobytes()))
         f.write(comp.flush())
     os.replace(tmp, path)
-    return path
 
 
 # -- phases ---------------------------------------------------------------
@@ -890,12 +917,10 @@ def recording_engines(tool_module=None, plain_kernels=False):
     mod = tool_module or kc
     made, real = [], mod.make_count_engine
 
-    def record(k, block_bases=10_000_000, qual_policy=None):
+    def record(k, block_bases=10_000_000, **kw):
         made.append(watch_hist_bincount(
-            SortCountEngine(k, block_bases, qual_policy=qual_policy,
-                            plain_kernels=plain_kernels)
-            if plain_kernels else
-            real(k, block_bases=block_bases, qual_policy=qual_policy)))
+            SortCountEngine(k, block_bases, plain_kernels=plain_kernels, **kw)
+            if plain_kernels else real(k, block_bases=block_bases, **kw)))
         return made[-1]
 
     mod.make_count_engine = record
@@ -914,8 +939,8 @@ def hist_text(eng):
     return buf.getvalue()
 
 
-def run_tool(tool, args):
-    """(stdout, the `[M` stderr lines) of one tool run, which must exit 0."""
+def run_tool_err(tool, args):
+    """(stdout, stderr) of one tool run, which must exit 0."""
     from kmer_tpu_torch.tools import get_tool
 
     out, err = io.StringIO(), io.StringIO()
@@ -923,8 +948,13 @@ def run_tool(tool, args):
         rc = get_tool(tool)(args)
     need(rc == 0, f"{tool} {' '.join(args)} exited {rc}: "
          f"{err.getvalue()[-2000:]}")
-    return out.getvalue(), [ln for ln in err.getvalue().splitlines()
-                            if ln.startswith("[M")]
+    return out.getvalue(), err.getvalue()
+
+
+def run_tool(tool, args):
+    """(stdout, the `[M` stderr lines) of one tool run, which must exit 0."""
+    out, err = run_tool_err(tool, args)
+    return out, [ln for ln in err.splitlines() if ln.startswith("[M")]
 
 
 def run_kc_c4(args):
@@ -1031,6 +1061,34 @@ def platform(name):
             os.environ["KMER_TPU_PLATFORM"] = old
 
 
+def fixture_snp_chain():
+    """The four SNP tools on tests/fixtures (genome_small.fa.gz and
+    snps_small.bed over sampleA1/A2/B.fq.gz): every file the port writes
+    on the GPU equals the file it writes on the CPU."""
+    fix = os.path.join(HERE, "tests", "fixtures")
+    fqs = {s: os.path.join(fix, f"{s}.fq.gz")
+           for s in ("sampleA1", "sampleA2", "sampleB")}
+    runs = {}
+    for plat in ("cuda", "cpu"):
+        d = os.path.join(DATA_DIR, f"fixture_snp_{plat}")
+        with platform(plat):
+            runs[plat] = run_snp_chain(d, snp_chain(
+                d, os.path.join(fix, "genome_small.fa.gz"),
+                os.path.join(fix, "snps_small.bed"), fqs))[1]
+    need(sorted(runs["cuda"]) == sorted(runs["cpu"]) and len(runs["cpu"]) == 7,
+         f"fixture SNP chain files: {sorted(runs['cuda'])}")
+    for fn in runs["cpu"]:
+        need(runs["cuda"][fn] == runs["cpu"][fn],
+             f"fixture SNP chain {fn}: GPU bytes != CPU bytes")
+    status = match_status(runs["cuda"]["samples.match"].decode())
+    need(list(status.values()).count("MATCHED") == 1,
+         f"fixture classifier: {status}")
+    say("fixture", f"SNP chain on tests/fixtures (snp-pattern-gen, "
+        f"vaf-counter x3, correlation-matrix -t, match-classifier -v -P): "
+        f"GPU == CPU for all {len(runs['cpu'])} files; "
+        f"sampleA1-sampleA2 the one matched pair")
+
+
 def phase_fixture():
     from kmer_tpu_torch.pipeline.counter import SortCountEngine
 
@@ -1045,7 +1103,9 @@ def phase_fixture():
                  f"fixture {name} k={k}: GPU bytes != CPU bytes")
             say("fixture", f"{name} kc-c4 k={k}: GPU == CPU "
                 f"({check_hist_text(gpu)} distinct)")
-    path = os.path.join(HERE, "tests", "fixtures", "reads_small.fq.gz")
+    fixture_snp_chain()
+    fix = os.path.join(HERE, "tests", "fixtures")
+    path = os.path.join(fix, "reads_small.fq.gz")
     for args in (["-k21", "-b19", "-K30000"], ["-k15", "-b20"]):
         gpu = run_tool("yak-count", [*args, path])
         with platform("cpu"):
@@ -1202,6 +1262,265 @@ def phase_onepl(seed):
     return launches
 
 
+# -- the SNP-fingerprint pipeline -----------------------------------------
+
+SNP_SITES = 21_000  # NGSCheckMate's panel size (bench.py:80, N_SNPS)
+SNP_K = 21
+# sample, genotype, Mbases, read seed: A and A2 are one individual (X)
+SNP_SAMPLES = (("A", "X", 256, 1), ("A2", "X", 64, 2), ("B", "Y", 64, 3))
+N_CHROMS = 24
+
+
+def snp_inputs(seed):
+    """(genome FASTA, BED, {sample: FASTQ}), made from seed and cached:
+    the smoke's 24 MiB genome cut into 24 chromosomes of seeded lengths;
+    SNP_SITES sites at seeded positions at least 32 bases apart, each
+    with a seeded alt base; genotypes X and Y each homozygous for the alt
+    base at their own seeded half of the sites; 150 bp reads with 0.5%
+    errors sampled from each sample's genotype."""
+    import numpy as np
+
+    tag = f"s{seed}"
+    fasta = os.path.join(DATA_DIR, f"snp_genome_{tag}.fa.gz")
+    bed = os.path.join(DATA_DIR, f"snp_sites_{tag}.bed")
+    fqs = {name: os.path.join(DATA_DIR, f"snp_{name}_{mb}M_{tag}.fq.gz")
+           for name, _, mb, _ in SNP_SAMPLES}
+    if all(os.path.exists(p) for p in (fasta, bed, *fqs.values())):
+        return fasta, bed, fqs
+    os.makedirs(DATA_DIR, exist_ok=True)
+    genome, _ = genome_codes(seed)
+    rng = np.random.default_rng([seed, 6])
+    cuts = np.sort(rng.choice(np.arange(1 << 16, GENOME_BASES - (1 << 16)),
+                              N_CHROMS - 1, replace=False))
+    bounds = np.concatenate([[0], cuts, [GENOME_BASES]])
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    tmp = f"{fasta}.tmp.{os.getpid()}"
+    with open(tmp, "wb") as f:
+        comp = zlib.compressobj(1, zlib.DEFLATED, 16 + zlib.MAX_WBITS)
+        for c in range(N_CHROMS):
+            seq = acgt[genome[bounds[c]:bounds[c + 1]]]
+            body = b"\n".join(seq[i:i + 80].tobytes()
+                              for i in range(0, seq.shape[0], 80))
+            f.write(comp.compress(b">chr%d\n" % (c + 1) + body + b"\n"))
+        f.write(comp.flush())
+    os.replace(tmp, fasta)
+    # sites on a 32-base grid, kept 16 bases from every chromosome end
+    grid = np.arange(16, GENOME_BASES, 32)
+    chrom = np.searchsorted(bounds, grid, side="right") - 1
+    ok = (grid - bounds[chrom] >= 16) & (bounds[chrom + 1] - grid > 16)
+    pick = np.sort(rng.choice(np.flatnonzero(ok), SNP_SITES, replace=False))
+    pos, chrom = grid[pick], chrom[pick]
+    ref = genome[pos]
+    alt = (ref + rng.integers(1, 4, SNP_SITES)) % 4
+    with open(bed, "w") as f:
+        for i in range(SNP_SITES):
+            start = int(pos[i] - bounds[chrom[i]])
+            f.write(f"chr{chrom[i] + 1}\t{start}\t{start + 1}\trs{i + 1}\t"
+                    f"{'ACGT'[ref[i]]}\t{'ACGT'[alt[i]]}\n")
+    halves = {g: rng.permutation(SNP_SITES)[:SNP_SITES // 2] for g in "XY"}
+    for name, g, mb, read_seed in SNP_SAMPLES:
+        variant = genome.copy()
+        variant[pos[halves[g]]] = alt[halves[g]]
+        write_reads(fqs[name], variant, mb,
+                    np.random.default_rng([seed, 7, read_seed]))
+    return fasta, bed, fqs
+
+
+def snp_chain(d, fasta, bed, fqs):
+    """The four SNP tools, in order, as (tool, args) with their outputs in
+    directory d: patterns, one VAF file a sample, the correlation matrix
+    (+ tree), and the classifier's pairs (predefined model, all pairs)."""
+    vafs = [os.path.join(d, f"{name}.vaf") for name in fqs]
+    return [
+        ("snp-pattern-gen", [f"-k{SNP_K}", "-b", bed, "-f", fasta, "-o",
+                             os.path.join(d, "snps.pat")]),
+        *[("vaf-counter", [f"-k{SNP_K}", "-v", "-p",
+                           os.path.join(d, "snps.pat"), "-o", vaf, fq])
+          for vaf, fq in zip(vafs, fqs.values())],
+        ("correlation-matrix", ["-o", os.path.join(d, "samples.corr"), "-t",
+                                *vafs]),
+        ("match-classifier", ["-c", os.path.join(d, "samples.corr"), "-o",
+                              os.path.join(d, "samples.match"), "-v", "-P",
+                              *vafs]),
+    ]
+
+
+def run_snp_chain(d, chain):
+    """Run the chain in a fresh directory d: (stderr, wall s, peak device
+    GiB, device GiB held before it) of each tool run (no device numbers
+    under KMER_TPU_PLATFORM=cpu), and {file name: bytes} of what it
+    wrote."""
+    import torch
+
+    os.makedirs(d, exist_ok=True)
+    for fn in os.listdir(d):
+        os.remove(os.path.join(d, fn))
+    cuda = os.environ.get("KMER_TPU_PLATFORM", "") != "cpu"
+    runs = []
+    for tool, args in chain:
+        held = None
+        if cuda:
+            gc.collect()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated() / 2**30
+        t0 = time.perf_counter()
+        err = run_tool_err(tool, args)[1]
+        wall = time.perf_counter() - t0
+        runs.append((err, wall, torch.cuda.max_memory_allocated() / 2**30
+                     if cuda else None, held))
+    files = {}
+    for fn in sorted(os.listdir(d)):
+        with open(os.path.join(d, fn), "rb") as f:
+            files[fn] = f.read()
+    return runs, files
+
+
+def match_status(text):
+    """{frozenset(sample pair): status} from match-classifier -v."""
+    out = {}
+    for line in text.splitlines():
+        t = line.split("\t")
+        if len(t) == 7 and t[6] in ("MATCHED", "UNMATCHED"):
+            out[frozenset(t[:2])] = t[6]
+    return out
+
+
+@contextlib.contextmanager
+def timing_counts_for():
+    """Record (engine, host seconds) of every SortCountEngine.counts_for
+    call (its result ends in a readback, so the wall holds the device
+    work)."""
+    from kmer_tpu_torch.pipeline.counter import SortCountEngine
+
+    calls, real = [], SortCountEngine.counts_for
+
+    def counts_for(self, *a):
+        t0 = time.perf_counter()
+        out = real(self, *a)
+        calls.append((self, time.perf_counter() - t0))
+        return out
+
+    SortCountEngine.counts_for = counts_for
+    try:
+        yield calls
+    finally:
+        SortCountEngine.counts_for = real
+
+
+VAF_V_LINES = ("runtime", "loading", "creation", "counting", "writing",
+               "Speed", "throughput", "Bases processed", "Device")
+
+
+def phase_snp(seed, card):
+    import numpy as np
+    import torch
+
+    from kmer_tpu_torch.io.formats import read_patterns
+    from kmer_tpu_torch.kernels import _build
+    from kmer_tpu_torch.kernels.keys import from_hi_lo
+    from kmer_tpu_torch.tools import snp_pattern_gen, vaf_counter
+
+    say("snp", f"on {card}")
+    t0 = time.perf_counter()
+    fasta, bed, fqs = snp_inputs(seed)
+    say("snp", f"inputs ready in {time.perf_counter() - t0:.1f} s: "
+        f"{SNP_SITES} sites, genome {os.path.getsize(fasta) / 1e6:.0f} MB "
+        "gz, " + ", ".join(f"{name} {mb} Mbases"
+                           for name, _, mb, _ in SNP_SAMPLES))
+    card_dir = os.path.join(DATA_DIR, "snp_card")
+    chain = snp_chain(card_dir, fasta, bed, fqs)
+    gc.collect()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    with recording_engines(snp_pattern_gen) as made_s, \
+            recording_engines(vaf_counter) as made_v, \
+            timing_counts_for() as cf_calls:
+        runs, files = run_snp_chain(card_dir, chain)
+    launches = dict(_build.LAUNCHES)
+    say("snp", f"launches in this run: {json.dumps(launches)}")
+    need(all(launches[n] > 0 for n in
+             ("extract", "merge_partition", "merge_path")),
+         f"the SNP chain did not launch extract and the merge path: "
+         f"{launches}")
+    need(not launches["seghist"] and not any(
+        launches[n] for n in (*ONE_PLANE_KERNELS, *YAK_TAP_KERNELS,
+                              *BITONIC_KERNELS)),
+         f"the SNP chain launched seghist or another merge: {launches}")
+    need(len(made_s) == 1 and len(made_v) == len(SNP_SAMPLES)
+         and all(e.compactor.stream_sorted and not e.plain_kernels
+                 for e in made_s + made_v),
+         "the SNP tools did not count on stream-sorted card engines")
+    patterns = read_patterns(os.path.join(card_dir, "snps.pat"))
+    need(len(patterns) > SNP_SITES * 0.9,
+         f"only {len(patterns)} of {SNP_SITES} sites kept")
+    status = match_status(files["samples.match"].decode())
+    need(status == {frozenset(("A", "A2")): "MATCHED",
+                    frozenset(("A", "B")): "UNMATCHED",
+                    frozenset(("A2", "B")): "UNMATCHED"},
+         f"classifier: {status}")
+    for (tool, args), (_, wall, peak, held) in zip(chain, runs):
+        on = (f" {os.path.basename(args[-1])}" if tool == "vaf-counter"
+              else "")
+        say("snp", f"{tool}{on}: {wall:.3f} s, "
+            f"peak device memory {peak:.2f} GiB ({held:.2f} GiB held "
+            "before it by earlier tools' engines)")
+    say("snp", f"snp-pattern-gen kept {len(patterns)} of {SNP_SITES} sites; "
+        "classifier: A-A2 MATCHED, A-B and A2-B UNMATCHED")
+    for line in runs[1][0].splitlines():
+        if any(w in line for w in VAF_V_LINES):
+            say("snp", f"vaf-counter A -v: {line.strip()}")
+
+    # counts_for over A's key plane: the call in vaf-counter (which folds
+    # the stream ladder into one plane first), then calls on that plane
+    eng, first_s = cf_calls[1]
+    need(eng is made_v[0], "the second counts_for call is not A's")
+    phi, plo, _, n_map = vaf_counter.create_combined_kmer_map(patterns,
+                                                              SNP_K)
+    keys = eng.compactor._stream_keys()
+    n_lanes = int(keys.shape[0])
+    want = eng.compactor.counts_for(phi[:n_map], plo[:n_map])
+    again = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = eng.compactor.counts_for(phi[:n_map], plo[:n_map])
+        again.append(time.perf_counter() - t0)
+        need(np.array_equal(got, want), "counts_for differs between calls")
+    q = from_hi_lo(phi[:n_map], plo[:n_map], keys.device)
+    search_ms = time_run_ms(lambda: (torch.searchsorted(keys, q),
+                                     torch.searchsorted(keys, q, right=True)))
+    plane_ms = n_lanes * 8 / HBM_BYTES_PER_S * 1e3
+    probe_bytes = 2 * n_map * n_lanes.bit_length() * 32
+    say("snp", f"counts_for, {n_map} queries over A's plane of {n_lanes} "
+        f"lanes: {first_s * 1e3:.3f} ms in vaf-counter (ladder fold "
+        f"included), {min(again) * 1e3:.3f} ms a call on the folded plane "
+        f"(host wall: upload, two searchsorted, readback), "
+        f"{search_ms:.4f} ms for the two searchsorted (device, a run of 5); "
+        f"bound: the plane read once {plane_ms:.4f} ms; the probes' 32-byte "
+        f"sectors {probe_bytes / 1e6:.1f} MB = "
+        f"{probe_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    del eng, keys, q, made_s, made_v, cf_calls
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    plain_dir = os.path.join(DATA_DIR, "snp_plain")
+    with recording_engines(snp_pattern_gen, plain_kernels=True) as made_s, \
+            recording_engines(vaf_counter, plain_kernels=True) as made_v:
+        plain_runs, plain_files = run_snp_chain(
+            plain_dir, snp_chain(plain_dir, fasta, bed, fqs))
+    need(len(made_s) == 1 and all(e.plain_kernels for e in made_s + made_v),
+         "the plain run did not use plain versions")
+    need(sorted(plain_files) == sorted(files),
+         f"files {sorted(plain_files)} != {sorted(files)}")
+    for fn in files:
+        need(files[fn] == plain_files[fn],
+             f"{fn}: card kernels != the plain versions on the card")
+    say("snp", f"plain versions on the card: every file equal "
+        f"({', '.join(sorted(files))}); vaf-counter A "
+        f"{plain_runs[1][1]:.3f} s vs {runs[1][1]:.3f} s with the kernels")
+    return launches
+
+
 KERNELS = [
     ("extract", "kmer_tpu_torch/csrc/extract.cu",
      "kmer_tpu/kernels/extract_tpu.py:111"),
@@ -1246,6 +1565,7 @@ def main(argv=None):
               ("budget", lambda: phase_budget(args.seed)),
               ("yak", lambda: phase_yak(args.seed)),
               ("onepl", lambda: phase_onepl(args.seed)),
+              ("snp", lambda: phase_snp(args.seed, out["card"])),
               ("fixture", phase_fixture))
     out = {}
     try:

@@ -137,14 +137,22 @@ def _build(so: str) -> None:
 
 
 def library() -> ctypes.CDLL:
-    """The kernels' library, built from csrc/ at first use."""
+    """The kernels' library, built from csrc/ at first use.
+
+    A failure to build or load it raises RuntimeError, never OSError:
+    the tools treat OSError as an unreadable input, and a kernel that
+    cannot load must not pass for one."""
     global _lib
     with _lock:
         if _lib is None:
             so = _library_path()
-            if not os.path.exists(so):
-                _build(so)
-            lib = ctypes.CDLL(so)
+            try:
+                if not os.path.exists(so):
+                    _build(so)
+                lib = ctypes.CDLL(so)
+            except OSError as e:
+                raise RuntimeError(f"kmer_tpu_torch: cannot build or load "
+                                   f"the kernel library {so}: {e}") from e
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes

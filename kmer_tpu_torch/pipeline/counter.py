@@ -17,6 +17,7 @@ ported here rather than imported.
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
 import time
@@ -28,6 +29,7 @@ import torch
 from .. import default_device
 from ..io import fastx, native, packing
 from ..kernels import extract
+from ..kernels.keys import from_hi_lo, to_hi_lo
 from ..table.compactor import KmerCompactor, stream_sorted_default
 
 
@@ -205,6 +207,7 @@ class SortCountEngine:
         k: int,
         block_bases: int = 10_000_000,
         budget_bytes: int = 2 << 30,
+        prefetch: bool = True,
         qual_policy=None,
         device=None,
         plain_kernels: bool = False,
@@ -215,6 +218,8 @@ class SortCountEngine:
         self.block_bases = block_bases
         # separator headroom: one reference batch per buffer
         self.capacity = int(block_bases) + max(4096, int(block_bases) // 32)
+        # False: the reader runs in the calling thread
+        self.prefetch = prefetch
         self.qual_policy = qual_policy  # see io.fastx.FastxReader
         self.plain_kernels = plain_kernels
         self._extract = (extract.extract_keys_plain if plain_kernels
@@ -248,9 +253,11 @@ class SortCountEngine:
         self._nk_dev.clear()
         self._nk_host = int(v)
 
-    def count_paths(self, paths: Sequence[str], tap=None) -> None:
-        """Stream every path's k-mers into the compactor.  `tap`, when
-        given, is called per block as tap(keys, n_valid, n_seqs,
+    def count_paths(self, paths: Sequence[str], progress=None,
+                    tap=None) -> None:
+        """Stream every path's k-mers into the compactor.  `progress`,
+        when given, is called as progress(self) after each block.  `tap`,
+        when given, is called per block as tap(keys, n_valid, n_seqs,
         batch_end) after the block is appended, on the same (row-sliced)
         key plane: single-file yak-count runs its admission simulation on
         it (tools/yak_count.py)."""
@@ -260,7 +267,9 @@ class SortCountEngine:
         pin = self.device.type == "cuda"
         it = _iter_packed(paths, self.k, self.block_bases, self.capacity,
                           self.qual_policy)
-        it = _prefetch(_stage(item, pin, st) for item in _timed_iter(it, st))
+        it = (_stage(item, pin, st) for item in _timed_iter(it, st))
+        if self.prefetch:
+            it = _prefetch(it)
         while True:
             t0 = time.perf_counter()
             try:
@@ -283,6 +292,8 @@ class SortCountEngine:
             if tap is not None:
                 tap(keys, n_kmers, n_seqs, batch_end)
             st.dispatch_s += time.perf_counter() - t1
+            if progress is not None:
+                progress(self)
         st.loop_s = time.perf_counter() - t_loop
         st.throttle_s = self.compactor.throttle_wait_s - thr0
 
@@ -290,14 +301,34 @@ class SortCountEngine:
         h, self._n_distinct = self.compactor.hist(n_bins, max_count, min_keep)
         return h
 
-    @classmethod
-    def from_jax_checkpoint(cls, path: str, **kw) -> "SortCountEngine":
-        """Rebuild an engine from the .npz that the JAX package's
-        SortCountEngine.save_checkpoint writes (hi/lo uint32 key planes,
-        uint32 counts, meta = [k, bases, seqs, kmers]); counting can go on
-        over further inputs."""
-        from ..kernels.keys import from_hi_lo
+    def counts_for(self, query_hi, query_lo) -> np.ndarray:
+        return self.compactor.counts_for(query_hi, query_lo)
 
+    def save_checkpoint(self, path: str) -> None:
+        """Write the count state as the JAX package's SortCountEngine
+        does (pipeline/counter.py:621-646): an .npz of the distinct keys
+        as hi/lo uint32 planes, their uint32 counts and meta = int64[k,
+        bases, seqs, kmers], written to a temporary file and renamed.
+        The stream folds to one (key, count) run first."""
+        self.compactor.compact()
+        if self.compactor.runs:
+            keys, cnt = self.compactor.runs[0]
+            hi, lo = to_hi_lo(keys)
+            cnt = cnt.cpu().numpy().view(np.uint32)
+        else:
+            hi = lo = cnt = np.zeros(0, np.uint32)
+        tmp = path + ".tmp.npz"  # atomic publish: write, then rename
+        np.savez_compressed(
+            tmp, hi=hi, lo=lo, cnt=cnt,
+            meta=np.asarray([self.k, self.total_bases, self.total_seqs,
+                             self.total_kmers], np.int64))
+        os.replace(tmp, path)
+
+    @classmethod
+    def resume_checkpoint(cls, path: str, **kw) -> "SortCountEngine":
+        """Rebuild an engine from a checkpoint that either package's
+        save_checkpoint wrote; counting can go on over further inputs,
+        and the final histogram equals an uninterrupted run's."""
         z = np.load(path)
         k, tb, ts, tk = (int(x) for x in z["meta"])
         eng = cls(k=k, **kw)
@@ -309,9 +340,13 @@ class SortCountEngine:
         eng.total_bases, eng.total_seqs, eng.total_kmers = tb, ts, tk
         return eng
 
+    from_jax_checkpoint = resume_checkpoint
+
 
 def make_count_engine(k: int, block_bases: int = 10_000_000,
+                      budget_bytes: int = 2 << 30, prefetch: bool = True,
                       qual_policy=None) -> SortCountEngine:
     """The CLI tools' engine factory: one engine on the default device
     (see default_device)."""
-    return SortCountEngine(k, block_bases, qual_policy=qual_policy)
+    return SortCountEngine(k, block_bases, budget_bytes, prefetch,
+                           qual_policy)

@@ -26,6 +26,11 @@ stays the int64 kernel.  Classic mode keeps int64 lanes.
   hist         histogram of per-key counts through the one-pass
                segment-histogram kernel (kernels/seghist.py
                `segment_hist_sorted`).
+  counts_for   total multiplicity of each query key: two
+               `torch.searchsorted` calls on the sorted key plane (the
+               JAX package's fixed-trip binary search, plain XLA there
+               and plain torch here), weighted by a modular uint32
+               cumsum when the runs carry counts.
 
 `plain_kernels=True` makes the engine call the kernels' plain PyTorch
 versions on any device, so the same engine can be held against itself
@@ -44,14 +49,15 @@ import numpy as np
 import torch
 
 from ..kernels import merge, seghist
-from ..kernels.keys import SENT, SENT32, narrow, widen
+from ..kernels.keys import SENT, SENT32, from_hi_lo, narrow, widen
 from ..kernels.segops import segment_starts
 
 # stream-sorted mode: raw keys fold into sorted runs of this many lanes
 # as they arrive, and finalization pays only the ladder merges
 _STREAM_CHUNK = 1 << 24
 _STREAM_MIN = 1 << 16
-# pushed chunks the host may run ahead of the device in stream mode
+# pushed chunks the host may run ahead of the device in stream mode,
+# unless KMER_TPU_THROTTLE_WINDOW says otherwise
 _THROTTLE_WINDOW = 4
 
 Run = Tuple[torch.Tensor, Optional[torch.Tensor]]  # (keys, counts or None)
@@ -66,6 +72,15 @@ def stream_sorted_default(device: torch.device) -> bool:
     if env in ("0", "false", "off", "no"):
         return False
     return torch.device(device).type == "cuda"
+
+
+def throttle_window() -> int:
+    """KMER_TPU_THROTTLE_WINDOW, at least 1; _THROTTLE_WINDOW when unset
+    or not an integer (compactor.py:379-391)."""
+    try:
+        return max(1, int(os.environ.get("KMER_TPU_THROTTLE_WINDOW", "")))
+    except ValueError:
+        return _THROTTLE_WINDOW
 
 
 def _concat_runs(runs: List[Run]) -> Run:
@@ -130,6 +145,7 @@ class KmerCompactor:
         self._merge = (merge.merge_runs_plain if plain_kernels
                        else merge.merge_runs)
         self._events: deque = deque()
+        self._throttle_window = throttle_window()
         # time the host spent blocked on the stream throttle
         self.throttle_wait_s = 0.0
         self.last_n_unique = 0  # distinct keys as of the last compact()
@@ -172,7 +188,7 @@ class KmerCompactor:
 
     def _throttle_push(self, planes) -> None:
         """Bound how far the host runs ahead of the device: record an
-        event per pushed chunk and wait on the one from _THROTTLE_WINDOW
+        event per pushed chunk and wait on the one a throttle window of
         chunks back, so at most that many chunks' buffers are in flight
         (the JAX package's readback throttle, compactor.py:369-411)."""
         if self.device.type != "cuda":
@@ -180,7 +196,7 @@ class KmerCompactor:
         ev = torch.cuda.Event()
         ev.record(torch.cuda.current_stream(self.device))
         self._events.append(ev)
-        if len(self._events) > _THROTTLE_WINDOW:
+        if len(self._events) > self._throttle_window:
             t0 = time.perf_counter()
             self._events.popleft().synchronize()
             self.throttle_wait_s += time.perf_counter() - t0
@@ -250,23 +266,28 @@ class KmerCompactor:
 
     def hist(self, n_bins: int, max_count: Optional[int], min_keep: int = 1):
         """(histogram int64[n_bins], n_distinct) over all keys."""
-        pre_sorted = False
         if (self.stream and self.runs
                 and self.stream.data_lanes > _STREAM_CHUNK * 2):
             # big mixed state: compact piecewise first so the final sort
             # sees counted runs only
             self.compact()
+        plane = self._sorted_plane()
+        if plane is None:
+            return np.zeros(n_bins, np.int64), 0
+        return self._hist_sorted(*plane, n_bins, max_count, min_keep)
+
+    def _sorted_plane(self) -> Optional[Run]:
+        """The sorted (keys, counts or None) plane that ends a count, or
+        None when the engine holds nothing: stream only -> the folded
+        ladder plane; counted runs, or mixed after `_absorb_stream` ->
+        concat + sort."""
         if self.stream:
-            if self.runs:
-                self._absorb_stream()
-            else:
-                keys = self._stream_keys()
-                counts, pre_sorted = None, True
-        if not pre_sorted:
             if not self.runs:
-                return np.zeros(n_bins, np.int64), 0
-            keys, counts = _sort(*_concat_runs(self.runs))
-        return self._hist_sorted(keys, counts, n_bins, max_count, min_keep)
+                return self._stream_keys(), None
+            self._absorb_stream()
+        if not self.runs:
+            return None
+        return _sort(*_concat_runs(self.runs))
 
     def _hist_sorted(self, keys, counts, n_bins, max_count, min_keep):
         """The _hist_impl_tpu shape (compactor.py:176-217) after the sort:
@@ -276,3 +297,29 @@ class KmerCompactor:
         hist, n_distinct = self._seg_hist(keys, counts,
                                           (n_bins, max_count, min_keep))
         return hist.cpu().numpy(), int(n_distinct)
+
+    def counts_for(self, query_hi, query_lo) -> np.ndarray:
+        """Total multiplicity of each query key (0 if absent), in query
+        order, duplicates included: int64 numpy (compactor.py:610-653).
+        Queries are (hi, lo) uint32 planes.  Each key's segment in the
+        sorted plane is [searchsorted left, searchsorted right); weighted
+        runs sum their uint32 counts with the JAX package's modular
+        arithmetic.  The all-ones key counts 0, as in the JAX package,
+        whose segment end (`_key_succ`) wraps to 0 there."""
+        plane = self._sorted_plane()  # no piecewise compaction first
+        if plane is None:
+            return np.zeros(len(query_hi), np.int64)
+        keys, counts = plane
+        if self.one_plane:
+            assert not np.any(query_hi), (
+                "counts_for: query keys exceed the declared key_bits <= 30")
+        q = from_hi_lo(query_hi, query_lo, self.device)
+        lb = torch.searchsorted(keys, q)
+        ub = torch.searchsorted(keys, q, right=True)
+        if counts is None:
+            out = ub - lb
+        else:
+            csum = torch.cumsum(counts.to(torch.int64) & 0xFFFFFFFF, 0)
+            csum = torch.cat([csum.new_zeros(1), csum])
+            out = (csum[ub] - csum[lb]) & 0xFFFFFFFF
+        return torch.where(q == SENT, 0, out).cpu().numpy()

@@ -14,6 +14,10 @@ _TOOLS = {
     "kc-c3": ("kmer_tpu_torch.tools.kc", "main_kc_c3"),
     "kc-c4": ("kmer_tpu_torch.tools.kc", "main_kc_c4"),
     "yak-count": ("kmer_tpu_torch.tools.yak_count", "main"),
+    "snp-pattern-gen": ("kmer_tpu_torch.tools.snp_pattern_gen", "main"),
+    "vaf-counter": ("kmer_tpu_torch.tools.vaf_counter", "main"),
+    "correlation-matrix": ("kmer_tpu_torch.tools.correlation_matrix", "main"),
+    "match-classifier": ("kmer_tpu_torch.tools.match_classifier", "main"),
 }
 
 

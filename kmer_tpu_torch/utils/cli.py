@@ -1,6 +1,6 @@
 """ketopt-workalike command-line parsing (a copy of the part of
-kmer_tpu/utils/cli.py that the port's tools call: `ketopt`, `c_atoi`;
-after the reference's ketopt.h:56-118).
+kmer_tpu/utils/cli.py that the port's tools call: `ketopt`, `c_atof`,
+`c_atoi`; after the reference's ketopt.h:56-118).
 
 Supports optstrings like "k:p:b:t:v" with argument permutation (options
 may follow positional arguments, matching ketopt's permute=1 mode used
@@ -54,6 +54,50 @@ def ketopt(argv: List[str], ostr: str) -> Tuple[List[Tuple[str, str]], List[str]
             j += 1
         i += 1
     return opts, pos
+
+
+def c_atof(s: str) -> float:
+    """C atof (strtod) semantics: parse the leading float, 0.0 when
+    none (the reference's match-classifier parses -t this way).
+    Handles inf/infinity/nan and hex floats like strtod."""
+    s = s.strip()
+    j = 0
+    sign = 1.0
+    if j < len(s) and s[j] in "+-":
+        if s[j] == "-":
+            sign = -1.0
+        j += 1
+    low = s[j:].lower()
+    if low.startswith("infinity") or low.startswith("inf"):
+        return sign * float("inf")
+    if low.startswith("nan"):
+        return sign * float("nan")
+    if low.startswith("0x"):
+        # strtod hex float: longest valid prefix (sign is part of s)
+        for end in range(len(s), j + 1, -1):
+            try:
+                return float.fromhex(s[:end])
+            except ValueError:
+                continue
+    while j < len(s) and s[j].isdigit():
+        j += 1
+    if j < len(s) and s[j] == ".":
+        j += 1
+        while j < len(s) and s[j].isdigit():
+            j += 1
+    if j < len(s) and s[j] in "eE":
+        e = j + 1
+        if e < len(s) and s[e] in "+-":
+            e += 1
+        d = e
+        while d < len(s) and s[d].isdigit():
+            d += 1
+        if d > e:
+            j = d
+    try:
+        return float(s[:j])
+    except ValueError:
+        return 0.0
 
 
 def c_atoi(s: str) -> int:

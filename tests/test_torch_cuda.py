@@ -495,3 +495,33 @@ def test_engine_on_card_matches_cpu(dev, k, monkeypatch):
         out.append((e.hist(256, 1023).tolist(), e._n_distinct,
                     e.total_kmers))
     assert out[0] == out[1]
+
+
+@pytest.mark.parametrize("budget", [2 << 30, 1 << 20])
+@pytest.mark.parametrize("k", [15, 21])
+def test_counts_for_on_card_matches_cpu(dev, k, budget, monkeypatch):
+    """counts_for on the card (stream only, or mixed after budget trips)
+    equals the CPU engine's, in query order with duplicates."""
+    from kmer_tpu_torch.pipeline.counter import SortCountEngine
+    from kmer_tpu_torch.table import compactor
+
+    monkeypatch.setattr(compactor, "_STREAM_CHUNK", 1 << 14)
+    monkeypatch.setenv("KMER_TPU_STREAM_SORT", "1")
+    path = os.path.join(FIXTURES, "reads_small.fq.gz")
+    rng = np.random.default_rng(k)
+    q = rng.integers(0, 1 << (2 * k), 5000, dtype=np.uint64)
+    out = []
+    for device in (dev, "cpu"):
+        e = SortCountEngine(k, block_bases=1 << 16, device=device,
+                            budget_bytes=budget)
+        e.count_paths([path])
+        if not out:  # the card's own keys, so most queries are present
+            keys = e.compactor._stream_keys() if not e.compactor.runs \
+                else e.compactor.runs[0][0]
+            q[:2500] = (keys[:2500].cpu().numpy().view(np.uint64)
+                        ^ np.uint64(1 << 63))
+            q[2500:2600] = q[:100]
+        hi = (q >> np.uint64(32)).astype(np.uint32)
+        lo = (q & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        out.append(e.counts_for(hi, lo))
+    assert np.array_equal(out[0], out[1]) and (out[0][:2500] > 0).mean() > 0.5
