@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""chip_smoke.py — run the port's kc-c4, yak-count and SNP-fingerprint
-paths on one GPU.
+"""chip_smoke.py — run the port's kc-c4, yak-count (one file and two),
+SNP-fingerprint and ed-vaf-counter paths on one GPU.
 
 Usage: python3 chip_smoke.py [--seed N]
 
@@ -56,15 +56,30 @@ Phases, each printing its own lines:
               int64 merge path must launch, seghist and the other merges
               not; prints each tool's wall and peak memory, vaf-counter
               A's -v report and counts_for's time over A's key plane
-  9. fixture  kc-c4 on tests/fixtures at k=15, 21 and 31, yak-count on the
-              reads fixture, and the SNP chain on the genome, BED and
-              sample fixtures: the port on the GPU gives the bytes of the
-              port on the CPU
+  9. yak2     two-file `yak-count -k31 -b30 A B` (A: phase 4's 256 Mbase
+              file, B: phase 8's 64 Mbase sample of genotype Y): stdout
+              and every `[M` line must equal the same run with the plain
+              kernel versions in both compactors; extract and the int64
+              merge path must launch, no other kernel; prints the wall,
+              both passes' IngestStats, insert_sequential's device time
+              over pass 1, the shrink join's time and the peak device
+              memory (the 1 GiB bits array and both compactors)
+ 10. edvaf    ed-vaf-counter -e1 with the first 1,000 sites of phase 8's
+              panel (2,000 patterns at k = 21) on sample B (64 Mbases):
+              wall, Mbases/s and the Myers loop's share of the wall; on
+              B's first 2,048 reads (one batch) the card's VAF file must
+              equal the CPU's; no kernel may launch (plain torch)
+ 11. fixture  kc-c4 on tests/fixtures at k=15, 21 and 31, yak-count on the
+              reads fixture, two-file yak-count on sampleA1 + sampleB
+              (-k31 -b19 -K65536, -k15 -b19, -b0), the SNP chain on the
+              genome, BED and sample fixtures, and ed-vaf-counter -e0/1/2
+              on its patterns over sampleA1: the port on the GPU gives
+              the bytes of the port on the CPU
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; the kernels line takes the counts of extract, seghist and the
 int64 merge path from phase 4, the int32 merge path's from phase 7 and
-the (key, index) merge path's from phase 6.  No path may launch a
+the (key, index) merge path's from phase 6 (phase 9 prints its own).  No path may launch a
 bitonic kernel, and after every phase neither jax nor any module of the
 JAX package (kmer_tpu) may be loaded.
 
@@ -1115,6 +1130,28 @@ def phase_fixture():
         say("fixture", f"reads_small.fq.gz yak-count {' '.join(args)}: "
             f"GPU == CPU (stdout and {len(gpu[1])} [M lines; "
             f"{gpu[1][-1]})")
+    a1, b = (os.path.join(fix, f"{s}.fq.gz") for s in ("sampleA1", "sampleB"))
+    for args in (["-k31", "-b19", "-K65536"], ["-k15", "-b19"], ["-b0"]):
+        gpu = run_tool("yak-count", [*args, a1, b])
+        with platform("cpu"):
+            cpu = run_tool("yak-count", [*args, a1, b])
+        need(gpu == cpu, f"fixture two-file yak-count {' '.join(args)}: "
+             "GPU != CPU")
+        check_yak_text(gpu)
+        say("fixture", f"sampleA1 + sampleB yak-count {' '.join(args)}: "
+            f"GPU == CPU (stdout and {len(gpu[1])} [M lines; {gpu[1][-1]})")
+    pat = os.path.join(DATA_DIR, "fixture_snp_cpu", "snps.pat")
+    for e in (0, 1, 2):
+        vafs = []
+        for plat in ("cuda", "cpu"):
+            vaf = os.path.join(DATA_DIR, f"fixture_ed_e{e}_{plat}.vaf")
+            with platform(plat):
+                run_tool_err("ed-vaf-counter", [f"-e{e}", "-p", pat, "-o",
+                                                vaf, a1])
+            vafs.append(read_file(vaf))
+        need(vafs[0] == vafs[1], f"fixture ed-vaf-counter -e{e}: GPU != CPU")
+        say("fixture", f"sampleA1 ed-vaf-counter -e{e} on the fixture "
+            f"patterns: GPU == CPU ({vafs[0].splitlines()[0].decode()})")
 
 
 def check_yak_text(result):
@@ -1521,6 +1558,272 @@ def phase_snp(seed, card):
     return launches
 
 
+# -- two-file yak-count and ed-vaf-counter --------------------------------
+
+YAK2_ARGS = ["-k31", "-b30"]
+# the two-file path runs extract and the int64 merge path only
+YAK2_KERNELS = ("extract", "merge_partition", "merge_path")
+
+
+@contextlib.contextmanager
+def recording_yak_engines(plain_kernels=False):
+    """Keep the engines that yak-count's two-file branch builds; with
+    plain_kernels, build them with the kernels' plain versions (both
+    compactors and extraction)."""
+    from kmer_tpu_torch.pipeline.yak import SortYakEngine
+    from kmer_tpu_torch.tools import yak_count
+
+    made, real = [], yak_count.make_yak_engine
+
+    def record(**kw):
+        made.append(SortYakEngine(plain_kernels=plain_kernels, **kw))
+        return made[-1]
+
+    yak_count.make_yak_engine = record
+    try:
+        yield made
+    finally:
+        yak_count.make_yak_engine = real
+
+
+@contextlib.contextmanager
+def timing_yak2():
+    """Time the two-file engine's plain-torch parts: every
+    insert_sequential call between two CUDA events (no synchronize, so
+    the pipeline runs as it would; the events also count any wait for
+    the host inside the call), and the shrink join between two
+    synchronizes (host wall)."""
+    import torch
+
+    from kmer_tpu_torch.kernels import bloom
+    from kmer_tpu_torch.pipeline import yak
+
+    times = {"insert": [], "join_s": []}
+    real_ins, real_join = bloom.insert_sequential, yak._shrink_join_core
+
+    def insert_sequential(bits, keys, valid, spec):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = real_ins(bits, keys, valid, spec)
+        ev[1].record()
+        times["insert"].append((ev, keys.shape[0], spec.n_hashes))
+        return out
+
+    def shrink_join(keys1, keys2, c2, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_join(keys1, keys2, c2, *a)
+        torch.cuda.synchronize()
+        times["join_s"].append(time.perf_counter() - t0)
+        times["join_lanes"] = (keys1.shape[0], keys2.shape[0])
+        return out
+
+    bloom.insert_sequential = insert_sequential
+    yak._shrink_join_core = shrink_join
+    try:
+        yield times
+    finally:
+        bloom.insert_sequential, yak._shrink_join_core = real_ins, real_join
+
+
+def phase_yak2(seed):
+    import torch
+
+    from kmer_tpu_torch.kernels import _build
+
+    path_a = reads_file(MBASES, seed)
+    path_b = snp_inputs(seed)[2]["B"]
+    mb_b = dict((n, mb) for n, _, mb, _ in SNP_SAMPLES)["B"]
+    bases = [mb * 1_000_000 // READ_LEN * READ_LEN for mb in (MBASES, mb_b)]
+    args = [*YAK2_ARGS, path_a, path_b]
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    with recording_yak_engines() as made, timing_yak2() as times:
+        t0 = time.perf_counter()
+        got = run_tool("yak-count", args)
+        wall = time.perf_counter() - t0
+        insert_ms = sum(a.elapsed_time(b) for (a, b), _, _ in times["insert"])
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    eng = made[0]
+    need(f"-b{eng.bf_shift}" in YAK2_ARGS and eng.comp1.stream_sorted
+         and eng.comp2.stream_sorted and not eng.plain_kernels,
+         "the two-file engine is not on stream-sorted card compactors")
+    need(times["insert"] and len(times["join_s"]) == 1,
+         "pass 1 did not run the sequential bloom, or the shrink no join")
+    total = check_yak_text(got)
+    n_b = bases[1] // READ_LEN
+    need(sum(eng.batch_seq_counts) == n_b,
+         f"pass 2 read {sum(eng.batch_seq_counts)} reads of {n_b}")
+    n_lines = sum(ln.startswith("[M] ") for ln in got[1])
+    need(n_lines > len(eng.batch_seq_counts) > 1,
+         f"{n_lines} [M] lines, pass 2 in {len(eng.batch_seq_counts)} "
+         "batches")
+    first = got[1][0].split("; ")[1]
+    say("yak2", f"yak-count {' '.join(YAK2_ARGS)} A ({MBASES} Mbases) "
+        f"B ({mb_b} Mbases, genotype Y): {wall:.3f} s = "
+        f"{sum(bases) / 1e6 / wall:.2f} Mbases/s over both files, "
+        f"{total} distinct after shrinking, pass 1 {first}, peak device "
+        f"memory {peak:.2f} GiB (bits array 2^{eng.bf_shift} bytes)")
+    for i, st in enumerate(eng.stats, 1):
+        say("yak2", f"pass {i} IngestStats: {st.report()}")
+    # bounds, bytes at HBM_BYTES_PER_S: insert_sequential reads each key
+    # (8 B) and valid flag (1 B), reads and writes each probe's byte,
+    # writes each verdict (1 B); the join reads A's keys (8 B) and B's
+    # keys and counts (12 B) and writes 1024 int64 bins
+    ins_bytes = sum(n * (10 + 2 * h) for _, n, h in times["insert"])
+    n1, n2 = times["join_lanes"]
+    join_bytes = n1 * 8 + n2 * 12 + 1024 * 8
+    say("yak2", f"insert_sequential: {len(times['insert'])} calls over "
+        f"{sum(n for _, n, _ in times['insert'])} lanes, {insert_ms:.3f} ms "
+        f"of device time in all (CUDA events); bound {ins_bytes / 1e6:.0f} "
+        f"MB = {ins_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    say("yak2", f"shrink join of {n1} + {n2} keys: "
+        f"{times['join_s'][0] * 1e3:.3f} ms (host wall, synchronized); "
+        f"bound {join_bytes / 1e6:.0f} MB = "
+        f"{join_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    say("yak2", f"launches in this run: {json.dumps(launches)}")
+    need(all(launches[name] > 0 for name in YAK2_KERNELS),
+         f"a kernel of the two-file path was never launched: {launches}")
+    need(not any(v for name, v in launches.items()
+                 if name not in YAK2_KERNELS),
+         f"the two-file path launched another kernel: {launches}")
+
+    with recording_yak_engines(plain_kernels=True) as made:
+        t0 = time.perf_counter()
+        want = run_tool("yak-count", args)
+        pwall = time.perf_counter() - t0
+    need(made[0].plain_kernels, "the plain run did not use plain versions")
+    need(got == want, "two-file yak-count with kernels != the plain "
+         "versions on the card (stdout or [M lines)")
+    say("yak2", f"plain versions on the card (both compactors, extract): "
+        f"same stdout and [M lines, {pwall:.3f} s")
+    return launches
+
+
+EDVAF_SITES = 1000  # a small panel, as ed-vaf-counter's usage intends
+# the 32-bit operations of one (read, pattern, text position) step of
+# kernels/myers.py myers_hw_counts, unmasked: the Peq gather, xv, xh (4),
+# ph (3), mh, the score's two tests and two adds (6), the shift, new pv
+# (5), new mv, and the best/count update (6)
+MYERS_OPS_PER_STEP = 29
+PEAK_32BIT_OPS_PER_S = 67e12  # one H100 SXM, float32 outside the tensor cores
+EDVAF_READS = 2048  # one batch of 150 bp reads (the 1024-base bucket)
+
+
+@contextlib.contextmanager
+def timing_myers():
+    """(host seconds synchronized on both sides, lane-steps, bytes) of
+    every myers_hw_counts call of ed-vaf-counter: lane-steps are reads x
+    patterns x the batch's longest read, bytes the read codes it scans
+    and the int32 counts it writes."""
+    import torch
+
+    from kmer_tpu_torch.tools import ed_vaf_counter
+
+    calls, real = [], ed_vaf_counter.myers_hw_counts
+
+    def myers_hw_counts(peq, pat_len, codes, lens, max_e):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(peq, pat_len, codes, lens, max_e)
+        torch.cuda.synchronize()
+        lane_steps = out.numel() * int(lens.max())
+        calls.append((time.perf_counter() - t0, lane_steps,
+                      codes.shape[0] * int(lens.max()) + out.numel() * 4))
+        return out
+
+    ed_vaf_counter.myers_hw_counts = myers_hw_counts
+    try:
+        yield calls
+    finally:
+        ed_vaf_counter.myers_hw_counts = real
+
+
+def read_file(path):
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def edvaf_inputs(seed):
+    """(panel, head, sample B, its bases) under build/chip_smoke/edvaf/:
+    the panel is the first EDVAF_SITES rows of phase 8's pattern file
+    (snp-pattern-gen makes one there when phase 8 has not run), head is
+    B's first EDVAF_READS reads as a plain FASTQ."""
+    import gzip
+
+    fasta, bed, fqs = snp_inputs(seed)
+    mb_b = dict((n, mb) for n, _, mb, _ in SNP_SAMPLES)["B"]
+    d = os.path.join(DATA_DIR, "edvaf")
+    os.makedirs(d, exist_ok=True)
+    src = os.path.join(DATA_DIR, "snp_card", "snps.pat")
+    if not os.path.exists(src):
+        src = os.path.join(d, "snps.pat")
+        run_tool_err("snp-pattern-gen", [f"-k{SNP_K}", "-b", bed, "-f",
+                                         fasta, "-o", src])
+    with open(src) as f:
+        rows = f.readlines()[:EDVAF_SITES]
+    need(len(rows) == EDVAF_SITES, f"the snp panel has {len(rows)} rows")
+    pat = os.path.join(d, f"panel_{EDVAF_SITES}.pat")
+    with open(pat, "w") as f:
+        f.writelines(rows)
+    head = os.path.join(d, f"B_first_{EDVAF_READS}.fq")
+    with gzip.open(fqs["B"], "rb") as f, open(head, "wb") as g:
+        g.writelines(f.readline() for _ in range(4 * EDVAF_READS))
+    return pat, head, fqs["B"], mb_b * 1_000_000 // READ_LEN * READ_LEN
+
+
+def phase_edvaf(seed):
+    from kmer_tpu_torch.kernels import _build
+
+    pat, head, fq, bases = edvaf_inputs(seed)
+    d = os.path.dirname(pat)
+    _build.reset_launches()
+    vaf = os.path.join(d, "B.vaf")
+    with timing_myers() as calls:
+        t0 = time.perf_counter()
+        run_tool_err("ed-vaf-counter", ["-e1", "-p", pat, "-o", vaf, fq])
+        wall = time.perf_counter() - t0
+    need(not any(_build.LAUNCHES.values()),
+         f"ed-vaf-counter launched a kernel: {dict(_build.LAUNCHES)}")
+    lines = read_file(vaf).decode().splitlines()
+    need(len(lines) == EDVAF_SITES + 2, f"{len(lines)} VAF lines")
+    depth = sum(int(ln.split("\t")[7]) for ln in lines[2:])
+    need(depth > 0, "ed-vaf-counter found no pattern in sample B")
+    myers_s = sum(c[0] for c in calls)
+    lane_steps = sum(c[1] for c in calls)
+    nbytes = sum(c[2] for c in calls)
+    say("edvaf", f"ed-vaf-counter -e1, {EDVAF_SITES} sites ("
+        f"{2 * EDVAF_SITES} patterns, k={SNP_K}), sample B "
+        f"{bases / 1e6:.0f} Mbases: "
+        f"{wall:.3f} s = {bases / 1e6 / wall:.2f} Mbases/s; the Myers loop "
+        f"{myers_s:.3f} s in {len(calls)} batches "
+        f"({100 * myers_s / wall:.1f}% of the wall); {lines[0]}, "
+        f"total depth {depth}")
+    say("edvaf", f"Myers bounds: {lane_steps} lane-steps x "
+        f"{MYERS_OPS_PER_STEP} 32-bit operations = "
+        f"{lane_steps * MYERS_OPS_PER_STEP / PEAK_32BIT_OPS_PER_S:.4f} s "
+        f"at {PEAK_32BIT_OPS_PER_S:.3g}/s (the float32 rate: the table "
+        f"gives no integer rate); bytes {nbytes / 1e6:.0f} MB = "
+        f"{nbytes / HBM_BYTES_PER_S:.5f} s")
+    out = {}
+    for plat in ("cuda", "cpu"):
+        with platform(plat):
+            one = os.path.join(d, f"B_first_{EDVAF_READS}_{plat}.vaf")
+            t0 = time.perf_counter()
+            run_tool_err("ed-vaf-counter", ["-e1", "-p", pat, "-o", one,
+                                            head])
+            out[plat] = (read_file(one), time.perf_counter() - t0)
+    need(out["cuda"][0] == out["cpu"][0],
+         f"ed-vaf-counter on {EDVAF_READS} reads: card VAF != CPU VAF")
+    need(not any(_build.LAUNCHES.values()), "ed-vaf-counter launched a kernel")
+    say("edvaf", f"first {EDVAF_READS} reads (one batch): card VAF == CPU "
+        f"VAF ({out['cuda'][1]:.3f} s on the card, {out['cpu'][1]:.3f} s on "
+        "the CPU)")
+
+
 KERNELS = [
     ("extract", "kmer_tpu_torch/csrc/extract.cu",
      "kmer_tpu/kernels/extract_tpu.py:111"),
@@ -1566,6 +1869,8 @@ def main(argv=None):
               ("yak", lambda: phase_yak(args.seed)),
               ("onepl", lambda: phase_onepl(args.seed)),
               ("snp", lambda: phase_snp(args.seed, out["card"])),
+              ("yak2", lambda: phase_yak2(args.seed)),
+              ("edvaf", lambda: phase_edvaf(args.seed)),
               ("fixture", phase_fixture))
     out = {}
     try:

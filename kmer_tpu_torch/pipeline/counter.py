@@ -199,6 +199,53 @@ def _extract_step_rows(ascii_u8: torch.Tensor, k: int, row_bytes: int,
     return fn(ascii_u8, k, row_bytes)
 
 
+class InputError(OSError):
+    """An input that the reader could not open or read.  Only
+    `_extracted_blocks` raises it, from the reader's own OSError, so a
+    tool that answers it with "failed to open" catches nothing else."""
+
+
+def _extracted_blocks(paths: Sequence[str], k: int, block_bases: int,
+                      capacity: int, qual_policy, device: torch.device,
+                      prefetch: bool, extract_flat, extract_rows,
+                      st: IngestStats):
+    """The ingest loop that the count and yak engines share (the port's
+    form of kmer_tpu/pipeline/yak.py:209-260, ASCII ingest): reader
+    (`_iter_packed`), staging in pinned memory for a CUDA device,
+    non-blocking host->device copy, and the extraction kernel, in its
+    row-sliced form (`extract_rows`) when every read of the block has one
+    length and the flat form (`extract_flat`) otherwise.  Yields (keys,
+    n_valid, n_bases, n_seqs, batch_end) a block, in reader order; `st`
+    takes the reader, staging, wait and dispatch times."""
+    pin = device.type == "cuda"
+    it = _iter_packed(paths, k, block_bases, capacity, qual_policy)
+    it = (_stage(item, pin, st) for item in _timed_iter(it, st))
+    if prefetch:
+        it = _prefetch(it)
+    while True:
+        t0 = time.perf_counter()
+        try:
+            buf, n_bases, n_seqs, row_bytes, batch_end = next(it)
+        except StopIteration:
+            st.wait_s += time.perf_counter() - t0
+            return
+        except OSError as e:
+            err = InputError(*e.args)
+            if e.filename is not None:
+                err.filename = e.filename
+            raise err from e
+        t1 = time.perf_counter()
+        st.wait_s += t1 - t0
+        buf = buf.to(device, non_blocking=True)
+        if row_bytes and row_bytes > k:
+            keys, n_kmers = _extract_step_rows(buf, k, row_bytes,
+                                               extract_rows)
+        else:
+            keys, n_kmers = extract_flat(buf, k)
+        st.dispatch_s += time.perf_counter() - t1
+        yield keys, n_kmers, n_bases, n_seqs, batch_end
+
+
 class SortCountEngine:
     """Streaming counter on the sort-based compactor, on one device."""
 
@@ -264,27 +311,11 @@ class SortCountEngine:
         st = self.stats = IngestStats()
         t_loop = time.perf_counter()
         thr0 = self.compactor.throttle_wait_s
-        pin = self.device.type == "cuda"
-        it = _iter_packed(paths, self.k, self.block_bases, self.capacity,
-                          self.qual_policy)
-        it = (_stage(item, pin, st) for item in _timed_iter(it, st))
-        if self.prefetch:
-            it = _prefetch(it)
-        while True:
-            t0 = time.perf_counter()
-            try:
-                buf, n_bases, n_seqs, row_bytes, batch_end = next(it)
-            except StopIteration:
-                st.wait_s += time.perf_counter() - t0
-                break
+        for keys, n_kmers, n_bases, n_seqs, batch_end in _extracted_blocks(
+                paths, self.k, self.block_bases, self.capacity,
+                self.qual_policy, self.device, self.prefetch, self._extract,
+                self._extract_rows, st):
             t1 = time.perf_counter()
-            st.wait_s += t1 - t0
-            buf = buf.to(self.device, non_blocking=True)
-            if row_bytes and row_bytes > self.k:
-                keys, n_kmers = _extract_step_rows(buf, self.k, row_bytes,
-                                                   self._extract_rows)
-            else:
-                keys, n_kmers = self._extract(buf, self.k)
             self.compactor.add_raw(keys)
             self.total_bases += int(n_bases)
             self.total_seqs += n_seqs

@@ -1,21 +1,39 @@
-"""yak-count's bloom geometry and its single-file stderr simulation (port
-of kmer_tpu/pipeline/yak.py: the constants, `_clamp_bf_shift`,
-`_bloom_geometry_ok`, `_make_bloom` without a bits array, `YakSimTap`).
+"""yak-count's engines on one device (port of kmer_tpu/pipeline/yak.py:
+the constants, `_clamp_bf_shift`, `_exact_bloom_default`,
+`_bloom_geometry_ok`, `_make_bloom`, `_tap_admit`, `YakSimTap`,
+`_shrink_join_core`, `SortYakEngine`, `make_yak_engine`,
+`yak_count_file`).
 
 Single-file yak-count counts on the sort engine (pipeline/counter.py);
 `YakSimTap` rides the engine's extracted key planes and gives the
 reference's per-batch `[M] processed N sequences; M distinct k-mers in
 the hash table` totals through the deferred admission engine
-(pipeline/yak_admit.py).  The table engines and the two-file engine
-(`YakEngine`, `SortYakEngine`, the mesh engines) are not ported yet.
+(pipeline/yak_admit.py).
+
+Two-file yak-count runs `SortYakEngine` (yak_count_file, the
+reference's yak_count_file flow): pass 1 gates file 1's k-mers with the
+bloom's bits array (kernels/bloom.py, sequential test-and-set by
+default) and counts the admitted lanes in one compactor; pass 2 counts
+file 2 in a second compactor; the shrink joins the two by one stable
+sort.  The table engines (`YakEngine`, `KMER_TPU_TABLE_YAK=1`) and the
+mesh engines are not ported.
 """
 
 from __future__ import annotations
 
 import os
+import time
+from typing import Optional, Sequence
 
+import numpy as np
+import torch
+
+from ..kernels import bloom
 from ..kernels.bloom import BLK_SHIFT, BloomSpec
+from ..kernels.keys import SENT
+from ..table.compactor import KmerCompactor, stream_sorted_default
 from ..utils.log import warn
+from .counter import IngestStats, _extracted_blocks
 
 YAK_COUNTER_BITS = 10  # yak-count.c:9
 YAK_N_COUNTS = 1 << YAK_COUNTER_BITS
@@ -49,20 +67,53 @@ def _bloom_geometry_ok(bf_shift: int, pre: int, owner_bits: int = 0) -> bool:
     return False
 
 
-def _make_bloom(pre: int, bf_shift: int, bf_n_hash: int):
-    """The bloom-geometry gate (yak.py:160-183, make_bits_array=False):
-    (use_bloom, bf_shift, spec or None).  The gates mirror yak_ch_init
-    (n_shift > pre) and yak_bf_init (BLK_SHIFT <= n_shift - pre)."""
+def _exact_bloom_default(use_bloom: bool) -> bool:
+    """The sequential test-and-set (bloom.insert_sequential) is on with
+    the bloom unless KMER_TPU_EXACT_BLOOM is 0/false/off/no, which takes
+    the batched insert (strictly fewer false positives; yak.py:127-138)."""
+    return bool(use_bloom) and os.environ.get(
+        "KMER_TPU_EXACT_BLOOM", "1").strip() not in ("0", "false", "off",
+                                                      "no")
+
+
+def _make_bloom(pre: int, bf_shift: int, bf_n_hash: int,
+                make_bits_array: bool = True, device=None):
+    """The one bloom-geometry gate of both yak paths (yak.py:160-185):
+    (use_bloom, bf_shift, spec, bits, exact_bloom).  The gates mirror
+    yak_ch_init (n_shift > pre) and yak_bf_init (BLK_SHIFT <= n_shift -
+    pre).  bits is the bloom's zeroed bits array on `device`, an 8-byte
+    dummy without a bloom, and None with make_bits_array=False (the
+    single-file tap needs the spec only)."""
     use_bloom = (
         bf_n_hash > 0
         and bf_shift > pre
         and (bf_shift - pre) >= BLK_SHIFT
         and _bloom_geometry_ok(bf_shift, pre)
     )
+    if use_bloom:
+        bf_shift = _clamp_bf_shift(bf_shift)
+        spec = BloomSpec(pre, bf_shift, bf_n_hash)
+        bits = bloom.make_bits(spec, device) if make_bits_array else None
+    else:
+        spec = None
+        bits = (torch.zeros(8, dtype=torch.uint8, device=device)
+                if make_bits_array else None)
+    return use_bloom, bf_shift, spec, bits, _exact_bloom_default(use_bloom)
+
+
+def _tap_admit(bits, keys, spec, use_bloom, exact_bloom):
+    """Per-lane admission of pass 1 (yak.py:188-204): a lane is admitted
+    iff the reference's yak_bf_insert would return n_hash for it (all
+    its bits set before it, by earlier blocks or, under the sequential
+    semantics, earlier lanes of this block); the rest become the
+    sentinel.  Without a bloom every valid lane is admitted.  Returns
+    (keys, bits), bits updated in place."""
     if not use_bloom:
-        return False, bf_shift, None
-    bf_shift = _clamp_bf_shift(bf_shift)
-    return True, bf_shift, BloomSpec(pre, bf_shift, bf_n_hash)
+        return keys, bits
+    valid = keys != SENT
+    ins = bloom.insert_sequential if exact_bloom else bloom.insert
+    bits, preset = ins(bits, keys, valid, spec)
+    return torch.where(valid & preset, keys, SENT), bits
 
 
 class YakSimTap:
@@ -82,7 +133,8 @@ class YakSimTap:
         from .yak_admit import DeferredYakAdmission
 
         self.log = log
-        self.use_bloom, _bf, self.spec = _make_bloom(pre, bf_shift, bf_n_hash)
+        self.use_bloom, _bf, self.spec, _bits, _exact = _make_bloom(
+            pre, bf_shift, bf_n_hash, make_bits_array=False)
         budget = int(os.environ.get("KMER_TPU_TAP_BUDGET", str(2 << 30)))
         self.adm = DeferredYakAdmission(
             self.spec, self.use_bloom, budget_bytes=budget,
@@ -119,3 +171,193 @@ class YakSimTap:
     def budget_trips(self) -> int:
         return self.adm.fs.trips
 
+
+def _shrink_join_core(keys1: torch.Tensor, keys2: torch.Tensor,
+                      c2: torch.Tensor, min_count: int, max_count: int):
+    """The counts of the pass-1 keys (A) in the pass-2 run (B), as one
+    sorted merge-join (yak.py:928-962): A's run, then B's, go through
+    one stable sort of the biased key, which puts each A entry just
+    before its B partner (each run holds a key once); an A entry takes
+    its neighbour's count, saturates it at YAK_MAX_COUNT, and is kept
+    when it lies in [min_count, max_count]; a 1024-bin bincount counts
+    the kept ones, the others in bin 0 (min_count >= 1; the caller
+    clears bin 0, as JAX's shrink does).  Sentinel lanes of A never
+    count.  c2 holds uint32 counts in int32 lanes.  Returns (hist
+    int64[1024], tot as a 0-dim tensor)."""
+    n1 = keys1.shape[0]
+    keys = torch.cat([keys1, keys2])
+    from_b = torch.ones_like(keys, dtype=torch.bool)
+    from_b[:n1] = False
+    cnt = torch.zeros_like(keys)
+    cnt[n1:] = c2.to(torch.int64) & 0xFFFFFFFF
+    s, order = torch.sort(keys, stable=True)
+    from_b, cnt = from_b[order], cnt[order]
+    take_next = (s[1:] == s[:-1]) & ~from_b[:-1] & from_b[1:]
+    a_cnt = torch.zeros_like(cnt)
+    a_cnt[:-1] = torch.where(take_next, cnt[1:], 0)
+    c = a_cnt.clamp(max=YAK_MAX_COUNT)
+    keep = ~from_b & (s != SENT) & (c >= min_count) & (c <= max_count)
+    hist = torch.bincount(torch.where(keep, c, 0), minlength=YAK_N_COUNTS)
+    return hist, keep.sum()
+
+
+def _counts_hist(c1: torch.Tensor, min_count: int = 1,
+                 max_count: int = YAK_MAX_COUNT):
+    """(histogram int64[1024], kept) of a compacted run's counts (uint32
+    in int32 lanes), saturated at YAK_MAX_COUNT and kept in [min_count,
+    max_count]: the host bincount of yak.py:1089-1096 and :1109-1114."""
+    c = np.minimum(c1.cpu().numpy().view(np.uint32).astype(np.int64),
+                   YAK_MAX_COUNT)
+    keep = (c >= min_count) & (c <= max_count)
+    return (np.bincount(c[keep], minlength=YAK_N_COUNTS)[:YAK_N_COUNTS],
+            int(keep.sum()))
+
+
+class SortYakEngine:
+    """Sort-based two-pass yak engine on one device (yak.py:999-1114).
+
+    With the sequential bloom, every occurrence of a key after its first
+    admitted one sees all its bits set, so pass-1 counts are the
+    multiplicities of the bloom-admitted lanes: those flow through a
+    sort-based compactor (`comp1`) directly.  Pass 2 counts file 2 in a
+    second compactor (`comp2`), and `shrink` joins the pass-1 keys
+    against it (`_shrink_join_core`).
+
+    `device` defaults to default_device(); `plain_kernels` makes both
+    compactors call the kernels' plain versions (and extraction too), as
+    SortCountEngine's switch does.  `stats` holds one IngestStats a
+    `count` call (dispatch includes the batch-end compactions)."""
+
+    def __init__(self, k=31, pre=10, bf_shift=0, bf_n_hash=4,
+                 chunk_size=10_000_000, log=None, device=None,
+                 plain_kernels: bool = False):
+        from .. import default_device
+        from ..kernels import extract
+
+        self.device = torch.device(device) if device is not None \
+            else default_device()
+        self.k = k
+        self.log = log
+        self.chunk_size = chunk_size
+        self.capacity_block = int(chunk_size) + max(4096, chunk_size // 32)
+        self.plain_kernels = plain_kernels
+        self._extract = (extract.extract_keys_plain if plain_kernels
+                         else extract.extract_keys)
+        self._extract_rows = (extract.extract_keys_rows_plain
+                              if plain_kernels else extract.extract_keys_rows)
+        (self.use_bloom, self.bf_shift, self.spec, self.bits,
+         self.exact_bloom) = _make_bloom(pre, bf_shift, bf_n_hash,
+                                         device=self.device)
+        self.comp1 = self._mk()  # admitted-occurrence stream (pass 1)
+        self.comp2 = None        # file 2's occurrence stream (pass 2)
+        self.tot = 0
+        self._hist = None        # post-shrink histogram (host)
+        self.batch_seq_counts = []
+        self._batch_seqs = 0
+        self.stats = []
+
+    def _mk(self) -> KmerCompactor:
+        return KmerCompactor(
+            self.device, key_bits=2 * self.k,
+            stream_sorted=stream_sorted_default(self.device),
+            plain_kernels=self.plain_kernels)
+
+    def count(self, paths: Sequence[str], create_new: bool) -> None:
+        """One pass: pass 1 (create_new) admits through the bloom into
+        comp1, pass 2 counts into comp2; one `_flush_batch` a reader
+        batch end, and one more for a pending tail."""
+        self.batch_seq_counts = []
+        self._batch_seqs = 0
+        pending = False
+        st = IngestStats()
+        self.stats.append(st)
+        comp = self.comp1 if create_new else self.comp2
+        t_loop = time.perf_counter()
+        thr0 = comp.throttle_wait_s
+        for keys, _nk, _nb, n_seqs, batch_end in _extracted_blocks(
+                paths, self.k, self.chunk_size, self.capacity_block,
+                ("resume", self.k, 3), self.device, True, self._extract,
+                self._extract_rows, st):
+            t1 = time.perf_counter()
+            if create_new:
+                keys, self.bits = _tap_admit(
+                    self.bits, keys, self.spec, self.use_bloom,
+                    self.exact_bloom)
+                self.comp1.add_raw(keys)
+            else:
+                self.comp2.add_raw(keys)
+            self._batch_seqs += int(n_seqs)
+            pending = True
+            if batch_end:
+                self._flush_batch(create_new)
+                pending = False
+            st.dispatch_s += time.perf_counter() - t1
+        if pending:
+            self._flush_batch(create_new)
+        st.loop_s = time.perf_counter() - t_loop
+        st.throttle_s = comp.throttle_wait_s - thr0
+
+    def _flush_batch(self, create_new: bool) -> None:
+        if create_new:
+            self.comp1.compact()
+            self.tot = self.comp1.last_n_unique
+        # pass 2 never inserts: every line repeats the pass-1 total
+        # (yak-count.c:170-174)
+        if self.log is not None:
+            self.log(self._batch_seqs, self.tot)
+        self.batch_seq_counts.append(self._batch_seqs)
+        self._batch_seqs = 0
+
+    def destroy_bloom(self) -> None:
+        self.use_bloom = False
+        self.exact_bloom = False
+        self.spec = None
+        self.bits = torch.zeros(8, dtype=torch.uint8, device=self.device)
+
+    def clear(self) -> None:
+        # pass-2 counts go to their own compactor; the pass-1 keys (the
+        # membership set) stay in comp1
+        self.comp2 = self._mk()
+
+    def shrink(self, min_count: int, max_count: int) -> None:
+        """Resolve the pass-1 key set against the pass-2 counts (the
+        yak_ch_shrink rebuild, yak-count.c:243-277); stores the final
+        histogram and tot."""
+        self.comp1.compact()
+        keys1, c1 = self.comp1.runs[0]
+        if self.comp2 is None:
+            self._hist, self.tot = _counts_hist(c1, min_count, max_count)
+            return
+        self.comp2.compact()
+        keys2, c2 = self.comp2.runs[0]
+        h, tot = _shrink_join_core(keys1, keys2, c2, min_count, max_count)
+        self._hist = h.cpu().numpy()
+        self._hist[0] = 0  # bin 0 counts the dropped lanes
+        self.tot = int(tot)
+
+    def hist(self) -> np.ndarray:
+        if self._hist is not None:
+            return self._hist
+        # bf_shift == 0: pass-1 counts, no shrink
+        self.comp1.compact()
+        return _counts_hist(self.comp1.runs[0][1])[0]
+
+
+def make_yak_engine(**kw) -> SortYakEngine:
+    """The two-file engine: SortYakEngine on one device (yak.py:1117-1131
+    without the table and mesh engines)."""
+    return SortYakEngine(**kw)
+
+
+def yak_count_file(fn1: str, fn2: Optional[str], opt: SortYakEngine
+                   ) -> SortYakEngine:
+    """The yak_count_file flow (yak-count.c:453-464, yak.py:1134-1144):
+    the second pass and the shrink run when -b is above 0, whether or
+    not the bloom's geometry enabled it."""
+    opt.count([fn1], create_new=True)
+    if opt.bf_shift > 0:
+        opt.destroy_bloom()
+        opt.clear()
+        opt.count([fn2 if fn2 else fn1], create_new=False)
+        opt.shrink(2, YAK_MAX_COUNT)
+    return opt

@@ -18,6 +18,7 @@ _TOOLS = {
     "vaf-counter": ("kmer_tpu_torch.tools.vaf_counter", "main"),
     "correlation-matrix": ("kmer_tpu_torch.tools.correlation_matrix", "main"),
     "match-classifier": ("kmer_tpu_torch.tools.match_classifier", "main"),
+    "ed-vaf-counter": ("kmer_tpu_torch.tools.ed_vaf_counter", "main"),
 }
 
 

@@ -1,4 +1,4 @@
-"""yak-count on the PyTorch/CUDA engine, single-file mode (port of
+"""yak-count on the PyTorch/CUDA engine (port of
 kmer_tpu/tools/yak_count.py:17-152).
 
 Same flags, usage and error text, exit codes and stdout (1023
@@ -9,8 +9,10 @@ on the sort engine with a min-count filter gives it, and the per-batch
 `[M] processed ...` lines come from the admission simulation riding the
 same key planes (pipeline/yak.py `YakSimTap`); pass 2's lines repeat the
 pre-shrink total.  KMER_TPU_FAST_YAK=1 skips the simulation and prints
-one summary line instead.  Two-file mode is not ported yet: it exits 1
-with a message.  The -t flag is accepted for CLI parity.
+one summary line instead.  With two different files, where the bloom's
+false positives show in the output, the two-pass engine runs as the
+reference does (pipeline/yak.py `SortYakEngine`, `yak_count_file`).  The
+-t flag is accepted for CLI parity.
 """
 
 from __future__ import annotations
@@ -18,9 +20,9 @@ from __future__ import annotations
 import os
 import sys
 
-from ..pipeline.counter import make_count_engine
+from ..pipeline.counter import InputError, make_count_engine
 from ..pipeline.yak import (YAK_COUNTER_BITS, YAK_MAX_COUNT, YAK_N_COUNTS,
-                            YakSimTap)
+                            YakSimTap, make_yak_engine, yak_count_file)
 from ..utils.cli import c_atoi, ketopt
 
 
@@ -68,9 +70,8 @@ def main(argv=None):
         sys.stderr.write(f"ERROR: -p should be at least {YAK_COUNTER_BITS}\n")
         return 1
     if len(pos) >= 2 and pos[1] != pos[0]:
-        sys.stderr.write("ERROR: two-file yak-count is not ported to "
-                         "kmer_tpu_torch yet; use ./ktc yak-count\n")
-        return 1
+        return _two_files(pos[0], pos[1], k, pre, chunk, bf_shift,
+                          bf_n_hash)
 
     fast = os.environ.get("KMER_TPU_FAST_YAK", "").strip().lower() in (
         "1", "true", "on", "yes")
@@ -85,7 +86,7 @@ def main(argv=None):
     try:
         eng.count_paths([pos[0]],
                         tap=sim.ingest_planes if sim is not None else None)
-    except OSError:
+    except InputError:
         sys.stderr.write(f"Error: failed to open {pos[0]}\n")
         return 1
     min_keep = 2 if bf_shift > 0 else 1
@@ -101,6 +102,25 @@ def main(argv=None):
     if sim is None:
         _log(eng.total_seqs, tot)
     sys.stderr.write(f"[M::main] {tot} distinct k-mers after shrinking\n")
+    out = [f"{i}\t{h[i]}" for i in range(1, YAK_N_COUNTS)]
+    sys.stdout.write("\n".join(out) + "\n")
+    return 0
+
+
+def _two_files(fn1, fn2, k, pre, chunk, bf_shift, bf_n_hash):
+    """Pass 1 counts fn1 behind the bloom, pass 2 counts fn2 against
+    fn1's admitted keys, then the shrink (yak_count.py:125-144)."""
+    eng = make_yak_engine(k=k, pre=pre, bf_shift=bf_shift,
+                          bf_n_hash=bf_n_hash, chunk_size=chunk, log=_log)
+    try:
+        yak_count_file(fn1, fn2, eng)
+    except InputError as exc:
+        # a clean failure where the C original segfaults, as in JAX
+        sys.stderr.write(f"Error: failed to open {exc.filename or fn1}\n")
+        return 1
+    h = eng.hist()
+    sys.stderr.write(
+        f"[M::main] {eng.tot} distinct k-mers after shrinking\n")
     out = [f"{i}\t{h[i]}" for i in range(1, YAK_N_COUNTS)]
     sys.stdout.write("\n".join(out) + "\n")
     return 0

@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
 """profile_torch.py — where the PyTorch/CUDA port's device time goes.
 
-Usage: python3 scripts/profile_torch.py [--runs kc31,yak,kc15] [--top N]
-                                        [--out DIR] [--seed N]
+Usage: python3 scripts/profile_torch.py [--runs kc31,yak,kc15,yak2,edvaf]
+                                        [--top N] [--out DIR] [--seed N]
                                         [--reads FASTQ] [--tag TAG]
 
 Runs on one CUDA GPU, on the 256 Mbase FASTQ that chip_smoke.py makes
-(cached under build/chip_smoke/).  For each run:
+and its SNP phase's sample B (64 Mbases), both cached under
+build/chip_smoke/.  For each run:
 
   kc31   kc-c4 -k31               (the main path: merge path, seghist)
   yak    yak-count -k31 -b30      (plus the tap's (key, index) merge path)
   kc15   kc-c4 -k15               (one-plane keys: the int32 merge path)
+  yak2   yak-count -k31 -b30 A B  (two files: the bloom's bits array,
+                                   two compactors, the shrink join)
+  edvaf  ed-vaf-counter -e1 on chip_smoke.py's 1,000-site panel over
+         the first 2,048 reads of B (one batch of the Myers loop)
 
 two warm passes, then one pass under torch.profiler (CPU and CUDA
 activities).  Each pass prints its wall; the profiled pass also prints
@@ -21,7 +26,8 @@ memory, the IngestStats, the kernels' launch counts
 (kmer_tpu_torch.kernels._build) and the top N device items by time, with
 their call counts.  With
 --out, each run's full table goes to DIR/profile_<run><TAG>.txt.
---reads takes another FASTQ in place of chip_smoke.py's file.
+--reads takes another FASTQ in place of chip_smoke.py's 256 Mbase file
+(yak2's rate then counts the bases of chip_smoke.py's file, not its).
 """
 
 from __future__ import annotations
@@ -35,7 +41,8 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RUNS = {"kc31": ("kc-c4", ["-k31"]), "yak": ("yak-count", ["-k31", "-b30"]),
-        "kc15": ("kc-c4", ["-k15"])}
+        "kc15": ("kc-c4", ["-k15"]), "yak2": ("yak-count", ["-k31", "-b30"]),
+        "edvaf": ("ed-vaf-counter", ["-e1"])}
 
 
 def _device_us(ev) -> float:
@@ -43,17 +50,47 @@ def _device_us(ev) -> float:
     return float(t if t is not None else ev.self_cuda_time_total)
 
 
-def profile_run(name, path, top, out_dir, tag=""):
+def _inputs(name, path, seed):
+    """(tool arguments after the flags, bases they read)."""
+    import chip_smoke as smoke
+
+    if name == "edvaf":
+        pat, head, _b, _ = smoke.edvaf_inputs(seed)
+        out = os.path.join(smoke.DATA_DIR, "edvaf", "profile.vaf")
+        return ["-p", pat, "-o", out, head], \
+            smoke.EDVAF_READS * smoke.READ_LEN
+    if name != "yak2":
+        return [path], None  # the engine counts them
+    mb = (smoke.MBASES, dict((n, mb) for n, _, mb, _ in smoke.SNP_SAMPLES)["B"])
+    return [path, smoke.snp_inputs(seed)[2]["B"]], \
+        sum(m * 1_000_000 // smoke.READ_LEN * smoke.READ_LEN for m in mb)
+
+
+def _recording(name, tool):
+    """The engines a run builds (none for ed-vaf-counter)."""
+    import contextlib
+
+    import chip_smoke as smoke
+    from kmer_tpu_torch.tools import yak_count
+
+    if name == "yak2":
+        return smoke.recording_yak_engines()
+    if name == "edvaf":
+        return contextlib.nullcontext([])
+    return smoke.recording_engines(yak_count if tool == "yak-count"
+                                   else None)
+
+
+def profile_run(name, path, top, out_dir, tag="", seed=0):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke as smoke
     from kmer_tpu_torch.kernels import _build
-    from kmer_tpu_torch.tools import yak_count
 
     tool, args = RUNS[name]
-    module = yak_count if tool == "yak-count" else None
+    files, bases = _inputs(name, path, seed)
     for i in range(3):
         profiled = i == 2
         gc.collect()  # free earlier passes' engines (reference cycles)
@@ -63,23 +100,31 @@ def profile_run(name, path, top, out_dir, tag=""):
         prof = profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) if profiled \
             else None
-        with smoke.recording_engines(module) as made:
+        with _recording(name, tool) as made:
             if prof is not None:
                 prof.start()
             t0 = time.perf_counter()
-            smoke.run_tool(tool, [*args, path])
+            smoke.run_tool_err(tool, [*args, *files])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             if prof is not None:
                 prof.stop()
-        eng = made[0]
+        stats = []
+        if made:
+            st = made[0].stats
+            stats = st if isinstance(st, list) else [st]
+            if bases is None:
+                bases = made[0].total_bases
         peak = torch.cuda.max_memory_allocated() / 2**30
         label = "profiled" if profiled else f"warm {i + 1}"
+        ingest = "".join(f"; {st.report()}" for st in stats)
+        if stats:
+            ingest += (f"; finalize "
+                       f"{wall - sum(st.loop_s for st in stats):.3f} s")
         print(f"[{name}] {tool} {' '.join(args)} {label}: {wall:.3f} s = "
-              f"{eng.total_bases / 1e6 / wall:.2f} Mbases/s, peak device "
-              f"memory {peak:.2f} GiB; {eng.stats.report()}; finalize "
-              f"{wall - eng.stats.loop_s:.3f} s", flush=True)
-        del eng, made  # the next pass's peak must not hold this engine
+              f"{bases / 1e6 / wall:.2f} Mbases/s, peak device "
+              f"memory {peak:.2f} GiB{ingest}", flush=True)
+        del stats, made  # the next pass's peak must not hold this engine
     events = [ev for ev in prof.key_averages()
               if ev.device_type == DeviceType.CUDA and _device_us(ev) > 0]
     if not events:
@@ -120,7 +165,7 @@ def main(argv=None):
     smoke.phase_build()
     path = args.reads or smoke.reads_file(smoke.MBASES, args.seed)
     for name in args.runs.split(","):
-        profile_run(name, path, args.top, args.out, args.tag)
+        profile_run(name, path, args.top, args.out, args.tag, args.seed)
     return 0
 
 

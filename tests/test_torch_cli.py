@@ -71,17 +71,30 @@ def _python(body, env_extra=None):
         capture_output=True, text=True, env=env, cwd=REPO, timeout=300)
 
 
-def test_port_cli_never_imports_jax():
+def test_port_cli_never_imports_jax(tmp_path):
+    """kc-c4, yak-count (one file and two) and ed-vaf-counter run with
+    neither jax nor any kmer_tpu module loaded."""
+    pat = str(tmp_path / "p.pat")
+    vaf = str(tmp_path / "s.vaf")
+    with open(pat, "w") as f:
+        f.write("chr1\t100\t101\trs1\tA\tC\tACGTACGTACGTACGTACGTA\t"
+                "ACGTACGTACCTACGTACGTA\n")
     r = _python(
         "from kmer_tpu_torch.tools import get_tool\n"
         f"rc = get_tool('kc-c4')(['-k21', {READS!r}])\n"
         "assert rc == 0\n"
         f"rc = get_tool('yak-count')(['-b20', {READS!r}])\n"
+        "assert rc == 0\n"
+        f"rc = get_tool('yak-count')(['-b20', {READS!r}, {GENOME!r}])\n"
+        "assert rc == 0\n"
+        f"rc = get_tool('ed-vaf-counter')(['-e1', '-p', {pat!r}, '-o', "
+        f"{vaf!r}, {READS!r}])\n"
         "assert rc == 0\n",
         {"KMER_TPU_PLATFORM": "cpu"})
     assert r.returncode == 0, r.stderr
-    assert len(r.stdout.splitlines()) == 255 + 1023
-    assert "distinct k-mers after shrinking" in r.stderr
+    assert len(r.stdout.splitlines()) == 255 + 2 * 1023
+    assert r.stderr.count("distinct k-mers after shrinking") == 2
+    assert "rs1" in open(vaf).read()
 
 
 def test_reused_host_modules_never_import_jax():
@@ -207,14 +220,16 @@ def test_yak_count_fast_matches_jax(capsys, monkeypatch):
     assert len(got[2]) == 2 and got[2][0].startswith("[M] processed 3000 ")
 
 
-def test_yak_count_two_files_not_ported(capsys, monkeypatch):
-    from kmer_tpu_torch.tools import get_tool
-
+def test_yak_count_two_files_run(capsys, monkeypatch):
+    """Two different files run the two-pass engine: exit 0, stdout and
+    `[M` lines equal the JAX package's; the same file twice is
+    single-file mode."""
+    want = _yak("kmer_tpu", ["-k21", "-b20", READS, GENOME], capsys)
     monkeypatch.setenv("KMER_TPU_PLATFORM", "cpu")
-    rc = get_tool("yak-count")(["-b20", READS, GENOME])
-    cap = capsys.readouterr()
-    assert rc == 1 and cap.out == ""
-    assert cap.err == ("ERROR: two-file yak-count is not ported to "
-                       "kmer_tpu_torch yet; use ./ktc yak-count\n")
+    got = _yak("kmer_tpu_torch", ["-k21", "-b20", READS, GENOME], capsys)
+    assert got[0] == 0 and len(got[1].splitlines()) == 1023
+    assert got == want
     # the same file twice is single-file mode
-    assert get_tool("yak-count")(["-k21", READS, READS]) == 0
+    assert got != _yak("kmer_tpu_torch", ["-k21", "-b20", READS, READS],
+                       capsys)
+    assert _yak("kmer_tpu_torch", ["-k21", READS, READS], capsys)[0] == 0

@@ -525,3 +525,123 @@ def test_counts_for_on_card_matches_cpu(dev, k, budget, monkeypatch):
         lo = (q & np.uint64(0xFFFFFFFF)).astype(np.uint32)
         out.append(e.counts_for(hi, lo))
     assert np.array_equal(out[0], out[1]) and (out[0][:2500] > 0).mean() > 0.5
+
+
+@pytest.mark.parametrize("n_hashes", [4, 40])
+@pytest.mark.parametrize("fn", ["insert_sequential", "insert"])
+def test_bloom_on_card_matches_cpu(dev, fn, n_hashes):
+    """The bits array's test-and-set on the card equals the CPU's, lane
+    for lane and byte for byte, over three 2^21-lane blocks (repeats
+    within and across blocks, sentinel lanes, -H40's repeated probes)."""
+    from kmer_tpu_torch.kernels import bloom
+    from kmer_tpu_torch.kernels.keys import from_u64
+
+    spec = bloom.BloomSpec(10, 24, n_hashes)
+    rng = np.random.default_rng(n_hashes)
+    pool = rng.integers(0, 1 << 64, 1 << 20, dtype=np.uint64)
+    out = {}
+    for device in (dev, "cpu"):
+        bits = bloom.make_bits(spec, device)
+        r = np.random.default_rng(5)
+        verdicts = []
+        for _ in range(3):
+            k = pool[r.integers(0, pool.shape[0], 1 << 21)]
+            k[r.random(k.shape[0]) < 0.05] = np.uint64((1 << 64) - 1)
+            keys = torch.from_numpy(from_u64(k)).to(device)
+            _, preset = getattr(bloom, fn)(bits, keys, keys != SENT, spec)
+            verdicts.append(preset.cpu())
+        out[str(device)] = (torch.cat(verdicts), bits.cpu())
+    (pg, bg), (pc, bc) = out.values()
+    assert torch.equal(pg, pc) and torch.equal(bg, bc)
+    assert pg.any() and not pg.all()
+
+
+def test_shrink_join_on_card_matches_cpu(dev):
+    from kmer_tpu_torch.kernels.keys import from_u64
+    from kmer_tpu_torch.pipeline.yak import _shrink_join_core
+
+    rng = np.random.default_rng(3)
+    pool = np.unique(rng.integers(0, 1 << 64, 3 << 20, dtype=np.uint64))
+    rng.shuffle(pool)
+    a = np.sort(pool[:1 << 21])
+    b = np.sort(pool[1 << 20:(1 << 21) + (1 << 20)])
+    c2 = rng.integers(0, 1500, b.shape[0]).astype(np.uint32).view(np.int32)
+    out = []
+    for device in (dev, "cpu"):
+        h, tot = _shrink_join_core(torch.from_numpy(from_u64(a)).to(device),
+                                   torch.from_numpy(from_u64(b)).to(device),
+                                   torch.from_numpy(c2).to(device), 2, 1023)
+        out.append((h.cpu(), int(tot)))
+    assert torch.equal(out[0][0], out[1][0]) and out[0][1] == out[1][1] > 0
+
+
+@pytest.mark.parametrize("multiword", [False, True])
+def test_myers_on_card_matches_cpu(dev, multiword):
+    """The Myers scans on the card equal the CPU's: 512 reads of 1..150
+    bases (and one of 0) against 64 patterns of up to 32 bases, or up to
+    97 in 4 words, max_e 2."""
+    from kmer_tpu_torch.kernels import myers
+
+    rng = np.random.default_rng(7 + multiword)
+    lens_p = [33, 41, 64, 97] if multiword else [5, 21, 31, 32]
+    plen = np.array([lens_p[i % 4] for i in range(64)], np.int32)
+    pc = np.full((64, max(lens_p)), 255, np.uint8)
+    for i, m in enumerate(plen):
+        pc[i, :m] = rng.integers(0, 4, m)
+    lens = rng.integers(1, 151, 512).astype(np.int32)
+    lens[7] = 0
+    codes = rng.integers(0, 4, (512, 150)).astype(np.uint8)
+    for r in range(0, 512, 3):  # plant patterns
+        i = r % 64
+        m = min(int(plen[i]), int(lens[r]))
+        codes[r, :m] = pc[i, :m]
+    out = []
+    for device in (dev, "cpu"):
+        args = [torch.from_numpy(x).to(device) for x in (pc, plen)]
+        rc = [torch.from_numpy(x).to(device) for x in (codes, lens)]
+        if multiword:
+            peq = myers.build_peq_multiword(*args, 4, 4)
+            got = myers.myers_hw_counts_multiword(peq, args[1], *rc, 2, 4)
+        else:
+            peq = myers.build_peq(*args)
+            got = myers.myers_hw_counts(peq, args[1], *rc, 2)
+        out.append((peq.cpu(), got.cpu()))
+    assert torch.equal(out[0][0], out[1][0])
+    assert torch.equal(out[0][1], out[1][1]) and out[0][1].sum() > 0
+
+
+@pytest.mark.parametrize("args", [["-k31", "-b19", "-K65536"],
+                                  ["-k15", "-b19"], ["-b0"]])
+def test_yak_two_files_on_card_matches_cpu(dev, args, capsys, monkeypatch):
+    from kmer_tpu_torch.tools import get_tool
+
+    paths = [os.path.join(FIXTURES, f) for f in ("sampleA1.fq.gz",
+                                                 "sampleB.fq.gz")]
+    out = []
+    for plat in ("cuda", "cpu"):
+        monkeypatch.setenv("KMER_TPU_PLATFORM", plat)
+        assert get_tool("yak-count")([*args, *paths]) == 0
+        cap = capsys.readouterr()
+        out.append((cap.out, [ln for ln in cap.err.splitlines()
+                              if ln.startswith("[M")]))
+    assert out[0] == out[1]
+
+
+def test_ed_vaf_on_card_matches_cpu(tmp_path, dev, monkeypatch):
+    from kmer_tpu_torch.tools import get_tool
+
+    fq = os.path.join(FIXTURES, "sampleA1.fq.gz")
+    pat = str(tmp_path / "p.pat")
+    monkeypatch.setenv("KMER_TPU_PLATFORM", "cpu")
+    assert get_tool("snp-pattern-gen")(
+        ["-k21", "-b", os.path.join(FIXTURES, "snps_small.bed"), "-f",
+         os.path.join(FIXTURES, "genome_small.fa.gz"), "-o", pat]) == 0
+    files = []
+    for plat in ("cuda", "cpu"):
+        monkeypatch.setenv("KMER_TPU_PLATFORM", plat)
+        vaf = str(tmp_path / f"{plat}.vaf")
+        assert get_tool("ed-vaf-counter")(["-e1", "-p", pat, "-o", vaf,
+                                           fq]) == 0
+        with open(vaf, "rb") as f:
+            files.append(f.read())
+    assert files[0] == files[1]

@@ -1,0 +1,287 @@
+"""ed-vaf-counter of the port (kmer_tpu_torch.kernels.myers and
+kmer_tpu_torch.tools.ed_vaf_counter) against the JAX package on the CPU:
+the Myers scans lane for lane on tests/test_myers.py's random cases, the
+VAF files byte for byte on the fixture patterns, and the host helpers
+the tool copies against their originals.
+
+Inputs are made with numpy from a seed; the same inputs go to both
+packages.  Every output is an integer or a file: every comparison is
+exact (tolerance 0).  Each JAX tool run is computed once per module."""
+
+import contextlib
+import gzip
+import inspect
+import io
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from kmer_tpu.kernels import myers as J
+from kmer_tpu.tools import ed_vaf_counter as JT
+from kmer_tpu_torch.kernels import myers as T
+from kmer_tpu_torch.tools import ed_vaf_counter as TT
+from tests.test_myers import _random_case
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FIXTURES = os.path.join(REPO, "tests", "fixtures")
+A1 = os.path.join(FIXTURES, "sampleA1.fq.gz")
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+# -- the Myers scans ------------------------------------------------------
+
+@pytest.mark.parametrize("max_e", [0, 1, 2])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_single_word_matches_jax(seed, max_e):
+    """Patterns of 5..32 bases (32 fills the word, so `+` wraps), reads
+    of 1..200 bases with planted exact and 1-error copies, a zero-length
+    read and a padding lane (code 255, which never matches)."""
+    rng = np.random.default_rng(11 + 10 * seed + max_e)
+    pc, plen, codes, lens = _random_case(
+        rng, n_pat=24, pat_lens=[5, 13, 21, 31, 32], n_reads=60,
+        read_max=200)
+    lens[3] = 0
+    peq = J.build_peq(jnp.asarray(pc), jnp.asarray(plen))
+    want = np.asarray(J.myers_hw_counts(peq, jnp.asarray(plen),
+                                        jnp.asarray(codes),
+                                        jnp.asarray(lens), max_e))
+    tpeq = T.build_peq(_t(pc), _t(plen))
+    assert tpeq.dtype == torch.int32
+    assert np.array_equal(tpeq.numpy().view(np.uint32), np.asarray(peq))
+    got = T.myers_hw_counts(tpeq, _t(plen), _t(codes), _t(lens), max_e)
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), want)
+    assert (want[3] == 0).all() and want.sum() > 0
+
+
+@pytest.mark.parametrize("max_e", [0, 1, 2])
+@pytest.mark.parametrize("pat_lens,n_words", [([33, 41, 64, 65, 97], 4),
+                                              ([5, 21, 32], 2),
+                                              ([40], 2)])
+def test_multiword_matches_jax(pat_lens, n_words, max_e):
+    """Patterns past one word (carries across 2-4 words), and short ones
+    in a wider state; zero-length reads contribute 0."""
+    rng = np.random.default_rng(101 + max_e + len(pat_lens))
+    pc, plen, codes, lens = _random_case(
+        rng, n_pat=12, pat_lens=pat_lens, n_reads=40, read_max=300)
+    lens[[0, 5]] = 0
+    peq = J.build_peq_multiword(jnp.asarray(pc), jnp.asarray(plen), 4,
+                                n_words)
+    want = np.asarray(J.myers_hw_counts_multiword(
+        peq, jnp.asarray(plen), jnp.asarray(codes), jnp.asarray(lens),
+        max_e, n_words))
+    tpeq = T.build_peq_multiword(_t(pc), _t(plen), 4, n_words)
+    assert np.array_equal(tpeq.numpy().view(np.uint32), np.asarray(peq))
+    got = T.myers_hw_counts_multiword(tpeq, _t(plen), _t(codes), _t(lens),
+                                      max_e, n_words)
+    assert np.array_equal(got.numpy(), want)
+    assert (want[[0, 5]] == 0).all() and want.sum() > 0
+    if min(pat_lens) > 32:  # the numpy oracle, the copy and the original
+        for i in range(3):
+            pat = pc[i, :plen[i]].tolist()
+            assert np.array_equal(
+                T.hw_counts_long_pattern(pat, codes, lens, max_e), want[:, i])
+            assert (T.hw_counts_long_pattern(pat, codes, lens, max_e)
+                    == J.hw_counts_long_pattern(pat, codes, lens, max_e))
+
+
+def test_empty_batch_and_alphabet():
+    """No reads: an empty (0, P) result.  A larger alphabet (n_alpha 6)
+    with codes past it in the reads."""
+    rng = np.random.default_rng(5)
+    pc, plen, codes, lens = _random_case(rng, n_pat=8, pat_lens=[9, 20],
+                                         n_reads=30, read_max=90, n_alpha=6)
+    codes[::4, ::7] = 9  # read bytes outside the pattern alphabet
+    tpeq = T.build_peq(_t(pc), _t(plen), 6)
+    got = T.myers_hw_counts(tpeq, _t(plen), _t(codes[:0]), _t(lens[:0]), 1)
+    assert got.shape == (0, 8)
+    peq = J.build_peq(jnp.asarray(pc), jnp.asarray(plen), 6)
+    want = np.asarray(J.myers_hw_counts(peq, jnp.asarray(plen),
+                                        jnp.asarray(codes),
+                                        jnp.asarray(lens), 1))
+    got = T.myers_hw_counts(tpeq, _t(plen), _t(codes), _t(lens), 1)
+    assert np.array_equal(got.numpy(), want) and want.sum() > 0
+
+
+def test_long_pattern_oracle_is_a_verbatim_copy():
+    src = inspect.getsource(T.hw_counts_long_pattern)
+    assert src == inspect.getsource(J.hw_counts_long_pattern)
+
+
+# -- the tool -------------------------------------------------------------
+
+def _run(pkg, args, d, monkeypatch):
+    """(rc, stderr, {file: bytes}) of one ed-vaf-counter run in d."""
+    import importlib
+
+    os.makedirs(d, exist_ok=True)
+    monkeypatch.chdir(d)
+    for fn in os.listdir(d):
+        if fn.endswith(".vaf"):
+            os.remove(fn)
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = importlib.import_module(f"{pkg}.tools").get_tool(
+            "ed-vaf-counter")(list(args))
+    files = {}
+    for fn in sorted(os.listdir(d)):
+        if fn.endswith(".vaf"):
+            with open(fn, "rb") as f:
+                files[fn] = f.read()
+    return rc, err.getvalue(), files
+
+
+@pytest.fixture(scope="module")
+def patterns(tmp_path_factory):
+    """The fixture pattern file: snp-pattern-gen -k21 on genome_small +
+    snps_small.bed (the port's tool; tests/test_torch_snp_tools.py holds
+    it to JAX's)."""
+    from kmer_tpu_torch.tools import get_tool
+
+    d = tmp_path_factory.mktemp("ed_patterns")
+    pat = str(d / "p.pat")
+    with pytest.MonkeyPatch.context() as m, \
+            contextlib.redirect_stderr(io.StringIO()):
+        m.setenv("KMER_TPU_PLATFORM", "cpu")
+        assert get_tool("snp-pattern-gen")(
+            ["-k21", "-b", os.path.join(FIXTURES, "snps_small.bed"), "-f",
+             os.path.join(FIXTURES, "genome_small.fa.gz"), "-o", pat]) == 0
+    return pat
+
+
+@pytest.fixture(scope="module")
+def crafted(tmp_path_factory):
+    """A pattern file with patterns of 21, 41 and 33 bases (the last two
+    through the multiword batch), an alt longer and one shorter than its
+    ref, a lowercase and an N pattern; reads of 1 to 3000 bases (the
+    1024 and 4096 buckets) drawn from the patterns' random genome, some
+    lowercase or with an N, in a gzipped FASTQ
+    (tests/test_golden_vaf_tools.py's long-read case, extended)."""
+    d = tmp_path_factory.mktemp("ed_crafted")
+    rng = np.random.default_rng(4)
+    g = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, 30000)].tobytes()
+    g = g.decode()
+    rows = []
+    for i, k in [(0, 21), (1, 41), (2, 33), (3, 21), (4, 25)]:
+        pos = 3000 + i * 5000
+        ref = g[pos - k // 2:pos + k // 2 + 1]
+        alt_base = "A" if g[pos] != "A" else "C"
+        alt = ref[:k // 2] + alt_base + ref[k // 2 + 1:]
+        if i == 3:
+            alt += "GT"  # longer than its ref: truncated
+        if i == 4:
+            alt = alt[:19]  # shorter: NUL-padded
+        rows.append(f"chr1\t{pos}\t{pos + 1}\trs{i}\t{g[pos]}\t{alt_base}\t"
+                    f"{ref}\t{alt}")
+    rows.append("chr2\t10\t11\trs5\tA\tC\tacgtacgtacgtacgtacgta\t"
+                "acgtacgtaccgtacgtacgt")
+    rows.append("chr2\t20\t21\trs6\tG\tT\tGGGGGNGGGGGGGGGGGGGGG\t"
+                "GGGGGNGGGGTGGGGGGGGGG")
+    pat = str(d / "p.txt")
+    with open(pat, "w") as f:
+        f.write("\n".join(rows) + "\n")
+    fq = str(d / "r.fq.gz")
+    with gzip.open(fq, "wb") as f:
+        for r in range(40):
+            L = int(rng.integers(1, 3000)) if r % 4 else int(
+                rng.integers(60, 200))
+            st = int(rng.integers(0, len(g) - L))
+            s = g[st:st + L]
+            if r % 5 == 0:
+                s = s.lower()
+            if r % 7 == 0:
+                s = s[:L // 2] + "N" + s[L // 2 + 1:]
+            f.write(f"@r{r}\n{s}\n+\n{'I' * L}\n".encode())
+        f.write(b"@empty\n\n+\n\n")
+        f.write(b"@nrun\nTTGGGGGNGGGGGGGGGGGGGGGTT\n+\n" + b"I" * 25 + b"\n")
+    return pat, fq
+
+
+_want = {}
+
+
+def _jax(key, args, d, monkeypatch):
+    if key not in _want:
+        _want[key] = _run("kmer_tpu", args, d, monkeypatch)
+    return _want[key]
+
+
+@pytest.fixture(scope="module")
+def a1_head(tmp_path_factory):
+    """sampleA1's first 2,048 reads (one batch), gzipped."""
+    fq = str(tmp_path_factory.mktemp("ed_reads") / "a1_head.fq.gz")
+    with gzip.open(A1, "rb") as f, gzip.open(fq, "wb") as g:
+        g.writelines(f.readline() for _ in range(4 * 2048))
+    return fq
+
+
+@pytest.mark.parametrize("max_e", [0, 1, 2])
+def test_fixture_vaf_matches_jax(max_e, patterns, a1_head, tmp_path,
+                                 monkeypatch):
+    """The fixture patterns (384 sites) over sampleA1's first 2,048
+    reads: the VAF file and stderr equal JAX's (the whole file runs in
+    chip_smoke.py's fixture phase, card against CPU)."""
+    args = [f"-e{max_e}", "-p", patterns, "-o", "a.vaf", a1_head]
+    want = _jax(("fixture", max_e), args, str(tmp_path / "jax"), monkeypatch)
+    monkeypatch.setenv("KMER_TPU_PLATFORM", "cpu")
+    got = _run("kmer_tpu_torch", args, str(tmp_path / "port"), monkeypatch)
+    assert want[0] == 0 and list(want[2]) == ["a.vaf"]
+    assert got == want
+    counts = [ln.split("\t") for ln in want[2]["a.vaf"].decode().splitlines()]
+    assert sum(int(r[7]) for r in counts[2:]) > 0
+
+
+@pytest.mark.parametrize("max_e", [0, 2])
+def test_long_patterns_and_reads_match_jax(max_e, crafted, tmp_path,
+                                           monkeypatch):
+    """Patterns longer than 32 bases (the multiword batch), alt k-mers
+    longer and shorter than their ref, raw-byte matching (lowercase, N),
+    reads past 1024 bases and an empty read; two inputs, the second
+    missing (skipped with a warning)."""
+    pat, fq = crafted
+    args = [f"-e{max_e}", "-p", pat, "-o", "c.vaf", fq, "/nonexistent.fq"]
+    want = _jax(("crafted", max_e), args, str(tmp_path / "jax"), monkeypatch)
+    monkeypatch.setenv("KMER_TPU_PLATFORM", "cpu")
+    got = _run("kmer_tpu_torch", args, str(tmp_path / "port"), monkeypatch)
+    assert got == want and want[0] == 0
+    assert "Warning: failed to open /nonexistent.fq" in want[1]
+    rows = [ln.split("\t") for ln in want[2]["c.vaf"].decode().splitlines()]
+    assert int(rows[3][7]) > 0  # rs1, the 41-base pattern, is found
+
+
+@pytest.mark.parametrize("args", [[], ["-p", "x.pat"], ["-o", "a.vaf", "r"],
+                                  ["-p", "/nonexistent.pat", "-o", "a.vaf",
+                                   "r.fq"]])
+def test_errors_match_jax(args, tmp_path, monkeypatch):
+    """Usage and error text, exit codes, and no VAF file written."""
+    want = _run("kmer_tpu", args, str(tmp_path / "jax"), monkeypatch)
+    monkeypatch.setenv("KMER_TPU_PLATFORM", "cpu")
+    got = _run("kmer_tpu_torch", args, str(tmp_path / "port"), monkeypatch)
+    assert got == want and want[0] == 1 and not want[2]
+
+
+def test_host_helpers_match_original(tmp_path):
+    """_bucket_for, _alphabet_lut, _encode and _openable: the copies
+    answer as the JAX tool's do."""
+    for n in (0, 1, 150, 1024, 1025, 4096, 4097, 70_000):
+        assert TT._bucket_for(n) == JT._bucket_for(n)
+    for kmers in ([b"ACGT", b"acgN"], [b"GGGGG"], [], [b"\x00AC", b"T\xff"]):
+        lut, n = TT._alphabet_lut(kmers)
+        jlut, jn = JT._alphabet_lut(kmers)
+        assert n == jn and np.array_equal(lut, jlut)
+        seq = bytes(range(256))
+        assert np.array_equal(TT._encode(seq, lut), JT._encode(seq, jlut))
+    ok = tmp_path / "ok.fq"
+    ok.write_text("")
+    for fn in (str(ok), "-", str(tmp_path / "missing.fq"), str(tmp_path)):
+        assert TT._openable(fn) == JT._openable(fn)
+    assert TT._BATCH_BYTES == JT._BATCH_BYTES
+    assert TT._MIN_BUCKET == JT._MIN_BUCKET
+    assert TT._KERNEL_MAX_PAT == JT._KERNEL_MAX_PAT

@@ -282,9 +282,10 @@ def test_make_bloom_matches_jax(pre, bf_shift, n_hash, capsys):
     use, bf, spec, _bits, _exact = JY._make_bloom(pre, bf_shift, n_hash,
                                                   make_bits_array=False)
     want_err = capsys.readouterr().err
-    tuse, tbf, tspec = TY._make_bloom(pre, bf_shift, n_hash)
+    tuse, tbf, tspec, tbits, texact = TY._make_bloom(
+        pre, bf_shift, n_hash, make_bits_array=False)
     assert capsys.readouterr().err == want_err
-    assert (tuse, tbf) == (use, bf)
+    assert (tuse, tbf, tbits, texact) == (use, bf, None, _exact)
     assert (tspec is None) == (spec is None)
     if spec is not None:
         assert tuple(tspec) == tuple(spec)
