@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """chip_smoke.py — run the port's kc-c4, yak-count (one file and two),
-SNP-fingerprint and ed-vaf-counter paths on one GPU.
+SNP-fingerprint and ed-vaf-counter paths on one GPU, with ASCII and
+packed 2-bit ingest, and its host-only tools.
 
 Usage: python3 chip_smoke.py [--seed N]
 
@@ -32,7 +33,7 @@ Phases, each printing its own lines:
               build/chip_smoke/); its stdout must equal the same engine's
               with the plain kernel versions on the card, every kernel's
               launch count in that run must be > 0, and the engine's
-              hist must run no torch.bincount (phases 6 and 7 too)
+              hist must run no torch.bincount (phases 6, 7 and 8 too)
   5. budget   32 Mbases under a budget small enough to force compactions
               (the weighted segment histogram), kernels vs plain
   6. yak      `yak-count -k31 -b30` through kmer_tpu_torch.tools on the
@@ -40,10 +41,19 @@ Phases, each printing its own lines:
               the same run with the plain kernel versions in the engine
               and the admission tap; the (key, index) merge-path kernels
               must launch in it
-  7. onepl    kc-c4 -k15 (one-plane keys) on 32 Mbases under the 64 MiB
+  7. packed   phases 4 and 6 again with packed 2-bit ingest
+              (KMER_TPU_PACKED=1): stdout, and yak-count's `[M` lines,
+              must equal theirs, every block must take the structural
+              step (its mask elided), extract, the int64 merge path and
+              seghist (and the (key, index) merge path for yak-count)
+              must launch; prints wall, Mbases/s, upload_bytes and
+              upload_s beside phase 4's, and the unpack's device time a
+              10 Mbase block (masked and structural, each equal to the
+              ASCII reader's block) beside its byte bound
+  8. onepl    kc-c4 -k15 (one-plane keys) on 32 Mbases under the 64 MiB
               budget, kernels vs plain; the int32 merge-path kernels must
               launch in it, the int64 and (key, index) ones not
-  8. snp      the SNP-fingerprint chain at NGSCheckMate's panel size:
+  9. snp      the SNP-fingerprint chain at NGSCheckMate's panel size:
               snp-pattern-gen -k21 on the smoke's 24 MiB genome (24
               chromosomes, gzipped FASTA) with 21,000 seeded SNP sites,
               vaf-counter -k21 -v on three samples (A: 256 Mbases and A2:
@@ -56,30 +66,41 @@ Phases, each printing its own lines:
               int64 merge path must launch, seghist and the other merges
               not; prints each tool's wall and peak memory, vaf-counter
               A's -v report and counts_for's time over A's key plane
-  9. yak2     two-file `yak-count -k31 -b30 A B` (A: phase 4's 256 Mbase
-              file, B: phase 8's 64 Mbase sample of genotype Y): stdout
+ 10. yak2     two-file `yak-count -k31 -b30 A B` (A: phase 4's 256 Mbase
+              file, B: phase 9's 64 Mbase sample of genotype Y): stdout
               and every `[M` line must equal the same run with the plain
               kernel versions in both compactors; extract and the int64
               merge path must launch, no other kernel; prints the wall,
               both passes' IngestStats, insert_sequential's device time
               over pass 1, the shrink join's time and the peak device
               memory (the 1 GiB bits array and both compactors)
- 10. edvaf    ed-vaf-counter -e1 with the first 1,000 sites of phase 8's
+ 11. edvaf    ed-vaf-counter -e1 with the first 1,000 sites of phase 9's
               panel (2,000 patterns at k = 21) on sample B (64 Mbases):
               wall, Mbases/s and the Myers loop's share of the wall; on
               B's first 2,048 reads (one batch) the card's VAF file must
               equal the CPU's; no kernel may launch (plain torch)
- 11. fixture  kc-c4 on tests/fixtures at k=15, 21 and 31, yak-count on the
+ 12. fixture  kc-c4 on tests/fixtures at k=15, 21 and 31, yak-count on the
               reads fixture, two-file yak-count on sampleA1 + sampleB
               (-k31 -b19 -K65536, -k15 -b19, -b0), the SNP chain on the
               genome, BED and sample fixtures, and ed-vaf-counter -e0/1/2
               on its patterns over sampleA1: the port on the GPU gives
-              the bytes of the port on the CPU
+              the bytes of the port on the CPU; kc-c4 (k = 15, 31) and
+              yak-count again with packed ingest (masked blocks: the
+              fixtures hold N bases and varied lengths), GPU == CPU ==
+              the ASCII path
+ 13. hosttools  kc-py1, kc-cpp1 and kc-cpp2 on the genome fixture (each
+              == kc-c1 -k31 on the card), vcf-vaf-counter on sampleA's
+              VCF, .vcf.gz and BCF (one VAF file), bam-vaf-counter on an
+              unindexed copy of the BAM fixture (the native scan must
+              run, and equal the Python reader's VAF) and with its .bai,
+              and the native rANS 4x8 decoder against the Python one on
+              an encoded stream; no kernel may launch
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; the kernels line takes the counts of extract, seghist and the
-int64 merge path from phase 4, the int32 merge path's from phase 7 and
-the (key, index) merge path's from phase 6 (phase 9 prints its own).  No path may launch a
+int64 merge path from phase 4, the int32 merge path's from phase 8 and
+the (key, index) merge path's from phase 6 (phases 7 and 10 print their
+own).  No path may launch a
 bitonic kernel, and after every phase neither jax nor any module of the
 JAX package (kmer_tpu) may be loaded.
 
@@ -110,7 +131,7 @@ K = 31
 MBASES = 256  # the e2e run's size: the JAX bench's headline file
 ERR_FREE = 0  # tolerance of every comparison: outputs are integers
 # the kernels of the kc-c4 -k31 path (phase 4); yak adds the (key, index)
-# merge (phase 6), k <= 15 swaps the merge for the int32 one (phase 7)
+# merge (phase 6), k <= 15 swaps the merge for the int32 one (phase 8)
 KC_PATH_KERNELS = ("extract", "seghist", "merge_partition", "merge_path")
 YAK_TAP_KERNELS = ("merge_partition3", "merge_path3")
 ONE_PLANE_KERNELS = ("merge_partition1", "merge_path1")
@@ -1039,7 +1060,8 @@ def phase_e2e(seed):
     need(out == want, "kc-c4 with kernels != the plain versions on the card")
     say("e2e", f"plain versions on the card: same output, {pwall:.3f} s = "
         f"{bases / 1e6 / pwall:.2f} Mbases/s ({plain.stats.report()})")
-    return launches
+    return {"launches": launches, "out": out, "wall": wall,
+            "stats": eng.stats}
 
 
 def phase_budget(seed):
@@ -1062,18 +1084,28 @@ def phase_budget(seed):
 
 
 @contextlib.contextmanager
-def platform(name):
-    """Run the tools on KMER_TPU_PLATFORM=name (kmer_tpu_torch's device
-    rule), restoring the environment after."""
-    old = os.environ.get("KMER_TPU_PLATFORM")
-    os.environ["KMER_TPU_PLATFORM"] = name
+def setenv(name, value):
+    """Set one environment variable for the block, restoring it after."""
+    old = os.environ.get(name)
+    os.environ[name] = value
     try:
         yield
     finally:
         if old is None:
-            del os.environ["KMER_TPU_PLATFORM"]
+            del os.environ[name]
         else:
-            os.environ["KMER_TPU_PLATFORM"] = old
+            os.environ[name] = old
+
+
+def platform(name):
+    """Run the tools on KMER_TPU_PLATFORM=name (kmer_tpu_torch's device
+    rule)."""
+    return setenv("KMER_TPU_PLATFORM", name)
+
+
+def packed_ingest():
+    """Run the engines with packed 2-bit ingest (KMER_TPU_PACKED=1)."""
+    return setenv("KMER_TPU_PACKED", "1")
 
 
 def fixture_snp_chain():
@@ -1104,6 +1136,23 @@ def fixture_snp_chain():
         f"sampleA1-sampleA2 the one matched pair")
 
 
+def fixture_packed(name, k, ascii_out):
+    """kc-c4 -k<k> on a fixture under packed ingest, on the GPU and on the
+    CPU: both equal the ASCII path's output, and the blocks that hold
+    N bases or varied lengths take the masked step."""
+    path = os.path.join(HERE, "tests", "fixtures", name)
+    with packed_ingest(), counting_packed_steps() as steps:
+        gpu = run_kc_c4([f"-k{k}", path])
+        with platform("cpu"):
+            cpu = run_kc_c4([f"-k{k}", path])
+    need(gpu == cpu == ascii_out,
+         f"fixture {name} k={k} packed: GPU, CPU and ASCII path differ")
+    need(steps["masked"] > 0, f"fixture {name} packed: no masked block")
+    say("fixture", f"{name} kc-c4 k={k} packed: GPU == CPU == ASCII path "
+        f"({steps['masked']} masked, {steps['structural']} structural "
+        "blocks)")
+
+
 def phase_fixture():
     from kmer_tpu_torch.pipeline.counter import SortCountEngine
 
@@ -1118,6 +1167,8 @@ def phase_fixture():
                  f"fixture {name} k={k}: GPU bytes != CPU bytes")
             say("fixture", f"{name} kc-c4 k={k}: GPU == CPU "
                 f"({check_hist_text(gpu)} distinct)")
+            if k != 21:
+                fixture_packed(name, k, gpu)
     fixture_snp_chain()
     fix = os.path.join(HERE, "tests", "fixtures")
     path = os.path.join(fix, "reads_small.fq.gz")
@@ -1130,6 +1181,16 @@ def phase_fixture():
         say("fixture", f"reads_small.fq.gz yak-count {' '.join(args)}: "
             f"GPU == CPU (stdout and {len(gpu[1])} [M lines; "
             f"{gpu[1][-1]})")
+        with packed_ingest(), counting_packed_steps() as steps:
+            gpu_p = run_tool("yak-count", [*args, path])
+            with platform("cpu"):
+                cpu_p = run_tool("yak-count", [*args, path])
+        need(gpu_p == cpu_p == gpu and steps["masked"] > 0,
+             f"fixture yak-count {' '.join(args)} packed: GPU, CPU and "
+             f"ASCII path differ, or no masked block ({steps})")
+        say("fixture", f"reads_small.fq.gz yak-count {' '.join(args)} "
+            f"packed: GPU == CPU == ASCII path ({steps['masked']} masked "
+            "blocks)")
     a1, b = (os.path.join(fix, f"{s}.fq.gz") for s in ("sampleA1", "sampleB"))
     for args in (["-k31", "-b19", "-K65536"], ["-k15", "-b19"], ["-b0"]):
         gpu = run_tool("yak-count", [*args, a1, b])
@@ -1259,7 +1320,137 @@ def phase_yak(seed):
          "card (stdout or [M lines)")
     say("yak", f"plain versions on the card (engine and tap): same stdout "
         f"and [M lines, {pwall:.3f} s = {bases / 1e6 / pwall:.2f} Mbases/s")
-    return launches
+    return {"launches": launches, "got": got, "wall": wall}
+
+
+@contextlib.contextmanager
+def counting_packed_steps():
+    """Count the engine's packed extraction steps while the block runs:
+    {"masked": n, "structural": n} (a block whose mask was elided takes
+    the structural step)."""
+    from kmer_tpu_torch.pipeline import counter
+
+    steps = {"masked": 0, "structural": 0}
+    real = {}
+    for name, key in (("_extract_step_packed", "masked"),
+                      ("_extract_step_packed_structural", "structural")):
+        real[name] = getattr(counter, name)
+
+        def step(*a, _fn=real[name], _key=key):
+            steps[_key] += 1
+            return _fn(*a)
+
+        setattr(counter, name, step)
+    try:
+        yield steps
+    finally:
+        for name, fn in real.items():
+            setattr(counter, name, fn)
+
+
+def unpack_rows(path):
+    """Unpack the first 10 Mbase block of path on the card, with its mask
+    and without (structural), against the ASCII reader's block; returns
+    {form: (ms, bound_ms)} with the device time a block (CUDA events)."""
+    import torch
+
+    from kmer_tpu_torch import default_device
+    from kmer_tpu_torch.io import native
+    from kmer_tpu_torch.pipeline import counter
+
+    block = 10_000_000
+    cap = block + max(4096, block // 32)
+    packed, mask, n, _, _, rb, _ = next(native.iter_packed2bit_native(
+        [path], K, block, cap, ("resume", K, 3)))
+    ascii_block = next(native.iter_packed_native(
+        [path], K, block, cap, ("resume", K, 3)))[0]
+    dev = default_device()
+    p, m = torch.from_numpy(packed).to(dev), torch.from_numpy(mask).to(dev)
+    forms = {"masked": (lambda: counter._unpack_ascii(p, m),
+                        packed.nbytes + mask.nbytes),
+             "structural": (lambda: counter._structural_ascii(p, n, rb),
+                            packed.nbytes)}
+    want = torch.zeros(4 * packed.shape[0], dtype=torch.uint8)
+    want[:ascii_block.shape[0]] = torch.from_numpy(ascii_block)
+    out = {}
+    for form, (fn, nbytes) in forms.items():
+        got = fn().cpu()
+        need(torch.equal(got, want),
+             f"{form} unpack != the ASCII reader's block")
+        out[form] = (time_run_ms(fn, reps=20),
+                     (nbytes + got.numel()) / HBM_BYTES_PER_S * 1e3)
+    return out, n, rb
+
+
+def phase_packed(seed, e2e, yak):
+    """kc-c4 -k31 and yak-count -k31 -b30 on the 256 Mbase file under
+    KMER_TPU_PACKED=1: the same bytes as phases 4 and 6, every block
+    structural, the path's kernels launched."""
+    import torch
+
+    from kmer_tpu_torch.kernels import _build
+    from kmer_tpu_torch.tools import yak_count
+
+    path = reads_file(MBASES, seed)
+    bases = MBASES * 1_000_000 // READ_LEN * READ_LEN
+    gc.collect()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    with packed_ingest(), counting_packed_steps() as steps, \
+            recording_engines() as made:
+        t0 = time.perf_counter()
+        out = run_kc_c4([f"-k{K}", path])
+        wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    st, st4 = made[0].stats, e2e["stats"]
+    need(out == e2e["out"], "kc-c4 packed != kc-c4 ASCII (phase 4)")
+    need(steps["masked"] == 0 and steps["structural"] > 0,
+         f"kc-c4 packed: not every block was structural ({steps})")
+    need(all(launches[name] > 0 for name in KC_PATH_KERNELS),
+         f"kc-c4 packed: a kernel of the path was never launched: "
+         f"{launches}")
+    need_fused_hist(made[0], launches, "packed")
+    need(not any(launches[name] for name in BITONIC_KERNELS),
+         f"kc-c4 packed ran a bitonic merge: {launches}")
+    say("packed", f"kc-c4 -k{K} {MBASES} Mbases packed: same output as "
+        f"phase 4, {steps['structural']} blocks all structural; {wall:.3f} "
+        f"s = {bases / 1e6 / wall:.2f} Mbases/s (ASCII {e2e['wall']:.3f} s "
+        f"= {bases / 1e6 / e2e['wall']:.2f}); upload_bytes "
+        f"{st.upload_bytes} in {st.upload_s:.3f} s (ASCII "
+        f"{st4.upload_bytes} in {st4.upload_s:.3f} s, ratio "
+        f"{st.upload_bytes / st4.upload_bytes:.4f})")
+    say("packed", f"IngestStats: {st.report()}")
+    say("packed", f"launches in this run: {json.dumps(launches)}")
+
+    _build.reset_launches()
+    with packed_ingest(), counting_packed_steps() as ysteps, \
+            recording_engines(yak_count) as ymade:
+        t0 = time.perf_counter()
+        got = run_tool("yak-count", [*YAK_ARGS, path])
+        ywall = time.perf_counter() - t0
+    ylaunches = dict(_build.LAUNCHES)
+    need(got == yak["got"], "yak-count packed != yak-count ASCII (phase 6: "
+         "stdout or [M lines)")
+    need(ysteps["masked"] == 0 and ysteps["structural"] > 0,
+         f"yak-count packed: not every block was structural ({ysteps})")
+    need(all(ylaunches[name] > 0 for name in
+             (*KC_PATH_KERNELS, *YAK_TAP_KERNELS)),
+         f"yak-count packed: a kernel of the path never launched: "
+         f"{ylaunches}")
+    need(not any(ylaunches[name] for name in BITONIC_KERNELS),
+         f"yak-count packed ran a bitonic merge: {ylaunches}")
+    say("packed", f"yak-count {' '.join(YAK_ARGS)} packed: same stdout and "
+        f"{len(got[1])} [M lines as phase 6; {ywall:.3f} s = "
+        f"{bases / 1e6 / ywall:.2f} Mbases/s (ASCII {yak['wall']:.3f} s); "
+        f"upload_bytes {ymade[0].stats.upload_bytes}")
+    say("packed", f"launches in this run: {json.dumps(ylaunches)}")
+
+    rows, n, rb = unpack_rows(path)
+    for form, (ms, bound) in rows.items():
+        say("packed", f"unpack, {form}, one block of {n} bytes (rows of "
+            f"{rb}): {ms:.4f} ms device time, bound {bound:.4f} ms "
+            f"(bytes), share {bound / ms:.1%}; == the ASCII reader's block")
+    return {"launches": launches, "yak_launches": ylaunches}
 
 
 def phase_onepl(seed):
@@ -1749,8 +1940,8 @@ def read_file(path):
 
 def edvaf_inputs(seed):
     """(panel, head, sample B, its bases) under build/chip_smoke/edvaf/:
-    the panel is the first EDVAF_SITES rows of phase 8's pattern file
-    (snp-pattern-gen makes one there when phase 8 has not run), head is
+    the panel is the first EDVAF_SITES rows of phase 9's pattern file
+    (snp-pattern-gen makes one there when phase 9 has not run), head is
     B's first EDVAF_READS reads as a plain FASTQ."""
     import gzip
 
@@ -1824,6 +2015,164 @@ def phase_edvaf(seed):
         "the CPU)")
 
 
+# -- the host-only tools ---------------------------------------------------
+
+_RANS_LOW = 1 << 23
+
+
+def rans4x8_o0_encode(data: bytes) -> bytes:
+    """A valid rANS 4x8 order-0 stream of data (htslib rANS_static.c
+    layout: order byte, two u32 sizes, the frequency table, four u32
+    states, the interleaved renormalization bytes), for the decoders."""
+    import struct
+    from collections import Counter
+
+    n = len(data)
+    counts = Counter(data)
+    syms = sorted(counts)
+    freq = {s: max(1, counts[s] * 4096 // n) for s in syms}
+    top = max(syms, key=freq.get)
+    freq[top] += 4096 - sum(freq.values())
+    cum, c = {}, 0
+    for s in syms:
+        cum[s], c = c, c + freq[s]
+    table = bytearray([syms[0]])
+    for i, s in enumerate(syms):
+        f = freq[s]
+        table += bytes([f]) if f < 128 else bytes([0x80 | f >> 8, f & 255])
+        nxt = syms[i + 1] if i + 1 < len(syms) else 0
+        table += bytes([nxt, 0]) if nxt == s + 1 else bytes([nxt])
+    main = n & ~3
+    # the tail is read from the final states alone
+    R = [_RANS_LOW + (cum[data[main + j]] if main + j < n else 0)
+         for j in range(4)]
+    out = bytearray()
+    for i in range(main - 1, -1, -1):
+        j, s = i & 3, data[i]
+        x, f = R[j], freq[s]
+        while x >= ((_RANS_LOW >> 12) << 8) * f:
+            out.append(x & 255)
+            x >>= 8
+        R[j] = ((x // f) << 12) + x % f + cum[s]
+    body = bytes(table) + struct.pack("<4I", *R) + bytes(reversed(out))
+    return bytes([0]) + struct.pack("<II", len(body), n) + body
+
+
+def run_with_stdin(tool, args, data: bytes):
+    old = sys.stdin
+    sys.stdin = io.TextIOWrapper(io.BytesIO(data))
+    try:
+        return run_tool_err(tool, args)[0]
+    finally:
+        sys.stdin = old
+
+
+def phase_hosttools():
+    """kc-py1, kc-cpp1, kc-cpp2, vcf-vaf-counter and bam-vaf-counter on
+    the fixtures (host code: no kernel may launch).  The raw-string
+    counters give kc-c1 -k31's histogram on the clean genome; the VCF,
+    .vcf.gz and BCF forms of one sample give one VAF file; the
+    sequential BAM scan runs natively and equals the Python reader; the
+    native rANS decoder equals the Python one."""
+    import gzip
+
+    import numpy as np
+
+    from kmer_tpu_torch.io import cram, native
+    from kmer_tpu_torch.kernels import _build
+
+    fix = os.path.join(HERE, "tests", "fixtures")
+    d = os.path.join(DATA_DIR, "hosttools")
+    os.makedirs(d, exist_ok=True)
+    genome = os.path.join(fix, "genome_small.fa.gz")
+    with gzip.open(genome, "rb") as f:
+        raw = f.read()
+    fasta = os.path.join(d, "genome_small.fa")
+    with open(fasta, "wb") as f:
+        f.write(raw)
+    want = run_tool_err("kc-c1", ["-k31", genome])[0]
+    _build.reset_launches()
+    got = {"kc-py1": run_with_stdin("kc-py1", [], raw)}
+    for tool in ("kc-cpp1", "kc-cpp2"):
+        got[tool] = run_tool_err(tool, ["-k31", fasta])[0]
+    for tool, text in got.items():
+        need(text == want, f"{tool} on the genome != kc-c1 -k31")
+    say("hosttools", f"kc-py1, kc-cpp1, kc-cpp2 on genome_small: == kc-c1 "
+        f"-k31 on the card ({check_hist_text(want)} distinct)")
+
+    pat = os.path.join(DATA_DIR, "fixture_snp_cpu", "snps.pat")
+    vafs = {}
+    for ext in ("vcf", "vcf.gz", "bcf"):
+        out = os.path.join(d, f"sampleA.{ext}.vaf")
+        run_tool_err("vcf-vaf-counter", ["-p", pat, "-v",
+                                         os.path.join(fix, f"sampleA.{ext}"),
+                                         "-o", out])
+        vafs[ext] = read_file(out)
+    need(len(set(vafs.values())) == 1, "vcf-vaf-counter: the VCF, .vcf.gz "
+         "and BCF forms of sampleA give different VAF files")
+    say("hosttools", f"vcf-vaf-counter on sampleA.vcf, .vcf.gz, .bcf: one "
+        f"VAF file ({vafs['vcf'].splitlines()[0].decode()})")
+
+    bam = os.path.join(d, "sampleA_aln_noidx.bam")
+    with open(os.path.join(fix, "sampleA_aln.bam"), "rb") as f, \
+            open(bam, "wb") as g:
+        g.write(f.read())
+    calls, real = [], native.bam_count_native
+
+    def counted(*a, **kw):
+        calls.append(real(*a, **kw))
+        return calls[-1]
+
+    native.bam_count_native = counted
+    try:
+        out = {}
+        for how in ("native", "python"):
+            vaf = os.path.join(d, f"sampleA_aln_{how}.vaf")
+            t0 = time.perf_counter()
+            if how == "python":
+                with setenv("KMER_TPU_NO_NATIVE", "1"):
+                    run_tool_err("bam-vaf-counter", ["-p", pat, "-o", vaf,
+                                                     bam])
+            else:
+                run_tool_err("bam-vaf-counter", ["-p", pat, "-o", vaf, bam])
+            out[how] = (read_file(vaf), time.perf_counter() - t0)
+    finally:
+        native.bam_count_native = real
+    need(len(calls) == 2 and calls[0] is not None and calls[1] is None,
+         "bam-vaf-counter on an unindexed BAM did not take the native scan "
+         "(or the Python run did)")
+    need(out["native"][0] == out["python"][0],
+         "bam-vaf-counter: the native scan's VAF != the Python reader's")
+    say("hosttools", f"bam-vaf-counter, unindexed BAM: native scan "
+        f"({out['native'][1]:.3f} s) == Python reader "
+        f"({out['python'][1]:.3f} s)")
+    vaf = os.path.join(d, "sampleA_aln_bai.vaf")
+    t0 = time.perf_counter()
+    err = run_tool_err("bam-vaf-counter", ["-p", pat, "-o", vaf,
+                                           os.path.join(fix,
+                                                        "sampleA_aln.bam")])[1]
+    need("Using indexed access" in err, "the .bai was not used")
+    say("hosttools", f"bam-vaf-counter with its .bai: region queries, "
+        f"{time.perf_counter() - t0:.3f} s "
+        f"({read_file(vaf).splitlines()[0].decode()})")
+
+    rng = np.random.default_rng(8)
+    data = bytes(rng.choice(np.frombuffer(b"ACGTN", np.uint8), 1_000_003,
+                            p=[0.3, 0.2, 0.2, 0.29, 0.01]))
+    blob = rans4x8_o0_encode(data)
+    t0 = time.perf_counter()
+    nat = native.rans_decode_native(blob, len(data))
+    t1 = time.perf_counter()
+    py = cram._rans_decode_py(blob, len(data))
+    t2 = time.perf_counter()
+    need(nat is not None and nat == py == data,
+         "rans_decode_native != the Python decoder (or != the input)")
+    say("hosttools", f"rANS 4x8 order 0, {len(data)} bytes: native "
+        f"({(t1 - t0) * 1e3:.1f} ms) == Python ({(t2 - t1) * 1e3:.1f} ms) == "
+        "the input")
+    need(not any(_build.LAUNCHES.values()), "a host tool launched a kernel")
+
+
 KERNELS = [
     ("extract", "kmer_tpu_torch/csrc/extract.cu",
      "kmer_tpu/kernels/extract_tpu.py:111"),
@@ -1867,11 +2216,14 @@ def main(argv=None):
               ("e2e", lambda: phase_e2e(args.seed)),
               ("budget", lambda: phase_budget(args.seed)),
               ("yak", lambda: phase_yak(args.seed)),
+              ("packed", lambda: phase_packed(args.seed, out["e2e"],
+                                              out["yak"])),
               ("onepl", lambda: phase_onepl(args.seed)),
               ("snp", lambda: phase_snp(args.seed, out["card"])),
               ("yak2", lambda: phase_yak2(args.seed)),
               ("edvaf", lambda: phase_edvaf(args.seed)),
-              ("fixture", phase_fixture))
+              ("fixture", phase_fixture),
+              ("hosttools", phase_hosttools))
     out = {}
     try:
         for phase, fn in phases:
@@ -1881,12 +2233,13 @@ def main(argv=None):
         traceback.print_exc()
         print(f"[{phase}] FAILED", flush=True)
         return 1
-    card, rows, launches = out["card"], out["kernels"], out["e2e"]
+    card, rows = out["card"], out["kernels"]
+    launches = dict(out["e2e"]["launches"])
     # each kernel's count from the path that it serves (module docstring)
     for name in ONE_PLANE_KERNELS:
         launches[name] = out["onepl"][name]
     for name in YAK_TAP_KERNELS:
-        launches[name] = out["yak"][name]
+        launches[name] = out["yak"]["launches"][name]
     print(card)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -1,11 +1,14 @@
-"""ctypes bindings for the native FASTQ/FASTA reader (the FASTQ half of
-kmer_tpu/io/native/__init__.py, over a copy of its fastx_reader.cpp).
+"""ctypes bindings for the native IO layer (a copy of
+kmer_tpu/io/native/__init__.py, over copies of its three sources): the
+FASTQ/FASTA block reader, in ASCII and 2-bit packed form
+(fastx_reader.cpp), the sequential BAM scan of bam-vaf-counter
+(bam_count.cpp) and the CRAM rANS 4x8 decoder (cram_rans.cpp).
 
 The library builds with g++ at first use into build/kmer_tpu_torch/ at
 the repository root (never beside the sources), named by a hash of the
-source and the flags, so a changed source builds anew.  Callers check
-`available()` and use the pure-Python reader (io/fastx.py) when it is
-False: no g++ or zlib, or KMER_TPU_NO_NATIVE set.
+sources and the flags, so a changed source builds anew.  Callers check
+`available()` and use the pure-Python readers (io/fastx.py, io/bam.py,
+io/cram.py) when it is False: no g++ or zlib, or KMER_TPU_NO_NATIVE set.
 """
 
 from __future__ import annotations
@@ -22,8 +25,9 @@ import numpy as np
 
 from ...kernels._build import BUILD_DIR
 
-_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                    "fastx_reader.cpp")
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_SRCS = [os.path.join(_HERE, name) for name in
+         ("fastx_reader.cpp", "bam_count.cpp", "cram_rans.cpp")]
 _lock = threading.Lock()
 _lib = None
 _tried = False
@@ -34,7 +38,7 @@ def _command(out: str):
     # its own target("avx2") attribute and a runtime CPU check.
     # libdeflate (when present) decodes gzip faster than zlib; the reader
     # streams through zlib without it.
-    cmd = ["g++", "-O3", "-shared", "-fPIC", "-o", out, _SRC, "-lz"]
+    cmd = ["g++", "-O3", "-shared", "-fPIC", "-o", out, *_SRCS, "-lz"]
     if os.path.exists("/usr/include/libdeflate.h"):
         cmd.insert(1, "-DKTP_HAVE_LIBDEFLATE")
         cmd.append("-ldeflate")
@@ -43,8 +47,9 @@ def _command(out: str):
 
 def _library_path() -> str:
     h = hashlib.sha256(" ".join(_command("")).encode())
-    with open(_SRC, "rb") as f:
-        h.update(f.read())
+    for src in _SRCS:
+        with open(src, "rb") as f:
+            h.update(f.read())
     return os.path.join(BUILD_DIR, f"libkmerio_{h.hexdigest()[:16]}.so")
 
 
@@ -78,16 +83,29 @@ def _load() -> Optional[ctypes.CDLL]:
         except OSError:
             return None
         i64p = ctypes.POINTER(ctypes.c_int64)
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        u8p = ctypes.POINTER(ctypes.c_uint8)
         lib.ktp_open.restype = ctypes.c_void_p
         lib.ktp_open.argtypes = [ctypes.c_char_p]
         lib.ktp_close.argtypes = [ctypes.c_void_p]
         lib.ktp_read_block.restype = ctypes.c_int64
         lib.ktp_read_block.argtypes = [
-            ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
-            ctypes.c_int32, ctypes.c_int64, i64p, i64p, i64p, i64p]
+            ctypes.c_void_p, u8p, ctypes.c_int64, ctypes.c_int32,
+            ctypes.c_int64, i64p, i64p, i64p, i64p]
         lib.ktp_set_policy.argtypes = [
             ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64, ctypes.c_int64,
             ctypes.c_int64]
+        lib.ktp_read_block_packed.restype = ctypes.c_int64
+        lib.ktp_read_block_packed.argtypes = [
+            ctypes.c_void_p, u8p, u8p, ctypes.c_int64, ctypes.c_int32,
+            ctypes.c_int64, i64p, i64p, i64p, i64p]
+        lib.ktp_rans_decode.restype = ctypes.c_int32
+        lib.ktp_rans_decode.argtypes = [u8p, ctypes.c_int64, u8p,
+                                        ctypes.c_int64]
+        lib.ktp_bam_count.restype = ctypes.c_int64
+        lib.ktp_bam_count.argtypes = [
+            ctypes.c_char_p, i32p, i32p, u8p, u8p, ctypes.c_int64, i64p,
+            i64p]
         _lib = lib
         return _lib
 
@@ -134,3 +152,94 @@ def iter_packed_native(
                        bool(batch_end.value))
         finally:
             lib.ktp_close(h)
+
+
+def iter_packed2bit_native(
+    paths, k: int, block_bases: int, capacity: int, qual_policy=None
+) -> Iterator[Tuple[np.ndarray, np.ndarray, int, int, int, Optional[int],
+                    bool]]:
+    """Bit-packed form of iter_packed_native: yields (packed_u8[cap/4],
+    mask_u8[cap/8], n_bytes_used, n_bases, n_seqs, row_bytes,
+    batch_end).  Base 4i+m is the 2-bit code at bits 2m of packed[i];
+    slot 8i+b is invalid (a separator, an N or past the packed region)
+    when bit b of mask[i] is set.  n_bytes_used is the packed region's
+    layout boundary (bases and separators of every piece); the other
+    fields are iter_packed_native's.  capacity is rounded up to a
+    multiple of 8."""
+    lib = _load()
+    assert lib is not None
+    capacity = (capacity + 7) & ~7
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    for path in paths:
+        h = lib.ktp_open(os.fsencode(path))
+        if not h:
+            raise OSError(errno.ENOENT, "cannot open", path)
+        if qual_policy is not None:
+            lib.ktp_set_policy(h, 1, block_bases, qual_policy[1],
+                               qual_policy[2])
+        try:
+            while True:
+                packed = np.zeros(capacity // 4, np.uint8)
+                mask = np.zeros(capacity // 8, np.uint8)
+                n_seqs, n_bases = ctypes.c_int64(), ctypes.c_int64()
+                row_bytes, batch_end = ctypes.c_int64(), ctypes.c_int64()
+                used = lib.ktp_read_block_packed(
+                    h, packed.ctypes.data_as(u8p), mask.ctypes.data_as(u8p),
+                    capacity, k, block_bases, ctypes.byref(n_seqs),
+                    ctypes.byref(n_bases), ctypes.byref(row_bytes),
+                    ctypes.byref(batch_end))
+                if used <= 0:
+                    break
+                yield (packed, mask, int(used), int(n_bases.value),
+                       int(n_seqs.value), int(row_bytes.value) or None,
+                       bool(batch_end.value))
+        finally:
+            lib.ktp_close(h)
+
+
+def bam_count_native(path, tids, starts, refs, alts):
+    """Scan a BAM sequentially, counting ref/alt bases at SNP positions
+    (bam_count.cpp; the Python loop of tools/bam_vaf_counter.py is its
+    fallback).  tids/starts must be sorted by (tid, start); refs/alts
+    are ASCII base codes.  Returns (ref_counts, alt_counts) int64
+    arrays, or None when the native layer is unavailable or the header
+    is unreadable as BAM.  A corrupt body gives the counts up to the
+    damage, as the Python reader's stop at the first bad record does."""
+    if not available():
+        return None
+    lib = _load()
+    n = len(tids)
+    tids = np.ascontiguousarray(tids, np.int32)
+    starts = np.ascontiguousarray(starts, np.int32)
+    refs = np.ascontiguousarray(refs, np.uint8)
+    alts = np.ascontiguousarray(alts, np.uint8)
+    ref_counts = np.zeros(n, np.int64)
+    alt_counts = np.zeros(n, np.int64)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    rc = lib.ktp_bam_count(
+        os.fsencode(path), tids.ctypes.data_as(i32p),
+        starts.ctypes.data_as(i32p), refs.ctypes.data_as(u8p),
+        alts.ctypes.data_as(u8p), n, ref_counts.ctypes.data_as(i64p),
+        alt_counts.ctypes.data_as(i64p))
+    if rc < 0:
+        return None
+    return ref_counts, alt_counts
+
+
+def rans_decode_native(data: bytes, out_size: int):
+    """rANS 4x8 decode (cram_rans.cpp); None when the native layer is
+    unavailable or the stream is malformed, and io/cram.py then runs its
+    Python decoder."""
+    if not available():
+        return None
+    lib = _load()
+    src = np.frombuffer(data, np.uint8)
+    out = np.empty(out_size, np.uint8)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    rc = lib.ktp_rans_decode(src.ctypes.data_as(u8p), len(data),
+                             out.ctypes.data_as(u8p), out_size)
+    if rc != 0:
+        return None
+    return out.tobytes()

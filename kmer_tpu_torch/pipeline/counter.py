@@ -1,18 +1,21 @@
 """The end-to-end k-mer counting engine (port of
-kmer_tpu/pipeline/counter.py, ASCII ingest on one device).
+kmer_tpu/pipeline/counter.py, on one device).
 
   reader thread:  the native C++ reader (io/native, a copy of the JAX
                   package's) decompresses, parses and packs reads into
-                  flat ASCII blocks, one invalid byte between reads; the
-                  same thread stages each block in pinned host memory
+                  flat ASCII blocks, one invalid byte between reads, or
+                  under KMER_TPU_PACKED=1 into 2-bit base codes and an
+                  invalid-slot bitmask (packed ingest); the same thread
+                  stages each block in pinned host memory
   main thread:    copies the block to the device (non-blocking, from
-                  pinned memory), extracts sentinelized keys with the
-                  extraction kernel and appends them to the sort-based
-                  compactor (table/compactor.py)
+                  pinned memory), unpacks a packed block to ASCII there,
+                  extracts sentinelized keys with the extraction kernel
+                  and appends them to the sort-based compactor
+                  (table/compactor.py)
 
 The port imports nothing of kmer_tpu, so the JAX counter's host helpers
-(_iter_packed, _trim_to_class, _prefetch, _timed_iter, IngestStats) are
-ported here rather than imported.
+(_iter_packed, _iter_packed2, _trim_to_class, _prefetch, _timed_iter,
+IngestStats) are ported here rather than imported.
 """
 
 from __future__ import annotations
@@ -31,6 +34,9 @@ from ..io import fastx, native, packing
 from ..kernels import extract
 from ..kernels.keys import from_hi_lo, to_hi_lo
 from ..table.compactor import KmerCompactor, stream_sorted_default
+
+# byte -> popcount (the mask-elision test without unpackbits' 8x blowup)
+_POPCNT8 = np.array([bin(i).count("1") for i in range(256)], np.uint8)
 
 
 class IngestStats:
@@ -149,6 +155,48 @@ def _iter_packed(
             n_seqs = n_bases = 0
 
 
+def _use_packed_ingest(paths) -> bool:
+    """2-bit packed host->device ingest (0.25-0.375 bytes a base instead
+    of 1), as kmer_tpu/pipeline/counter.py:181-198 decides it: the JAX
+    package turns it on by default only on a TPU backend, and the port
+    has none, so here it runs only under KMER_TPU_PACKED=1 (or true, on,
+    yes), on real files, through the native reader."""
+    env = os.environ.get("KMER_TPU_PACKED", "").strip().lower()
+    if env not in ("1", "true", "on", "yes"):
+        return False
+    if any(p == "-" for p in paths):
+        return False
+    return native_reader()
+
+
+def _iter_packed2(paths, k: int, block_bases: int, capacity: int,
+                  qual_policy=None):
+    """Packed-ingest form of _iter_packed (kmer_tpu/pipeline/counter.py:
+    201-231): yields (packed, mask, n_bytes_used, n_bases, n_seqs,
+    row_bytes, batch_end) with the buffers trimmed to the smallest size
+    class (slots past the packed region are mask-invalid, so trimming
+    never changes the k-mer multiset).
+
+    mask is None when it is purely structural: uniform rows with no
+    N or other invalid base, so that every set bit is a row separator or
+    the tail past n.  Any in-read invalid adds a bit and bits are never
+    cleared, so the popcount decides it; the device rebuilds such a mask
+    from (n, row_bytes) and the block moves 0.25 bytes a base."""
+    for packed, mask, n, n_bases, n_seqs, rb, be in (
+            native.iter_packed2bit_native(
+                paths, k, block_bases, capacity, qual_policy)):
+        for cls in (1 << 16, 1 << 20, 1 << 23):
+            if n <= cls < 4 * packed.shape[0]:
+                packed, mask = packed[: cls // 4], mask[: cls // 8]
+                break
+        if rb and rb > k:
+            slots = 8 * mask.shape[0]
+            expected = (slots - n) + n // rb
+            if int(_POPCNT8[mask].sum(dtype=np.int64)) == expected:
+                mask = None
+        yield packed, mask, n, n_bases, n_seqs, rb, be
+
+
 def _prefetch(it, depth=2):
     """Run an iterator in a background thread.  Reader exceptions (e.g.
     unreadable input) re-raise in the consumer."""
@@ -176,16 +224,22 @@ def _prefetch(it, depth=2):
 
 
 def _stage(item, pin: bool, stats: IngestStats):
-    """Wrap a reader block as a tensor; for a CUDA engine, copy it into
-    pinned host memory (in the reader thread) so the host->device copy
-    can run asynchronously."""
-    buf, n, ns, rb, be = item
+    """Wrap a reader item's arrays (the ASCII buffer, or the packed codes
+    and the mask when there is one) as tensors; for a CUDA engine, copy
+    them into pinned host memory (in the reader thread) so the
+    host->device copies can run asynchronously.  upload_bytes counts the
+    arrays' bytes, as kmer_tpu/pipeline/counter.py:265-277 does."""
     t0 = time.perf_counter()
-    t = torch.from_numpy(buf)
-    if pin:
-        t = t.pin_memory()
-    stats.add_upload(buf.nbytes, time.perf_counter() - t0)
-    return t, n, ns, rb, be
+    nbytes, out = 0, []
+    for x in item:
+        if isinstance(x, np.ndarray):
+            nbytes += x.nbytes
+            x = torch.from_numpy(x)
+            if pin:
+                x = x.pin_memory()
+        out.append(x)
+    stats.add_upload(nbytes, time.perf_counter() - t0)
+    return tuple(out)
 
 
 def _extract_step_rows(ascii_u8: torch.Tensor, k: int, row_bytes: int,
@@ -199,6 +253,62 @@ def _extract_step_rows(ascii_u8: torch.Tensor, k: int, row_bytes: int,
     return fn(ascii_u8, k, row_bytes)
 
 
+def _unpack_codes(packed: torch.Tensor) -> torch.Tensor:
+    """(n/4,) uint8 packed 2-bit base codes -> (n,) uint8 codes 0..3:
+    base 4i+m sits at bits 2m of packed[i]."""
+    return torch.stack([packed & 3, (packed >> 2) & 3, (packed >> 4) & 3,
+                        packed >> 6], dim=1).reshape(-1)
+
+
+def _codes_ascii(codes: torch.Tensor) -> torch.Tensor:
+    """uint8 base code 0..3 -> ASCII 'A'/'C'/'G'/'T' (65, 67, 71, 84)."""
+    return 65 + 2 * codes + 2 * (codes >> 1) + 11 * (codes == 3).to(
+        torch.uint8)
+
+
+def _unpack_ascii(packed: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The native reader's 2-bit codes + invalid bitmask
+    (io/native/fastx_reader.cpp ktp_read_block_packed) -> the ASCII byte
+    stream the plain reader would have produced: code 0..3 -> 'A'/'C'/
+    'G'/'T', a masked slot (bit b of mask[i] for slot 8i+b) -> NUL.  A
+    mask trimmed to a size class may cover more slots than the codes."""
+    ascii_u8 = _codes_ascii(_unpack_codes(packed))
+    inv = torch.stack([(mask >> b) & 1 for b in range(8)], dim=1).reshape(-1)
+    return ascii_u8.masked_fill_(inv[: ascii_u8.shape[0]].bool(), 0)
+
+
+def _structural_ascii(packed: torch.Tensor, n_used: int,
+                      row_bytes: int) -> torch.Tensor:
+    """Unpack without a transferred mask: the block is uniform rows with
+    no in-read invalid base (see _iter_packed2), so the invalid slots
+    are the last column of each row and every slot at or past n_used;
+    the tail past the last whole row is zeros."""
+    ascii_u8 = _codes_ascii(_unpack_codes(packed))
+    n_rows = ascii_u8.shape[0] // row_bytes
+    span = n_rows * row_bytes
+    ascii_u8[:span].view(n_rows, row_bytes)[:, row_bytes - 1] = 0
+    ascii_u8[min(n_used, span):] = 0
+    return ascii_u8
+
+
+def _extract_step_packed(packed: torch.Tensor, mask: torch.Tensor, k: int,
+                         row_bytes, extract_flat, extract_rows):
+    """Extract a packed block with a mask (kmer_tpu/pipeline/counter.py:
+    458-463): unpack to ASCII, then the row-sliced form when row_bytes
+    is given, the flat form otherwise."""
+    ascii_u8 = _unpack_ascii(packed, mask)
+    if row_bytes:
+        return _extract_step_rows(ascii_u8, k, row_bytes, extract_rows)
+    return extract_flat(ascii_u8, k)
+
+
+def _extract_step_packed_structural(packed: torch.Tensor, n_used: int,
+                                    k: int, row_bytes: int, extract_rows):
+    """Extract a packed block whose mask was elided (counter.py:466-471)."""
+    return _extract_step_rows(_structural_ascii(packed, n_used, row_bytes),
+                              k, row_bytes, extract_rows)
+
+
 class InputError(OSError):
     """An input that the reader could not open or read.  Only
     `_extracted_blocks` raises it, from the reader's own OSError, so a
@@ -210,22 +320,25 @@ def _extracted_blocks(paths: Sequence[str], k: int, block_bases: int,
                       prefetch: bool, extract_flat, extract_rows,
                       st: IngestStats):
     """The ingest loop that the count and yak engines share (the port's
-    form of kmer_tpu/pipeline/yak.py:209-260, ASCII ingest): reader
-    (`_iter_packed`), staging in pinned memory for a CUDA device,
-    non-blocking host->device copy, and the extraction kernel, in its
-    row-sliced form (`extract_rows`) when every read of the block has one
-    length and the flat form (`extract_flat`) otherwise.  Yields (keys,
-    n_valid, n_bases, n_seqs, batch_end) a block, in reader order; `st`
-    takes the reader, staging, wait and dispatch times."""
+    form of kmer_tpu/pipeline/yak.py:209-260): reader (`_iter_packed`,
+    or `_iter_packed2` under packed ingest), staging in pinned memory
+    for a CUDA device, non-blocking host->device copy, the unpack of a
+    packed block, and the extraction kernel, in its row-sliced form
+    (`extract_rows`) when every read of the block has one length and the
+    flat form (`extract_flat`) otherwise.  Yields (keys, n_valid,
+    n_bases, n_seqs, batch_end) a block, in reader order; `st` takes the
+    reader, staging, wait and dispatch times."""
     pin = device.type == "cuda"
-    it = _iter_packed(paths, k, block_bases, capacity, qual_policy)
+    packed_mode = _use_packed_ingest(paths)
+    it = (_iter_packed2 if packed_mode else _iter_packed)(
+        paths, k, block_bases, capacity, qual_policy)
     it = (_stage(item, pin, st) for item in _timed_iter(it, st))
     if prefetch:
         it = _prefetch(it)
     while True:
         t0 = time.perf_counter()
         try:
-            buf, n_bases, n_seqs, row_bytes, batch_end = next(it)
+            item = next(it)
         except StopIteration:
             st.wait_s += time.perf_counter() - t0
             return
@@ -236,12 +349,26 @@ def _extracted_blocks(paths: Sequence[str], k: int, block_bases: int,
             raise err from e
         t1 = time.perf_counter()
         st.wait_s += t1 - t0
-        buf = buf.to(device, non_blocking=True)
-        if row_bytes and row_bytes > k:
-            keys, n_kmers = _extract_step_rows(buf, k, row_bytes,
-                                               extract_rows)
+        if packed_mode:
+            (packed, mask, n_used, n_bases, n_seqs, row_bytes,
+             batch_end) = item
+            packed = packed.to(device, non_blocking=True)
+            rb = row_bytes if row_bytes and row_bytes > k else None
+            if mask is None:
+                keys, n_kmers = _extract_step_packed_structural(
+                    packed, n_used, k, rb, extract_rows)
+            else:
+                keys, n_kmers = _extract_step_packed(
+                    packed, mask.to(device, non_blocking=True), k, rb,
+                    extract_flat, extract_rows)
         else:
-            keys, n_kmers = extract_flat(buf, k)
+            buf, n_bases, n_seqs, row_bytes, batch_end = item
+            buf = buf.to(device, non_blocking=True)
+            if row_bytes and row_bytes > k:
+                keys, n_kmers = _extract_step_rows(buf, k, row_bytes,
+                                                   extract_rows)
+            else:
+                keys, n_kmers = extract_flat(buf, k)
         st.dispatch_s += time.perf_counter() - t1
         yield keys, n_kmers, n_bases, n_seqs, batch_end
 

@@ -9,6 +9,9 @@ from typing import Callable
 
 # tool name -> (module, function)
 _TOOLS = {
+    "kc-py1": ("kmer_tpu_torch.tools.kc", "main_kc_py1"),
+    "kc-cpp1": ("kmer_tpu_torch.tools.kc", "main_kc_cpp1"),
+    "kc-cpp2": ("kmer_tpu_torch.tools.kc", "main_kc_cpp2"),
     "kc-c1": ("kmer_tpu_torch.tools.kc", "main_kc_c1"),
     "kc-c2": ("kmer_tpu_torch.tools.kc", "main_kc_c2"),
     "kc-c3": ("kmer_tpu_torch.tools.kc", "main_kc_c3"),
@@ -19,6 +22,8 @@ _TOOLS = {
     "correlation-matrix": ("kmer_tpu_torch.tools.correlation_matrix", "main"),
     "match-classifier": ("kmer_tpu_torch.tools.match_classifier", "main"),
     "ed-vaf-counter": ("kmer_tpu_torch.tools.ed_vaf_counter", "main"),
+    "bam-vaf-counter": ("kmer_tpu_torch.tools.bam_vaf_counter", "main"),
+    "vcf-vaf-counter": ("kmer_tpu_torch.tools.vcf_vaf_counter", "main"),
 }
 
 

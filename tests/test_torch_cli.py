@@ -97,6 +97,47 @@ def test_port_cli_never_imports_jax(tmp_path):
     assert "rs1" in open(vaf).read()
 
 
+def test_host_tools_and_packed_ingest_never_import_jax(tmp_path):
+    """kc-py1, kc-cpp1, kc-cpp2, vcf-vaf-counter and bam-vaf-counter (on
+    an unindexed BAM: the native scan where it builds), and kc-c4 under
+    KMER_TPU_PACKED=1, run with neither jax nor any kmer_tpu module
+    loaded."""
+    d = str(tmp_path)
+    pat = os.path.join(d, "p.pat")
+    with open(pat, "w") as f:
+        f.write("chr1\t100\t101\trs1\tA\tC\tACGTACGTACGTACGTACGTA\t"
+                "ACGTACGTACCTACGTACGTA\n")
+    bam = os.path.join(d, "noidx.bam")
+    with open(os.path.join(FIXTURES, "sampleA_aln.bam"), "rb") as f, \
+            open(bam, "wb") as g:
+        g.write(f.read())
+    r = _python(
+        "import gzip, io\n"
+        "from kmer_tpu_torch.tools import get_tool\n"
+        "from kmer_tpu_torch.pipeline import counter\n"
+        f"assert counter._use_packed_ingest([{READS!r}]) == "
+        "counter.native_reader()\n"
+        f"assert get_tool('kc-c4')(['-k31', {READS!r}]) == 0\n"
+        f"raw = gzip.open({GENOME!r}).read()\n"
+        "sys.stdin = io.TextIOWrapper(io.BytesIO(raw))\n"
+        "assert get_tool('kc-py1')([]) == 0\n"
+        f"open({d!r} + '/g.fa', 'wb').write(raw)\n"
+        "for t in ('kc-cpp1', 'kc-cpp2'):\n"
+        f"    assert get_tool(t)(['-k21', {d!r} + '/g.fa']) == 0\n"
+        f"pat = {pat!r}\n"
+        f"assert get_tool('vcf-vaf-counter')(['-p', pat, '-v', "
+        f"{os.path.join(FIXTURES, 'sampleA.bcf')!r}, '-o', "
+        f"{d!r} + '/v.vaf']) == 0\n"
+        f"assert get_tool('bam-vaf-counter')(['-p', pat, '-o', "
+        f"{d!r} + '/b.vaf', {bam!r}]) == 0\n",
+        {"KMER_TPU_PLATFORM": "cpu", "KMER_TPU_PACKED": "1"})
+    assert r.returncode == 0, r.stderr
+    assert len(r.stdout.splitlines()) == 4 * 255
+    for name in ("v.vaf", "b.vaf"):
+        with open(os.path.join(d, name)) as f:
+            assert f.readline().startswith("# Average depth:")
+
+
 def test_reused_host_modules_never_import_jax():
     """Every module of the port imports, and kc-c4 and yak-count run
     through the pure-Python reader copy (KMER_TPU_NO_NATIVE), with

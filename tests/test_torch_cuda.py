@@ -645,3 +645,38 @@ def test_ed_vaf_on_card_matches_cpu(tmp_path, dev, monkeypatch):
         with open(vaf, "rb") as f:
             files.append(f.read())
     assert files[0] == files[1]
+
+
+@pytest.mark.parametrize("n", [1 << 16, 1 << 20, 10_312_504])
+def test_unpack_on_card_matches_cpu(dev, n):
+    """The packed ingest's unpack (plain torch on uint8) on the card, with
+    a mask and structural, equals the CPU's."""
+    from kmer_tpu_torch.pipeline import counter
+
+    rng = np.random.default_rng(n)
+    packed = torch.from_numpy(rng.integers(0, 256, n // 4, dtype=np.uint8))
+    mask = torch.from_numpy(rng.integers(0, 256, n // 8, dtype=np.uint8))
+    got = counter._unpack_ascii(packed.to(dev), mask.to(dev))
+    assert torch.equal(got.cpu(), counter._unpack_ascii(packed, mask))
+    for rb in (151, 32):
+        n_used = n - n // 3
+        got = counter._structural_ascii(packed.to(dev), n_used, rb)
+        assert torch.equal(got.cpu(),
+                           counter._structural_ascii(packed, n_used, rb))
+
+
+@pytest.mark.parametrize("k", [15, 31])
+def test_packed_engine_on_card_matches_cpu(dev, k, monkeypatch):
+    """kc-c4's engine under KMER_TPU_PACKED=1 on the card equals the CPU's
+    and the card's ASCII path."""
+    from kmer_tpu_torch.pipeline.counter import SortCountEngine
+
+    path = os.path.join(FIXTURES, "reads_small.fq.gz")
+    out = []
+    for device, packed in ((dev, "1"), ("cpu", "1"), (dev, "0")):
+        monkeypatch.setenv("KMER_TPU_PACKED", packed)
+        e = SortCountEngine(k, block_bases=1 << 16, device=device)
+        e.count_paths([path])
+        out.append((e.hist(256, 1023).tolist(), e._n_distinct,
+                    e.total_kmers))
+    assert out[0] == out[1] == out[2]
