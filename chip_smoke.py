@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """chip_smoke.py — run the port's kc-c4, yak-count (one file and two),
 SNP-fingerprint and ed-vaf-counter paths on one GPU, with ASCII and
-packed 2-bit ingest, and its host-only tools.
+packed 2-bit ingest, its host-only tools, and the mesh on logical shards
+of the card.
 
 Usage: python3 chip_smoke.py [--seed N]
 
@@ -95,12 +96,29 @@ Phases, each printing its own lines:
               run, and equal the Python reader's VAF) and with its .bai,
               and the native rANS 4x8 decoder against the Python one on
               an encoded stream; no kernel may launch
+ 14. mesh     the single-process mesh on 4 logical shards of the card
+              (through dist.sharded.default_devices, KMER_TPU_FORCE_MESH=1):
+              kc-c4 -k31 on the 256 Mbase file (stdout == phase 4's ==
+              the mesh with the plain kernel versions; extract, the int64
+              merge path and seghist launch; wall and Mbases/s beside
+              phase 4's, peak memory, and the routing + exchange of one
+              step timed beside its byte bound), kc-c4 -k15 on 32 Mbases
+              under the 64 MiB budget split over the shards (== phase 8
+              == plain; the int32 merge path launches, a shard's budget
+              trips), two-file yak-count -k31 -b30 A B (stdout == phase
+              10's; stdout and `[M` lines == plain; the (key, index)
+              merge path launches; wall, peak memory), vaf-counter -k21 on
+              sample A (VAF file == phase 9's), a 1-shard mesh through the
+              CLI gate on the default device list (kc-c4 -k31 on the reads
+              fixture == phase 12's bytes), and a checkpoint saved on the
+              card mesh after sampleA1 and resumed on a 4-shard CPU mesh
+              for sampleB (hist == an uninterrupted run)
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; the kernels line takes the counts of extract, seghist and the
 int64 merge path from phase 4, the int32 merge path's from phase 8 and
-the (key, index) merge path's from phase 6 (phases 7 and 10 print their
-own).  No path may launch a
+the (key, index) merge path's from phase 6 (phases 7, 10 and 14 print
+their own).  No path may launch a
 bitonic kernel, and after every phase neither jax nor any module of the
 JAX package (kmer_tpu) may be loaded.
 
@@ -1156,10 +1174,11 @@ def fixture_packed(name, k, ascii_out):
 def phase_fixture():
     from kmer_tpu_torch.pipeline.counter import SortCountEngine
 
+    kc_out = {}
     for name in ("reads_small.fq.gz", "genome_small.fa.gz"):
         path = os.path.join(HERE, "tests", "fixtures", name)
         for k in (15, 21, 31):
-            gpu = run_kc_c4([f"-k{k}", path])
+            gpu = kc_out[name, k] = run_kc_c4([f"-k{k}", path])
             cpu = SortCountEngine(k, qual_policy=("resume", k, 3),
                                   device="cpu")
             cpu.count_paths([path])
@@ -1213,6 +1232,7 @@ def phase_fixture():
         need(vafs[0] == vafs[1], f"fixture ed-vaf-counter -e{e}: GPU != CPU")
         say("fixture", f"sampleA1 ed-vaf-counter -e{e} on the fixture "
             f"patterns: GPU == CPU ({vafs[0].splitlines()[0].decode()})")
+    return {"kc": kc_out}
 
 
 def check_yak_text(result):
@@ -1487,7 +1507,7 @@ def phase_onepl(seed):
         f"({check_hist_text(out[False][0])} distinct), {out[False][1]:.3f} "
         f"s vs plain {out[True][1]:.3f} s")
     say("onepl", f"launches in this run: {json.dumps(launches)}")
-    return launches
+    return {"launches": launches, "out": out[False][0]}
 
 
 # -- the SNP-fingerprint pipeline -----------------------------------------
@@ -1891,7 +1911,7 @@ def phase_yak2(seed):
          "versions on the card (stdout or [M lines)")
     say("yak2", f"plain versions on the card (both compactors, extract): "
         f"same stdout and [M lines, {pwall:.3f} s")
-    return launches
+    return {"launches": launches, "got": got, "wall": wall}
 
 
 EDVAF_SITES = 1000  # a small panel, as ed-vaf-counter's usage intends
@@ -2193,6 +2213,321 @@ KERNELS = [
 ]
 
 
+# -- the mesh: logical shards of the one card ------------------------------
+
+MESH_SHARDS = 4
+
+
+def mesh_card():
+    """The mesh's devices: MESH_SHARDS logical shards of card 0."""
+    import torch
+
+    return [torch.device("cuda", 0)] * MESH_SHARDS
+
+
+@contextlib.contextmanager
+def on_mesh(devices=None):
+    """Run the tools on the mesh (KMER_TPU_FORCE_MESH=1); with devices,
+    the mesh's default device list (dist.sharded.default_devices) is
+    those."""
+    from kmer_tpu_torch.dist import sharded
+
+    real = sharded.default_devices
+    if devices is not None:
+        sharded.default_devices = lambda: list(devices)
+    try:
+        with setenv("KMER_TPU_FORCE_MESH", "1"):
+            yield
+    finally:
+        sharded.default_devices = real
+
+
+@contextlib.contextmanager
+def recording_mesh_engines(tool_module, yak=False, plain_kernels=False):
+    """Keep the mesh engines that a tool module's make_count_engine (with
+    yak, yak-count's two-file make_yak_engine) builds; with plain_kernels,
+    build them with the kernels' plain versions."""
+    from kmer_tpu_torch.pipeline.counter import MeshSortCountEngine
+    from kmer_tpu_torch.pipeline.yak import MeshSortYakEngine
+
+    name, cls = (("make_yak_engine", MeshSortYakEngine) if yak
+                 else ("make_count_engine", MeshSortCountEngine))
+    made, real = [], getattr(tool_module, name)
+
+    def record(*a, **kw):
+        made.append(cls(*a, plain_kernels=True, **kw) if plain_kernels
+                    else real(*a, **kw))
+        return made[-1]
+
+    setattr(tool_module, name, record)
+    try:
+        yield made
+    finally:
+        setattr(tool_module, name, real)
+
+
+def on_card_shards(eng, phase):
+    """Every shard of a mesh engine is on the card and holds kernels."""
+    comps = eng.shards if hasattr(eng, "shards") else eng.eng.shards
+    need(len(comps) == MESH_SHARDS and all(
+        c.device.type == "cuda" for c in comps),
+        f"[{phase}] the mesh is not {MESH_SHARDS} shards of the card: "
+        f"{[str(c.device) for c in comps]}")
+
+
+def mesh_route_ms(path, eng):
+    """Routing + exchange of the first mesh step of path on the card:
+    (device ms a step over a run of 5, lanes in, lanes out, byte bound
+    ms).  The rows are extracted first, outside the timed region; the
+    bound reads each key once (8 B) and writes each owned key once."""
+    import torch
+
+    from kmer_tpu_torch.dist import sharded
+    from kmer_tpu_torch.kernels import extract
+    from kmer_tpu_torch.pipeline import counter
+
+    pin = eng.device.type == "cuda"
+    steps = counter.mesh_steps([path], eng.k, eng.row_bases, eng.capacity,
+                               ("resume", eng.k, 3), eng.n_dev, False, pin,
+                               False, counter.IngestStats())
+    rows, rb, *_ = next(steps)
+    steps.close()
+    keys = [counter.extract_row(r.to(dev), eng.k, rb, None, "ascii",
+                                extract.extract_keys,
+                                extract.extract_keys_rows)[0]
+            for r, dev in zip(rows, eng.mesh.devices)]
+
+    def route_exchange():
+        # the engines' own routing (ShardedSortEngine.route_batch)
+        return sharded.all_to_all(sharded.route_rows(keys, eng.n_dev),
+                                  eng.mesh)
+
+    owned = route_exchange()
+    n_in = sum(int(k.shape[0]) for k in keys)
+    n_out = sum(int(o.shape[0]) for o in owned)
+    ms = time_run_ms(route_exchange)
+    return ms, n_in, n_out, (n_in + n_out) * 8 / HBM_BYTES_PER_S * 1e3
+
+
+def phase_mesh(seed, out):
+    """The single-process mesh on MESH_SHARDS logical shards of the card:
+    kc-c4 -k31 (256 Mbases), kc-c4 -k15 (32 Mbases, the 64 MiB budget
+    split over the shards), two-file yak-count -k31 -b30 and vaf-counter
+    A, each against the single-engine phase and the mesh with the plain
+    kernel versions; a 1-shard mesh through the CLI gate; a checkpoint
+    saved on the card mesh and resumed on a CPU mesh."""
+    import numpy as np
+    import torch
+
+    from kmer_tpu_torch.kernels import _build
+    from kmer_tpu_torch.pipeline.counter import (MeshSortCountEngine,
+                                                 SortCountEngine)
+    from kmer_tpu_torch.tools import kc, vaf_counter, yak_count
+
+    card = mesh_card()
+    path = reads_file(MBASES, seed)
+    bases = MBASES * 1_000_000 // READ_LEN * READ_LEN
+
+    # kc-c4 -k31 on 256 Mbases, through the tool
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    with on_mesh(card), recording_mesh_engines(kc) as made:
+        t0 = time.perf_counter()
+        got = run_kc_c4([f"-k{K}", path])
+        wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    eng = made[0]
+    need(isinstance(eng, MeshSortCountEngine), "kc-c4 did not count on "
+         "the mesh")
+    on_card_shards(eng, "mesh")
+    need(eng.total_bases == bases, f"the mesh counted {eng.total_bases} "
+         f"bases, the file has {bases}")
+    need(got == out["e2e"]["out"], "kc-c4 on the mesh != phase 4's stdout")
+    need(all(launches[n] > 0 for n in KC_PATH_KERNELS),
+         f"a kernel of the kc-c4 path never launched on the mesh: "
+         f"{launches}")
+    need(not any(launches[n] for n in BITONIC_KERNELS),
+         f"the mesh ran a bitonic merge: {launches}")
+    e2e_wall = out["e2e"]["wall"]
+    say("mesh", f"kc-c4 -k{K} {MBASES} Mbases on {MESH_SHARDS} shards of "
+        f"the card: {wall:.3f} s = {bases / 1e6 / wall:.2f} Mbases/s "
+        f"(phase 4, one engine: {e2e_wall:.3f} s = "
+        f"{bases / 1e6 / e2e_wall:.2f} Mbases/s), same stdout, "
+        f"{eng.total_kmers} k-mers, peak device memory {peak:.2f} GiB")
+    say("mesh", f"IngestStats: {eng.stats.report()}; finalize (hist) "
+        f"{wall - eng.stats.loop_s:.3f} s; steps of {eng.n_dev} rows of "
+        f"{eng.row_bases} bases")
+    say("mesh", f"launches in this run (kc-c4 -k{K}): "
+        f"{json.dumps(launches)}")
+    # one engine reading the mesh's row-sized blocks: the share of the
+    # wall that the block size, not the mesh, accounts for
+    one = SortCountEngine(K, block_bases=eng.row_bases,
+                          qual_policy=("resume", K, 3))
+    t0 = time.perf_counter()
+    one.count_paths([path])
+    same = hist_text(one) == got
+    owall = time.perf_counter() - t0
+    need(same, "one engine at the mesh's block size != the mesh")
+    say("mesh", f"one engine with {eng.row_bases}-base blocks: same "
+        f"stdout, {owall:.3f} s = {bases / 1e6 / owall:.2f} Mbases/s "
+        f"({one.stats.report()})")
+    del one
+    ms, n_in, n_out, bound = mesh_route_ms(path, eng)
+    say("mesh", f"routing + exchange of one step ({n_in} lanes in, {n_out} "
+        f"owned keys out): {ms:.4f} ms of device time (CUDA events, a run "
+        f"of 5); bound {(n_in + n_out) * 8 / 1e6:.1f} MB = {bound:.4f} ms "
+        f"({100 * bound / ms:.1f}%)")
+    del made, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    with on_mesh(card), recording_mesh_engines(kc, plain_kernels=True) \
+            as made:
+        t0 = time.perf_counter()
+        want = run_kc_c4([f"-k{K}", path])
+        pwall = time.perf_counter() - t0
+    need(made[0].plain_kernels and want == got,
+         "kc-c4 on the mesh: kernels != the plain versions")
+    say("mesh", f"plain versions on the mesh: same stdout, {pwall:.3f} s")
+    del made
+    gc.collect()
+
+    # kc-c4 -k15 under the 64 MiB budget, a quarter of it a shard
+    path15 = reads_file(32, seed + 1)
+    texts = {}
+    for plain_kernels in (False, True):
+        _build.reset_launches()
+        with on_mesh(card):
+            e15 = MeshSortCountEngine(
+                15, budget_bytes=(64 << 20) // MESH_SHARDS,
+                qual_policy=("resume", 15, 3), plain_kernels=plain_kernels)
+            on_card_shards(e15, "mesh")
+            e15.count_paths([path15])
+        trips = sum(bool(c.runs and c.runs[0][1] is not None)
+                    for c in e15.eng.shards)
+        texts[plain_kernels] = hist_text(e15)
+        if not plain_kernels:
+            l15 = dict(_build.LAUNCHES)
+            need(trips > 0, "kc-c4 -k15 on the mesh: no shard's budget "
+                 "tripped")
+            need(all(l15[n] > 0 for n in ONE_PLANE_KERNELS)
+                 and l15["seghist"] > 0,
+                 f"kc-c4 -k15 on the mesh: the int32 merge path or seghist "
+                 f"never launched: {l15}")
+    need(texts[False] == out["onepl"]["out"] == texts[True],
+         "kc-c4 -k15 on the mesh != phase 8, or != the plain versions")
+    say("mesh", f"kc-c4 -k15 32 Mbases, {64 // MESH_SHARDS} MiB a shard: "
+        f"== phase 8 == plain, budget tripped in {trips} of {MESH_SHARDS} "
+        f"shards; launches {json.dumps(l15)}")
+    del e15
+    gc.collect()
+
+    # two-file yak-count -k31 -b30, A then B (phase 10's files)
+    path_b = snp_inputs(seed)[2]["B"]
+    args = [*YAK2_ARGS, path, path_b]
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    with on_mesh(card), recording_mesh_engines(yak_count, yak=True) as made:
+        t0 = time.perf_counter()
+        ygot = run_tool("yak-count", args)
+        ywall = time.perf_counter() - t0
+    ylaunch = dict(_build.LAUNCHES)
+    ypeak = torch.cuda.max_memory_allocated() / 2**30
+    on_card_shards(made[0]._route, "mesh")
+    need(made[0].use_bloom and made[0].spec.owner_bits == 2,
+         "two-file yak-count on the mesh did not run the owner-partitioned "
+         "bloom")
+    need(ygot[0] == out["yak2"]["got"][0],
+         "two-file yak-count on the mesh: stdout != phase 10's")
+    need(all(ylaunch[n] > 0 for n in YAK_TAP_KERNELS + KC_PATH_KERNELS[:1]),
+         f"two-file yak-count on the mesh: extract or the (key, index) "
+         f"merge path never launched: {ylaunch}")
+    n_lines = sum(ln.startswith("[M] ") for ln in ygot[1])
+    mb_b = dict((n, mb) for n, _, mb, _ in SNP_SAMPLES)["B"]
+    ybases = bases + mb_b * 1_000_000 // READ_LEN * READ_LEN
+    say("mesh", f"yak-count {' '.join(YAK2_ARGS)} A B on the mesh: "
+        f"{ywall:.3f} s = {ybases / 1e6 / ywall:.2f} Mbases/s (phase 10: "
+        f"{out['yak2']['wall']:.3f} s), stdout == phase 10's, {n_lines} "
+        f"[M] lines (the mesh's own steps), peak device memory "
+        f"{ypeak:.2f} GiB")
+    say("mesh", f"launches in this run (two-file yak-count): "
+        f"{json.dumps(ylaunch)}")
+    del made
+    gc.collect()
+    torch.cuda.empty_cache()
+    with on_mesh(card), recording_mesh_engines(
+            yak_count, yak=True, plain_kernels=True) as made:
+        ywant = run_tool("yak-count", args)
+    need(made[0].plain_kernels and ywant == ygot,
+         "two-file yak-count on the mesh: kernels != the plain versions "
+         "(stdout or [M lines)")
+    say("mesh", "two-file yak-count, plain versions on the mesh: same "
+        "stdout and [M lines")
+    del made
+    gc.collect()
+
+    # vaf-counter -k21 on sample A against phase 9's panel
+    fqs = snp_inputs(seed)[2]
+    pat = os.path.join(DATA_DIR, "snp_card", "snps.pat")
+    vaf_dir = os.path.join(DATA_DIR, "snp_mesh")
+    os.makedirs(vaf_dir, exist_ok=True)
+    vaf = os.path.join(vaf_dir, "A.vaf")
+    with on_mesh(card), recording_mesh_engines(vaf_counter) as made:
+        t0 = time.perf_counter()
+        run_tool_err("vaf-counter", [f"-k{SNP_K}", "-p", pat, "-o", vaf,
+                                     fqs["A"]])
+        vwall = time.perf_counter() - t0
+    on_card_shards(made[0], "mesh")
+    need(read_file(vaf) == read_file(os.path.join(DATA_DIR, "snp_card",
+                                                  "A.vaf")),
+         "vaf-counter A on the mesh != phase 9's VAF file")
+    say("mesh", f"vaf-counter -k{SNP_K} A on the mesh: VAF file == phase "
+        f"9's, {vwall:.3f} s")
+    del made
+    gc.collect()
+
+    # a 1-shard mesh through the CLI gate, on the default device list
+    reads = os.path.join(HERE, "tests", "fixtures", "reads_small.fq.gz")
+    with on_mesh(), recording_mesh_engines(kc) as made:
+        one = run_kc_c4([f"-k{K}", reads])
+    need(isinstance(made[0], MeshSortCountEngine) and made[0].n_dev == 1
+         and made[0].device.type == "cuda",
+         "KMER_TPU_FORCE_MESH=1 did not give a 1-shard mesh on the card")
+    need(one == out["fixture"]["kc"]["reads_small.fq.gz", K],
+         "the 1-shard mesh != phase 12's bytes")
+    say("mesh", f"KMER_TPU_FORCE_MESH=1 on the default devices: a 1-shard "
+        f"mesh on {made[0].device}, kc-c4 -k{K} == phase 12's bytes")
+
+    # checkpoint: saved on the card mesh, resumed on a CPU mesh
+    fix = os.path.join(HERE, "tests", "fixtures")
+    a1, b = (os.path.join(fix, f"{n}.fq.gz") for n in ("sampleA1",
+                                                        "sampleB"))
+    ck = os.path.join(DATA_DIR, "mesh.ckpt.npz")
+    e1 = MeshSortCountEngine(21, block_bases=1 << 17, devices=card)
+    e1.count_paths([a1])
+    e1.save_checkpoint(ck)
+    e2 = MeshSortCountEngine(21, block_bases=1 << 17,
+                             devices=["cpu"] * MESH_SHARDS)
+    e2.resume_checkpoint_into(ck)
+    e2.count_paths([b])
+    full = MeshSortCountEngine(21, block_bases=1 << 17, devices=card)
+    full.count_paths([a1, b])
+    need(np.array_equal(e2.hist(256), full.hist(256))
+         and e2._n_distinct == full._n_distinct
+         and (e2.total_bases, e2.total_seqs, e2.total_kmers)
+         == (full.total_bases, full.total_seqs, full.total_kmers),
+         "a checkpoint saved on the card mesh and resumed on a CPU mesh "
+         "!= an uninterrupted run")
+    say("mesh", f"checkpoint: saved on the card mesh after sampleA1, "
+        f"resumed on a {MESH_SHARDS}-shard CPU mesh for sampleB: hist == "
+        f"an uninterrupted card run ({full._n_distinct} distinct)")
+    return {"launches": launches, "yak2_launches": ylaunch}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2223,7 +2558,8 @@ def main(argv=None):
               ("yak2", lambda: phase_yak2(args.seed)),
               ("edvaf", lambda: phase_edvaf(args.seed)),
               ("fixture", phase_fixture),
-              ("hosttools", phase_hosttools))
+              ("hosttools", phase_hosttools),
+              ("mesh", lambda: phase_mesh(args.seed, out)))
     out = {}
     try:
         for phase, fn in phases:
@@ -2237,7 +2573,7 @@ def main(argv=None):
     launches = dict(out["e2e"]["launches"])
     # each kernel's count from the path that it serves (module docstring)
     for name in ONE_PLANE_KERNELS:
-        launches[name] = out["onepl"][name]
+        launches[name] = out["onepl"]["launches"][name]
     for name in YAK_TAP_KERNELS:
         launches[name] = out["yak"]["launches"][name]
     print(card)

@@ -68,6 +68,7 @@ constexpr int kTile = kThreads * kPerThread;
 constexpr int kPadded = kTile + kTile / 16;
 constexpr int kSharedBins = 1024;
 constexpr int kStitchThreads = 1024;
+constexpr int kMaxDevices = 64;  // grid sizes cached a device
 constexpr uint32_t kHasStart = 1;  // tile flags
 constexpr uint32_t kCloses = 2;    // the tile ends a real crossing segment
 
@@ -358,15 +359,18 @@ cudaError_t run_seghist(const int64_t* keys, const int32_t* weights,
                         unsigned long long* n_counted, uint32_t* scratch,
                         cudaStream_t stream) {
   const int64_t n_tiles = (n + kTile - 1) / kTile;
-  // a persistent grid: as many blocks as the SMs hold at once
-  static int grid_cap = 0;
+  // a persistent grid: as many blocks as the current device's SMs hold
+  // at once, cached a device
+  static int grid_caps[kMaxDevices] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int sms = 0, per_sm = 0, grid_cap = dev < kMaxDevices ? grid_caps[dev] : 0;
   if (grid_cap == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, seg_hist_tiles<kShared, kWeighted>, kThreads, 0);
     grid_cap = sms * (per_sm > 0 ? per_sm : 1);
+    if (dev < kMaxDevices) grid_caps[dev] = grid_cap;
   }
   const int64_t grid = n_tiles < grid_cap ? n_tiles : grid_cap;
   seg_hist_tiles<kShared, kWeighted>

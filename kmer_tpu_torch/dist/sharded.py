@@ -1,0 +1,313 @@
+"""Sharded k-mer counting over a mesh of devices in one process (port of
+kmer_tpu/dist/sharded.py: `make_mesh`, the sort-based routing,
+`ShardedSortEngine` and the mesh form of `counts_for`).
+
+Every valid k-mer has exactly one owner, the shard whose index is the
+key's low bits, `key & (n_shards - 1)` (the hash-prefix routing of the
+reference's kc-c4, kmer_tpu/dist/sharded.py:304).  Each shard counts its
+own keys in a `KmerCompactor` (table/compactor.py: stream ladder, budget
+trips, the merge-path and segment-histogram kernels, one-plane keys at
+k <= 15), so histograms, distinct totals and `counts_for` answers are
+sums over the shards, as the JAX package's `psum`s are.
+
+  route        one stable sort of a row's keys by owner, split by the
+               owners' counts: ragged buckets, each in stream order.
+  all_to_all   owner j receives the concatenation of every source row's
+               bucket j, in source order; so each owner sees the global
+               stream order restricted to its keys, which the mesh
+               yak-count's admission depends on (pipeline/yak_admit.py
+               `ShardedDeferredYak`).
+
+The JAX package gives every destination a fixed window of lanes a step,
+pads it with sentinels and replays a batch with doubled windows when one
+overflows: static shapes for XLA.  The buckets here are ragged, so there
+are no windows, no padding and no replay, and one owner may take every
+lane (k = 32, where every key is hash64(0)).
+
+A `Mesh` is an ordered list of torch devices with the JAX package's
+("data", "shard") factorization; shard index = data * S + shard.  One
+device may appear more than once: the tests run eight CPU entries, as
+the JAX suite runs eight virtual CPU devices, and a single card can hold
+several logical shards.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .. import default_device
+from ..kernels import extract
+from ..kernels.keys import SENT, from_hi_lo, to_hi_lo
+from ..table.compactor import KmerCompactor, stream_sorted_default
+
+
+# stream-sorted mode: each shard's run quantum and smallest padded run
+# (sharded.py:410-413: a device owns 1/n_dev of the lanes, so its runs
+# are smaller than the single-device compactor's 2^24 / 2^16)
+_MESH_STREAM_CHUNK = 1 << 22
+_MESH_STREAM_MIN = 1 << 12
+
+
+class Mesh:
+    """Devices in shard order, factored as (data, shard) (JAX's
+    `Mesh(devices.reshape(data, shard), ("data", "shard"))`)."""
+
+    def __init__(self, devices: Sequence, data: int, shard: int):
+        self.devices = [torch.device(d) for d in devices]
+        assert data * shard == len(self.devices)
+        self.shape = {"data": data, "shard": shard}
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+
+def default_devices() -> List[torch.device]:
+    """The mesh's devices when none are given: every visible CUDA
+    device, or the one CPU device under KMER_TPU_PLATFORM=cpu (the
+    device rule of kmer_tpu_torch.default_device)."""
+    dev = default_device()
+    if dev.type != "cuda":
+        return [dev]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def make_mesh(devices=None, data: Optional[int] = None,
+              shard: Optional[int] = None) -> Mesh:
+    """A ("data", "shard") mesh (sharded.py:56-69); without sizes, the
+    most square factorization of the device count."""
+    devices = default_devices() if devices is None else list(devices)
+    n = len(devices)
+    if data is None or shard is None:
+        for s in range(math.isqrt(n), 0, -1):
+            if n % s == 0:
+                data, shard = s, n // s
+                break
+    return Mesh(devices, data, shard)
+
+
+def _owner_sort(keys: torch.Tensor, n_dest: int):
+    """(keys stably sorted by owner with the invalid lanes last, lanes
+    per owner as a tensor of n_dest counts)."""
+    # a 16-bit sort key: a radix sort then makes 2 passes, not 8
+    assert n_dest < 1 << 15
+    dest = torch.where(keys != SENT, keys & (n_dest - 1),
+                       n_dest).to(torch.int16)
+    s_dest, order = torch.sort(dest, stable=True)
+    # each owner's bounds by binary search on the sorted owners, as
+    # sharded.py:207-210 finds them
+    bounds = torch.searchsorted(s_dest, torch.arange(
+        n_dest + 1, dtype=torch.int16, device=keys.device))
+    return keys[order], torch.diff(bounds)
+
+
+def _split(sorted_keys: torch.Tensor, counts: List[int]) -> List[torch.Tensor]:
+    return list(torch.split(sorted_keys[:sum(counts)], counts))
+
+
+def route_rows(rows: Sequence[torch.Tensor], n_dest: int
+               ) -> List[List[torch.Tensor]]:
+    """`route` of each row; every row's owner sort is queued before the
+    first read of the owners' counts."""
+    routed = [_owner_sort(keys, n_dest) for keys in rows]
+    return [_split(s, c.tolist()) for s, c in routed]
+
+
+def route(keys: torch.Tensor, n_dest: int) -> List[torch.Tensor]:
+    """The owner buckets of one row's sentinelized keys (the counterpart
+    of `_bucketize_by_sort`, sharded.py:173-226): bucket j holds the
+    valid keys with key & (n_dest - 1) == j, in stream order (the sort is
+    stable on the owner alone; do not add the key to it).  On the biased
+    int64 layout the low bits are the JAX package's lo-plane bits."""
+    return route_rows([keys], n_dest)[0]
+
+
+def all_to_all(send: Sequence[Sequence[torch.Tensor]], mesh: Mesh
+               ) -> List[torch.Tensor]:
+    """Owner j receives cat(send[i][j] for each source i in order), on
+    mesh.devices[j]: the tiled, source-ordered all_to_all of
+    sharded.py:309-314 with ragged buckets."""
+    return [torch.cat([row[j].to(dev, non_blocking=True) for row in send])
+            for j, dev in enumerate(mesh.devices)]
+
+
+class ShardedSortEngine:
+    """The sort-based counter on a mesh (sharded.py:462-849): each batch
+    holds up to one row per shard; row i is extracted on shard i's
+    device, routed, exchanged, and every shard's owned keys go into its
+    own compactor.
+
+    budget_bytes applies per shard, as the JAX package's per-device run
+    bytes do (sharded.py:608-610); when a trip fires changes no count.
+    `plain_kernels=True` makes every shard (and the extraction) call the
+    kernels' plain PyTorch versions, as SortCountEngine's switch does."""
+
+    def __init__(self, mesh: Mesh, k: int, budget_bytes: int = 2 << 30,
+                 stream_sorted: Optional[bool] = None,
+                 plain_kernels: bool = False):
+        self.mesh = mesh
+        self.k = k
+        self.n_dev = mesh.size
+        # low-bit routing and the per-shard bloom partition
+        # (BloomSpec.owner_bits) both need a power-of-two shard count
+        if self.n_dev & (self.n_dev - 1):
+            raise ValueError(f"mesh must have a power-of-two device count, "
+                             f"got {self.n_dev}")
+        self.budget_bytes = budget_bytes
+        self.stream_sorted = (stream_sorted_default(mesh.devices[0])
+                              if stream_sorted is None
+                              else bool(stream_sorted))
+        self.plain_kernels = plain_kernels
+        self._extract = (extract.extract_keys_plain if plain_kernels
+                         else extract.extract_keys)
+        self._extract_rows = (extract.extract_keys_rows_plain
+                              if plain_kernels else extract.extract_keys_rows)
+        self.reset()
+
+    def reset(self) -> None:
+        """Drop all counts (new, empty shard compactors)."""
+        self.shards = [
+            KmerCompactor(dev, budget_bytes=self.budget_bytes,
+                          key_bits=2 * self.k,
+                          stream_sorted=self.stream_sorted,
+                          plain_kernels=self.plain_kernels,
+                          stream_chunk=_MESH_STREAM_CHUNK,
+                          stream_min=_MESH_STREAM_MIN)
+            for dev in self.mesh.devices]
+        self.total_kmers = 0
+
+    @property
+    def total_kmers(self) -> int:
+        """Valid k-mer windows of every row so far (the per-row counts
+        stay on their devices until asked for)."""
+        if self._nk_dev:
+            self._nk_host += sum(int(n) for n in self._nk_dev)
+            self._nk_dev.clear()
+        return self._nk_host
+
+    @total_kmers.setter
+    def total_kmers(self, v: int) -> None:
+        self._nk_dev = []
+        self._nk_host = int(v)
+
+    def route_batch(self, rows, row_bytes: Optional[int] = None, aux=None,
+                    ingest: str = "ascii") -> List[torch.Tensor]:
+        """Extract and route one batch without counting it: each shard's
+        owned keys, on its device.  `rows[i]` (ASCII bytes, or 2-bit codes
+        under ingest "packed" / "packed_structural" with `aux[i]` the
+        mask / used-byte count, as pipeline.counter.extract_row takes
+        them) goes to shard i; a batch may hold fewer rows than shards.
+        `row_bytes` slices uniform reads when it exceeds k
+        (sharded.py:292-298)."""
+        from ..pipeline.counter import extract_row
+
+        rb = row_bytes if row_bytes and row_bytes > self.k else None
+        if ingest == "packed_structural" and rb is None:
+            raise ValueError("structural packed ingest needs row_bytes")
+        assert len(rows) <= self.n_dev, "more rows than shards"
+        keys = []
+        for i, row in enumerate(rows):
+            dev = self.mesh.devices[i]
+            a = aux[i] if aux is not None else None
+            if isinstance(a, torch.Tensor):
+                a = a.to(dev, non_blocking=True)
+            row_keys, n_valid = extract_row(
+                row.to(dev, non_blocking=True), self.k, rb, a, ingest,
+                self._extract, self._extract_rows)
+            self._nk_dev.append(n_valid)
+            keys.append(row_keys)
+        return all_to_all(route_rows(keys, self.n_dev), self.mesh)
+
+    def add_chunk_planes(self, owned: Sequence[torch.Tensor]) -> None:
+        """Count already-routed owned keys (route_batch's output): the
+        mesh yak engine's pass 1 routes once and counts too."""
+        for comp, keys in zip(self.shards, owned):
+            if keys.shape[0]:
+                comp.add_raw(keys)
+
+    def add_batch(self, rows, row_bytes: Optional[int] = None, aux=None,
+                  ingest: str = "ascii") -> None:
+        self.add_chunk_planes(self.route_batch(rows, row_bytes, aux, ingest))
+
+    def compact(self) -> None:
+        for comp in self.shards:
+            comp.compact()
+
+    def hist(self, n_bins: int, max_count=None, min_keep: int = 1):
+        """The histogram summed over the shards (keys are uniquely owned,
+        sharded.py:356-357); _n_distinct is their distinct total, 0 with
+        no input."""
+        h, nd = np.zeros(n_bins, np.int64), 0
+        for comp in self.shards:
+            hs, nds = comp.hist(n_bins, max_count, min_keep)
+            h += hs
+            nd += nds
+        self._n_distinct = nd
+        return h
+
+    def counts_for(self, query_hi, query_lo) -> np.ndarray:
+        """Total multiplicity of each query key, in query order: the sum
+        of the shards' answers, of which only the owner's can be nonzero
+        (sharded_counts_for_fn, sharded.py:852-876)."""
+        out = np.zeros(len(query_hi), np.int64)
+        for comp in self.shards:
+            out += comp.counts_for(query_hi, query_lo)
+        return out
+
+    def save_checkpoint(self, path: str) -> None:
+        """Every shard compacted to (key, count) runs, written in the JAX
+        package's layout (sharded.py:743-764): uint32 hi / lo / cnt of
+        shape (data, shard, L), sentinel keys with count 0 past each
+        shard's run, L the largest run rounded up to JAX's size class
+        (:735; 1 when every shard is empty), meta = [k, total_kmers,
+        total_dropped = 0].  Written to a temporary file and renamed."""
+        self.compact()
+        runs = [comp.runs[0] if comp.runs else None for comp in self.shards]
+        n_max = max((int(r[0].shape[0]) for r in runs if r is not None),
+                    default=0)
+        size = (max(1 << 16, 1 << max(n_max - 1, 1).bit_length())
+                if n_max else 1)
+        d, s = self.mesh.shape["data"], self.mesh.shape["shard"]
+        hi = np.full((d, s, size), 0xFFFFFFFF, np.uint32)
+        lo = hi.copy()
+        cnt = np.zeros((d, s, size), np.uint32)
+        for j, run in enumerate(runs):
+            if run is None:
+                continue
+            keys, counts = run
+            n, (a, b) = int(keys.shape[0]), divmod(j, s)
+            hi[a, b, :n], lo[a, b, :n] = to_hi_lo(keys)
+            cnt[a, b, :n] = counts.cpu().numpy().view(np.uint32)
+        tmp = path + ".tmp.npz"
+        np.savez_compressed(
+            tmp, hi=hi, lo=lo, cnt=cnt,
+            meta=np.asarray([self.k, self.total_kmers, 0], np.int64))
+        os.replace(tmp, path)
+
+    def restore_checkpoint(self, path: str) -> None:
+        """Load a checkpoint that either package wrote on a mesh of the
+        same shape (keys stay with their owners); the sentinel padding is
+        dropped."""
+        z = np.load(path)
+        d, s = self.mesh.shape["data"], self.mesh.shape["shard"]
+        if int(z["meta"][0]) != self.k:
+            raise ValueError(f"checkpoint k {int(z['meta'][0])} != {self.k}")
+        if z["hi"].shape[:2] != (d, s):
+            raise ValueError(f"checkpoint mesh shape {z['hi'].shape[:2]} != "
+                             f"{(d, s)}")
+        self.reset()
+        for j, comp in enumerate(self.shards):
+            hi, lo, cnt = (z[name][divmod(j, s)] for name in ("hi", "lo",
+                                                            "cnt"))
+            real = ~((hi == 0xFFFFFFFF) & (lo == 0xFFFFFFFF))
+            if real.any():
+                comp.add_counted(
+                    from_hi_lo(hi[real], lo[real], comp.device),
+                    torch.from_numpy(np.ascontiguousarray(
+                        cnt[real]).view(np.int32)).to(comp.device))
+        self.total_kmers = int(z["meta"][1])

@@ -170,11 +170,20 @@ def check(rc: int, name: str) -> None:
                            f"CUDA error {rc} ({msg})")
 
 
-def stream_of(t) -> int:
-    """The raw cudaStream_t of PyTorch's current stream on t's device."""
+def launch(entry: str, count: str, t, *args) -> None:
+    """Call the library's `entry` with `args` and the raw cudaStream_t of
+    PyTorch's current stream on t's device, with t's device made the
+    current one for the call: CUDA refuses a launch into a stream of
+    another device, and the entry points' cudaFuncSetAttribute and
+    cudaGetDevice act on the current device.  Adds one to
+    LAUNCHES[count]; raises when the launch failed."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    with torch.cuda.device(t.device):
+        rc = getattr(library(), entry)(
+            *args, torch.cuda.current_stream(t.device).cuda_stream)
+    LAUNCHES[count] += 1
+    check(rc, count)
 
 
 def reset_launches() -> None:

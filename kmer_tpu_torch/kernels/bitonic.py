@@ -135,10 +135,8 @@ def tile_bits3() -> int:
 def xstage_(x: torch.Tensor, stride: int) -> torch.Tensor:
     """One stage at `stride` with the CUDA kernel, in place."""
     n = _check(x)
-    rc = _build.library().ktt_merge_xstage(x.data_ptr(), n, stride,
-                                           _build.stream_of(x))
-    _build.LAUNCHES["merge_xstage"] += 1
-    _build.check(rc, "merge_xstage")
+    _build.launch("ktt_merge_xstage", "merge_xstage", x, x.data_ptr(), n,
+                  stride)
     return x
 
 
@@ -146,46 +144,34 @@ def merge_tiles_(x: torch.Tensor, bits: int) -> torch.Tensor:
     """Every stage at strides < 2^bits, tile by tile, with the CUDA
     kernel, in place."""
     n = _check(x)
-    rc = _build.library().ktt_merge_tiles(x.data_ptr(), n, bits,
-                                          _build.stream_of(x))
-    _build.LAUNCHES["merge_tile"] += 1
-    _build.check(rc, "merge_tiles")
+    _build.launch("ktt_merge_tiles", "merge_tile", x, x.data_ptr(), n, bits)
     return x
 
 
 def xstage1_(x: torch.Tensor, stride: int) -> torch.Tensor:
     n = _check(x, torch.int32)
-    rc = _build.library().ktt_merge_xstage1(x.data_ptr(), n, stride,
-                                            _build.stream_of(x))
-    _build.LAUNCHES["merge_xstage1"] += 1
-    _build.check(rc, "merge_xstage1")
+    _build.launch("ktt_merge_xstage1", "merge_xstage1", x, x.data_ptr(), n,
+                  stride)
     return x
 
 
 def merge_tiles1_(x: torch.Tensor, bits: int) -> torch.Tensor:
     n = _check(x, torch.int32)
-    rc = _build.library().ktt_merge_tiles1(x.data_ptr(), n, bits,
-                                           _build.stream_of(x))
-    _build.LAUNCHES["merge_tile1"] += 1
-    _build.check(rc, "merge_tiles1")
+    _build.launch("ktt_merge_tiles1", "merge_tile1", x, x.data_ptr(), n, bits)
     return x
 
 
 def xstage3_(key: torch.Tensor, idx: torch.Tensor, stride: int):
     n = _check3(key, idx)
-    rc = _build.library().ktt_merge_xstage3(key.data_ptr(), idx.data_ptr(),
-                                            n, stride, _build.stream_of(key))
-    _build.LAUNCHES["merge_xstage3"] += 1
-    _build.check(rc, "merge_xstage3")
+    _build.launch("ktt_merge_xstage3", "merge_xstage3", key, key.data_ptr(),
+                  idx.data_ptr(), n, stride)
     return key, idx
 
 
 def merge_tiles3_(key: torch.Tensor, idx: torch.Tensor, bits: int):
     n = _check3(key, idx)
-    rc = _build.library().ktt_merge_tiles3(key.data_ptr(), idx.data_ptr(),
-                                           n, bits, _build.stream_of(key))
-    _build.LAUNCHES["merge_tile3"] += 1
-    _build.check(rc, "merge_tiles3")
+    _build.launch("ktt_merge_tiles3", "merge_tile3", key, key.data_ptr(),
+                  idx.data_ptr(), n, bits)
     return key, idx
 
 

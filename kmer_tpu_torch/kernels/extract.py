@@ -68,11 +68,8 @@ def extract_keys_rows_plain(ascii_u8: torch.Tensor, k: int, row_bytes: int):
 def _launch(entry: str, x: torch.Tensor, n_out: int, *args):
     keys = torch.empty(n_out, dtype=torch.int64, device=x.device)
     n_valid = torch.zeros((), dtype=torch.int64, device=x.device)
-    rc = getattr(_build.library(), entry)(
-        x.data_ptr(), x.shape[0], *args, keys.data_ptr(), n_valid.data_ptr(),
-        _build.stream_of(x))
-    _build.LAUNCHES["extract"] += 1
-    _build.check(rc, "extract")
+    _build.launch(entry, "extract", x, x.data_ptr(), x.shape[0], *args,
+                  keys.data_ptr(), n_valid.data_ptr())
     return keys, n_valid
 
 

@@ -150,11 +150,9 @@ def merge_partition(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     sfx = _check(a, b)
     _need_cuda(a)
     splits = _new_splits(a.shape[0] + b.shape[0], tile_lanes(a.dtype), a)
-    rc = getattr(_build.library(), f"ktt_merge_partition{sfx}")(
-        a.data_ptr(), a.shape[0], b.data_ptr(), b.shape[0],
-        splits.data_ptr(), _build.stream_of(a))
-    _build.LAUNCHES[f"merge_partition{sfx}"] += 1
-    _build.check(rc, f"merge_partition{sfx}")
+    _build.launch(f"ktt_merge_partition{sfx}", f"merge_partition{sfx}", a,
+                  a.data_ptr(), a.shape[0], b.data_ptr(), b.shape[0],
+                  splits.data_ptr())
     return splits
 
 
@@ -165,11 +163,9 @@ def merge_path(a: torch.Tensor, b: torch.Tensor,
     sfx = _check(a, b)
     _need_cuda(a)
     out = a.new_empty(a.shape[0] + b.shape[0])
-    rc = getattr(_build.library(), f"ktt_merge_path{sfx}")(
-        a.data_ptr(), a.shape[0], b.data_ptr(), b.shape[0],
-        splits.data_ptr(), out.data_ptr(), _build.stream_of(a))
-    _build.LAUNCHES[f"merge_path{sfx}"] += 1
-    _build.check(rc, f"merge_path{sfx}")
+    _build.launch(f"ktt_merge_path{sfx}", f"merge_path{sfx}", a,
+                  a.data_ptr(), a.shape[0], b.data_ptr(), b.shape[0],
+                  splits.data_ptr(), out.data_ptr())
     return out
 
 
@@ -179,12 +175,10 @@ def merge_partition3(key_a, idx_a, key_b, idx_b) -> torch.Tensor:
     _need_cuda(key_a)
     splits = _new_splits(key_a.shape[0] + key_b.shape[0], tile_lanes3(),
                          key_a)
-    rc = _build.library().ktt_merge_partition3(
-        key_a.data_ptr(), idx_a.data_ptr(), key_a.shape[0],
-        key_b.data_ptr(), idx_b.data_ptr(), key_b.shape[0],
-        splits.data_ptr(), _build.stream_of(key_a))
-    _build.LAUNCHES["merge_partition3"] += 1
-    _build.check(rc, "merge_partition3")
+    _build.launch("ktt_merge_partition3", "merge_partition3", key_a,
+                  key_a.data_ptr(), idx_a.data_ptr(), key_a.shape[0],
+                  key_b.data_ptr(), idx_b.data_ptr(), key_b.shape[0],
+                  splits.data_ptr())
     return splits
 
 
@@ -195,13 +189,10 @@ def merge_path3(key_a, idx_a, key_b, idx_b, splits: torch.Tensor):
     _need_cuda(key_a)
     n = key_a.shape[0] + key_b.shape[0]
     key, idx = key_a.new_empty(n), idx_a.new_empty(n)
-    rc = _build.library().ktt_merge_path3(
-        key_a.data_ptr(), idx_a.data_ptr(), key_a.shape[0],
-        key_b.data_ptr(), idx_b.data_ptr(), key_b.shape[0],
-        splits.data_ptr(), key.data_ptr(), idx.data_ptr(),
-        _build.stream_of(key_a))
-    _build.LAUNCHES["merge_path3"] += 1
-    _build.check(rc, "merge_path3")
+    _build.launch("ktt_merge_path3", "merge_path3", key_a,
+                  key_a.data_ptr(), idx_a.data_ptr(), key_a.shape[0],
+                  key_b.data_ptr(), idx_b.data_ptr(), key_b.shape[0],
+                  splits.data_ptr(), key.data_ptr(), idx.data_ptr())
     return key, idx
 
 

@@ -122,10 +122,9 @@ def segment_hist_sorted(keys: torch.Tensor, weights: Optional[torch.Tensor],
     n_tiles = -(-n // lib.ktt_seghist_tile_lanes())
     out = torch.zeros(n_bins + 1, dtype=torch.int64, device=keys.device)
     scratch = torch.empty(3 * n_tiles, dtype=torch.int32, device=keys.device)
-    rc = lib.ktt_seghist(
-        keys.data_ptr(), w.data_ptr() if w is not None else None, n, n_bins,
+    _build.launch(
+        "ktt_seghist", "seghist", keys, keys.data_ptr(),
+        w.data_ptr() if w is not None else None, n, n_bins,
         -1 if max_count is None else max_count, min_keep, out.data_ptr(),
-        scratch.data_ptr(), _build.stream_of(keys))
-    _build.LAUNCHES["seghist"] += 1
-    _build.check(rc, "seghist")
+        scratch.data_ptr())
     return out[:n_bins], out[n_bins]

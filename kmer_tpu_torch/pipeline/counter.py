@@ -1,5 +1,7 @@
-"""The end-to-end k-mer counting engine (port of
-kmer_tpu/pipeline/counter.py, on one device).
+"""The end-to-end k-mer counting engines (port of
+kmer_tpu/pipeline/counter.py): SortCountEngine on one device, and
+MeshSortCountEngine on the single-process mesh (dist/sharded.py), which
+`make_count_engine` picks under `use_mesh()`.
 
   reader thread:  the native C++ reader (io/native, a copy of the JAX
                   package's) decompresses, parses and packs reads into
@@ -11,7 +13,9 @@ kmer_tpu/pipeline/counter.py, on one device).
                   pinned memory), unpacks a packed block to ASCII there,
                   extracts sentinelized keys with the extraction kernel
                   and appends them to the sort-based compactor
-                  (table/compactor.py)
+                  (table/compactor.py); on the mesh, the reader thread
+                  groups one block a shard into a step, and each shard
+                  extracts its block and routes the keys to their owners
 
 The port imports nothing of kmer_tpu, so the JAX counter's host helpers
 (_iter_packed, _iter_packed2, _trim_to_class, _prefetch, _timed_iter,
@@ -309,10 +313,58 @@ def _extract_step_packed_structural(packed: torch.Tensor, n_used: int,
                               k, row_bytes, extract_rows)
 
 
+def extract_row(row: torch.Tensor, k: int, row_bytes, aux, ingest: str,
+                extract_flat, extract_rows):
+    """One block's sentinelized keys and valid-lane count, on the block's
+    device (the single engine's step, and the per-device body of
+    kmer_tpu/dist/sharded.py:263-303).  ingest "ascii": `row` is the
+    ASCII block; "packed": 2-bit codes, `aux` the invalid-slot mask;
+    "packed_structural": codes whose mask was elided, `aux` the used-byte
+    count.  The row-sliced form (`extract_rows`) runs when `row_bytes` is
+    given, the flat form (`extract_flat`) otherwise."""
+    if ingest == "packed":
+        return _extract_step_packed(row, aux, k, row_bytes, extract_flat,
+                                    extract_rows)
+    if ingest == "packed_structural":
+        return _extract_step_packed_structural(row, aux, k, row_bytes,
+                                               extract_rows)
+    if row_bytes:
+        return _extract_step_rows(row, k, row_bytes, extract_rows)
+    return extract_flat(row, k)
+
+
 class InputError(OSError):
     """An input that the reader could not open or read.  Only
-    `_extracted_blocks` raises it, from the reader's own OSError, so a
-    tool that answers it with "failed to open" catches nothing else."""
+    `_staged_items` raises it, from the reader's own OSError, so a tool
+    that answers it with "failed to open" catches nothing else."""
+
+
+def _staged_items(it, pin: bool, prefetch: bool, st: IngestStats,
+                  assemble=None):
+    """Drive a reader iterator: each item's arrays staged (`_stage`, in
+    pinned memory when `pin`), `assemble` applied first when given (the
+    mesh's step grouping), all of it in a background thread when
+    `prefetch`.  The reader's OSError re-raises as InputError; `st` takes
+    the reader, staging and wait times."""
+    it = _timed_iter(it, st)
+    it = (assemble(it) if assemble is not None
+          else (_stage(item, pin, st) for item in it))
+    if prefetch:
+        it = _prefetch(it)
+    while True:
+        t0 = time.perf_counter()
+        try:
+            item = next(it)
+        except StopIteration:
+            st.wait_s += time.perf_counter() - t0
+            return
+        except OSError as e:
+            err = InputError(*e.args)
+            if e.filename is not None:
+                err.filename = e.filename
+            raise err from e
+        st.wait_s += time.perf_counter() - t0
+        yield item
 
 
 def _extracted_blocks(paths: Sequence[str], k: int, block_bases: int,
@@ -328,47 +380,24 @@ def _extracted_blocks(paths: Sequence[str], k: int, block_bases: int,
     flat form (`extract_flat`) otherwise.  Yields (keys, n_valid,
     n_bases, n_seqs, batch_end) a block, in reader order; `st` takes the
     reader, staging, wait and dispatch times."""
-    pin = device.type == "cuda"
     packed_mode = _use_packed_ingest(paths)
     it = (_iter_packed2 if packed_mode else _iter_packed)(
         paths, k, block_bases, capacity, qual_policy)
-    it = (_stage(item, pin, st) for item in _timed_iter(it, st))
-    if prefetch:
-        it = _prefetch(it)
-    while True:
-        t0 = time.perf_counter()
-        try:
-            item = next(it)
-        except StopIteration:
-            st.wait_s += time.perf_counter() - t0
-            return
-        except OSError as e:
-            err = InputError(*e.args)
-            if e.filename is not None:
-                err.filename = e.filename
-            raise err from e
+    for item in _staged_items(it, device.type == "cuda", prefetch, st):
         t1 = time.perf_counter()
-        st.wait_s += t1 - t0
         if packed_mode:
-            (packed, mask, n_used, n_bases, n_seqs, row_bytes,
+            (row, mask, n_used, n_bases, n_seqs, row_bytes,
              batch_end) = item
-            packed = packed.to(device, non_blocking=True)
-            rb = row_bytes if row_bytes and row_bytes > k else None
-            if mask is None:
-                keys, n_kmers = _extract_step_packed_structural(
-                    packed, n_used, k, rb, extract_rows)
-            else:
-                keys, n_kmers = _extract_step_packed(
-                    packed, mask.to(device, non_blocking=True), k, rb,
-                    extract_flat, extract_rows)
+            aux, ingest = ((n_used, "packed_structural") if mask is None
+                           else (mask.to(device, non_blocking=True),
+                                 "packed"))
         else:
-            buf, n_bases, n_seqs, row_bytes, batch_end = item
-            buf = buf.to(device, non_blocking=True)
-            if row_bytes and row_bytes > k:
-                keys, n_kmers = _extract_step_rows(buf, k, row_bytes,
-                                                   extract_rows)
-            else:
-                keys, n_kmers = extract_flat(buf, k)
+            row, n_bases, n_seqs, row_bytes, batch_end = item
+            aux, ingest = None, "ascii"
+        rb = row_bytes if row_bytes and row_bytes > k else None
+        keys, n_kmers = extract_row(row.to(device, non_blocking=True), k,
+                                    rb, aux, ingest, extract_flat,
+                                    extract_rows)
         st.dispatch_s += time.perf_counter() - t1
         yield keys, n_kmers, n_bases, n_seqs, batch_end
 
@@ -501,10 +530,156 @@ class SortCountEngine:
     from_jax_checkpoint = resume_checkpoint
 
 
+def use_mesh() -> bool:
+    """Whether the CLI tools count on the mesh (counter.py:666-679):
+    KMER_TPU_FORCE_MESH=1 (true, on, yes) forces it, 0 (false, off, no)
+    turns it off; by default it runs when more than one CUDA device is
+    visible and the platform is not the CPU."""
+    env = os.environ.get("KMER_TPU_FORCE_MESH", "").strip().lower()
+    if env in ("1", "true", "on", "yes"):
+        return True
+    if env in ("0", "false", "off", "no"):
+        return False
+    return default_device().type == "cuda" and torch.cuda.device_count() > 1
+
+
+def _assemble_step(items, k: int, packed_mode: bool, pin: bool,
+                   st: IngestStats):
+    """One mesh step from up to n_dev reader items (counter.py:723-771):
+    (rows, row_bytes, aux, ingest, n_bases, n_seqs), rows staged as
+    `_stage` stages a block.  row_bytes is kept only when every row
+    shares it.  Packed items take the structural step when every row's
+    mask was elided, else the masked one with the missing masks rebuilt
+    on the host."""
+    if not packed_mode:  # (buf, n_bases, n_seqs, row_bytes, batch_end)
+        items = [(buf, None, 0, nb, ns, rb)
+                 for buf, nb, ns, rb, _be in items]
+    rbs = {it[5] for it in items}
+    rb = rbs.pop() if len(rbs) == 1 else None
+    if not packed_mode:
+        aux, ingest = None, "ascii"
+    elif rb is not None and rb > k and all(it[1] is None for it in items):
+        aux, ingest = [int(it[2]) for it in items], "packed_structural"
+    else:
+        aux, ingest = [], "packed"
+        for p, m, n, _nb, _ns, irb, *_ in items:
+            if m is None:  # a structural row in a masked step
+                pos = np.arange(4 * p.shape[0], dtype=np.int64)
+                m = np.packbits((pos % irb == irb - 1) | (pos >= n),
+                                bitorder="little")
+            aux.append(m)
+        aux = list(_stage(aux, pin, st))
+    rows = list(_stage([it[0] for it in items], pin, st))
+    return (rows, rb if rb and rb > k else None, aux, ingest,
+            sum(int(it[3]) for it in items), sum(int(it[4]) for it in items))
+
+
+def mesh_steps(paths: Sequence[str], k: int, row_bases: int, capacity: int,
+               qual_policy, n_dev: int, packed_mode: bool, pin: bool,
+               prefetch: bool, st: IngestStats):
+    """The mesh's reader: n_dev reader items a step, the last step short
+    (counter.py:773-804, yak.py:575-598), grouped and staged in the
+    reader thread.  Yields `_assemble_step`'s tuples."""
+    it = (_iter_packed2 if packed_mode else _iter_packed)(
+        paths, k, row_bases, capacity, qual_policy)
+
+    def assemble(items):
+        group = []
+        for item in items:
+            group.append(item)
+            if len(group) == n_dev:
+                yield _assemble_step(group, k, packed_mode, pin, st)
+                group = []
+        if group:
+            yield _assemble_step(group, k, packed_mode, pin, st)
+
+    yield from _staged_items(it, pin, prefetch, st, assemble)
+
+
+class MeshSortCountEngine:
+    """SortCountEngine's interface on the mesh (counter.py:682-842): the
+    reader's blocks of row_bases bases go one to a shard, n_dev a step,
+    and dist.sharded.ShardedSortEngine extracts, routes and counts them.
+    The mesh's devices come from dist.sharded.default_devices unless
+    `devices` names them."""
+
+    def __init__(self, k: int, block_bases: int = 10_000_000,
+                 budget_bytes: int = 2 << 30, prefetch: bool = True,
+                 qual_policy=None, devices=None, plain_kernels: bool = False):
+        from ..dist import sharded
+
+        self.k = k
+        self.mesh = sharded.make_mesh(devices)
+        self.n_dev = self.mesh.size
+        self.device = self.mesh.devices[0]
+        # kc-c4's -b is bases a pipeline block; one mesh step consumes a
+        # whole block, one row a shard
+        self.row_bases = max(int(block_bases) // self.n_dev, 1 << 16)
+        self.capacity = self.row_bases + max(4096, self.row_bases // 32)
+        self.prefetch = prefetch
+        self.qual_policy = qual_policy
+        self.plain_kernels = plain_kernels
+        self.eng = sharded.ShardedSortEngine(
+            self.mesh, k, budget_bytes=budget_bytes,
+            plain_kernels=plain_kernels)
+        self.total_bases = 0
+        self.total_seqs = 0
+        self.stats = IngestStats()  # refreshed per count_paths run
+
+    @property
+    def total_kmers(self) -> int:
+        return self.eng.total_kmers
+
+    def count_paths(self, paths: Sequence[str], progress=None) -> None:
+        """Stream every path's k-mers into the shards; `progress(self)`
+        after each step."""
+        st = self.stats = IngestStats()
+        t_loop = time.perf_counter()
+        pin = any(d.type == "cuda" for d in self.mesh.devices)
+        for rows, rb, aux, ingest, n_bases, n_seqs in mesh_steps(
+                paths, self.k, self.row_bases, self.capacity,
+                self.qual_policy, self.n_dev, _use_packed_ingest(paths),
+                pin, self.prefetch, st):
+            t1 = time.perf_counter()
+            self.eng.add_batch(rows, row_bytes=rb, aux=aux, ingest=ingest)
+            self.total_bases += n_bases
+            self.total_seqs += n_seqs
+            st.dispatch_s += time.perf_counter() - t1
+            if progress is not None:
+                progress(self)
+        st.loop_s = time.perf_counter() - t_loop
+
+    def hist(self, n_bins: int, max_count=None, min_keep: int = 1):
+        h = self.eng.hist(n_bins, max_count, min_keep)
+        self._n_distinct = self.eng._n_distinct
+        return h
+
+    def counts_for(self, query_hi, query_lo) -> np.ndarray:
+        return self.eng.counts_for(query_hi, query_lo)
+
+    def save_checkpoint(self, path: str) -> None:
+        """The shards' planes (ShardedSortEngine.save_checkpoint) and the
+        stream totals beside them in path + ".totals.npz"
+        (counter.py:825-837)."""
+        self.eng.save_checkpoint(path)
+        tmp = path + ".totals.tmp.npz"
+        np.savez(tmp, totals=np.asarray(
+            [self.total_bases, self.total_seqs], np.int64))
+        os.replace(tmp, path + ".totals.npz")
+
+    def resume_checkpoint_into(self, path: str) -> None:
+        """Load what save_checkpoint (of either package) wrote, on a mesh
+        of the same shape; counting can go on over further inputs."""
+        self.eng.restore_checkpoint(path)
+        z = np.load(path + ".totals.npz")
+        self.total_bases, self.total_seqs = (int(x) for x in z["totals"])
+
+
 def make_count_engine(k: int, block_bases: int = 10_000_000,
                       budget_bytes: int = 2 << 30, prefetch: bool = True,
-                      qual_policy=None) -> SortCountEngine:
-    """The CLI tools' engine factory: one engine on the default device
-    (see default_device)."""
-    return SortCountEngine(k, block_bases, budget_bytes, prefetch,
-                           qual_policy)
+                      qual_policy=None):
+    """The CLI tools' engine factory (counter.py:845-866 without its
+    multi-process branch): the mesh engine when use_mesh(), else one
+    engine on the default device (see default_device)."""
+    cls = MeshSortCountEngine if use_mesh() else SortCountEngine
+    return cls(k, block_bases, budget_bytes, prefetch, qual_policy)

@@ -1,8 +1,8 @@
-"""yak-count's engines on one device (port of kmer_tpu/pipeline/yak.py:
-the constants, `_clamp_bf_shift`, `_exact_bloom_default`,
-`_bloom_geometry_ok`, `_make_bloom`, `_tap_admit`, `YakSimTap`,
-`_shrink_join_core`, `SortYakEngine`, `make_yak_engine`,
-`yak_count_file`).
+"""yak-count's engines (port of kmer_tpu/pipeline/yak.py: the constants,
+`_clamp_bf_shift`, `_exact_bloom_default`, `_bloom_geometry_ok`,
+`_make_bloom`, `_tap_admit`, `YakSimTap`, `_shrink_join_core`,
+`SortYakEngine`, `_mesh_row_batches`, `MeshSortYakEngine`,
+`make_yak_engine`, `yak_count_file`).
 
 Single-file yak-count counts on the sort engine (pipeline/counter.py);
 `YakSimTap` rides the engine's extracted key planes and gives the
@@ -15,8 +15,16 @@ reference's yak_count_file flow): pass 1 gates file 1's k-mers with the
 bloom's bits array (kernels/bloom.py, sequential test-and-set by
 default) and counts the admitted lanes in one compactor; pass 2 counts
 file 2 in a second compactor; the shrink joins the two by one stable
-sort.  The table engines (`YakEngine`, `KMER_TPU_TABLE_YAK=1`) and the
-mesh engines are not ported.
+sort.
+
+On the mesh (pipeline/counter.py `use_mesh`) two-file yak-count runs
+`MeshSortYakEngine`: no bits array; each step's k-mers are routed to
+their owners (dist/sharded.py, ragged owner buckets in stream order
+where the JAX package sends sentinel-padded windows of fixed width),
+pass 1's admission resolves per shard when the pass ends
+(pipeline/yak_admit.py `ShardedDeferredYak`), and the shrink join runs
+per shard and sums.  The table engines (`YakEngine`, `MeshYakEngine`,
+`KMER_TPU_TABLE_YAK=1`) are not ported.
 """
 
 from __future__ import annotations
@@ -33,7 +41,7 @@ from ..kernels.bloom import BLK_SHIFT, BloomSpec
 from ..kernels.keys import SENT
 from ..table.compactor import KmerCompactor, stream_sorted_default
 from ..utils.log import warn
-from .counter import IngestStats, _extracted_blocks
+from .counter import IngestStats, _extracted_blocks, mesh_steps, use_mesh
 
 YAK_COUNTER_BITS = 10  # yak-count.c:9
 YAK_N_COUNTS = 1 << YAK_COUNTER_BITS
@@ -343,10 +351,153 @@ class SortYakEngine:
         return _counts_hist(self.comp1.runs[0][1])[0]
 
 
-def make_yak_engine(**kw) -> SortYakEngine:
-    """The two-file engine: SortYakEngine on one device (yak.py:1117-1131
-    without the table and mesh engines)."""
-    return SortYakEngine(**kw)
+def _mesh_row_batches(eng, paths: Sequence[str], st: IngestStats):
+    """The mesh yak engine's steps (yak.py:575-598, one process): n_dev
+    reader blocks of row_bases bases a step (capacity_block = row_bases +
+    4096), the last step short, row_bytes kept only when every row shares
+    it, ASCII ingest always.  Yields (rows, row_bytes, n_seqs)."""
+    pin = any(d.type == "cuda" for d in eng.mesh.devices)
+    for rows, rb, _aux, _ingest, _nb, n_seqs in mesh_steps(
+            paths, eng.k, eng.row_bases, eng.capacity_block,
+            ("resume", eng.k, 3), eng.n_dev, False, pin, True, st):
+        yield rows, rb, n_seqs
+
+
+class MeshSortYakEngine:
+    """The two-pass yak engine on the mesh (yak.py:774-922).
+
+    Pass 1 routes each step's k-mers to their owners
+    (dist.sharded.ShardedSortEngine.route_batch) and hands them to the
+    deferred admission (pipeline.yak_admit.ShardedDeferredYak), which
+    resolves at the end of the pass which keys the bloom admits and the
+    per-step `[M` totals; with bf_shift == 0 there is no pass 2
+    (yak_count_file), so pass 1 also counts.  Pass 2 counts file 2 in
+    the same sharded engine; `shrink` joins each shard's admitted pass-1
+    keys against its pass-2 counts (`_shrink_join_core`) and sums.
+
+    The bloom is partitioned by owner (BloomSpec.owner_bits): probe
+    values equal the single-device ones, and keys sharing a bit share an
+    owner, so the admitted keys and the histogram equal SortYakEngine's;
+    the `[M` lines follow the mesh's own steps.  `devices` and
+    `plain_kernels` as MeshSortCountEngine's."""
+
+    def __init__(self, k=31, pre=10, bf_shift=0, bf_n_hash=4,
+                 chunk_size=10_000_000, log=None, devices=None,
+                 plain_kernels: bool = False):
+        from ..dist import sharded
+        from .yak_admit import ShardedDeferredYak
+
+        self.k = k
+        self.pre = pre
+        self.bf_shift = bf_shift
+        self.bf_n_hash = bf_n_hash
+        self.log = log
+        self.mesh = sharded.make_mesh(devices)
+        self.n_dev = self.mesh.size
+        self.device = self.mesh.devices[0]
+        self.owner_bits = self.n_dev.bit_length() - 1
+        self.plain_kernels = plain_kernels
+        self.row_bases = max(int(chunk_size) // self.n_dev, 1 << 16)
+        self.capacity_block = self.row_bases + 4096
+        self._route = sharded.ShardedSortEngine(self.mesh, k,
+                                                plain_kernels=plain_kernels)
+        bloom_wanted = (bf_n_hash > 0 and bf_shift > pre
+                        and (bf_shift - pre) >= BLK_SHIFT)
+        self.use_bloom = (bloom_wanted and pre >= self.owner_bits
+                          and _bloom_geometry_ok(bf_shift, pre,
+                                                 self.owner_bits))
+        if bloom_wanted and not self.use_bloom:
+            # the per-shard bloom partition needs at least one prefix bit
+            # per owner; with fewer, pass 1 admits every key
+            warn("yak_count",
+                 f"-p{pre} has fewer prefix bits than the {self.n_dev}"
+                 f"-device mesh needs ({self.owner_bits}); bloom "
+                 "prefilter disabled (two-file admission differs from "
+                 "a single-chip run)")
+        if self.use_bloom:
+            self.bf_shift = _clamp_bf_shift(bf_shift, self.owner_bits)
+            self.spec = BloomSpec(pre, self.bf_shift, bf_n_hash,
+                                  self.owner_bits)
+        else:
+            self.spec = None
+        budget = int(os.environ.get("KMER_TPU_TAP_BUDGET", str(1 << 30)))
+        self.adm = ShardedDeferredYak(self.mesh, self.spec, self.use_bloom,
+                                      budget_bytes=budget,
+                                      plain_kernels=plain_kernels)
+        self.tot = 0
+        self._k1 = None  # admitted pass-1 keys, one tensor a shard
+        self._hist = None  # post-shrink histogram (host)
+        self.stats = []
+
+    def count(self, paths: Sequence[str], create_new: bool) -> None:
+        """One pass; pass 1's `[M` lines come when it ends (deferred),
+        pass 2's live, each repeating the pass-1 total."""
+        st = IngestStats()
+        self.stats.append(st)
+        t_loop = time.perf_counter()
+        if create_new:
+            # pass-1 counts are observable only when no pass 2 follows
+            keep_counts = not self.bf_shift > 0
+            seqs = []
+            for rows, rb, n_seqs in _mesh_row_batches(self, paths, st):
+                t1 = time.perf_counter()
+                owned = self._route.route_batch(rows, row_bytes=rb)
+                self.adm.add_chunk(owned, step_end=True)
+                if keep_counts:
+                    self._route.add_chunk_planes(owned)
+                seqs.append(n_seqs)
+                st.dispatch_s += time.perf_counter() - t1
+            self._k1, per_step, self.tot = self.adm.finish()
+            if self.log is not None:
+                running = 0
+                for n_seqs, new in zip(seqs, per_step):
+                    running += int(new)
+                    self.log(n_seqs, running)
+        else:
+            for rows, rb, n_seqs in _mesh_row_batches(self, paths, st):
+                t1 = time.perf_counter()
+                self._route.add_batch(rows, row_bytes=rb)
+                st.dispatch_s += time.perf_counter() - t1
+                if self.log is not None:
+                    self.log(n_seqs, self.tot)
+        st.loop_s = time.perf_counter() - t_loop
+
+    def destroy_bloom(self) -> None:
+        pass  # no bits array: admission was resolved when pass 1 ended
+
+    def clear(self) -> None:
+        # pass-2 counts go to the emptied sharded engine; the admitted
+        # pass-1 keys stay in _k1
+        self._route.reset()
+
+    def shrink(self, min_count: int, max_count: int) -> None:
+        """Each shard's join of its admitted pass-1 keys against its
+        pass-2 counts (yak.py:928-997), histograms and totals summed; an
+        empty shard's pass 2 counts 0 for each of its keys."""
+        self._route.compact()
+        hist, tot = np.zeros(YAK_N_COUNTS, np.int64), 0
+        for keys1, comp in zip(self._k1, self._route.shards):
+            keys2, c2 = comp.runs[0] if comp.runs else (
+                keys1[:0], torch.zeros(0, dtype=torch.int32,
+                                       device=keys1.device))
+            h, t = _shrink_join_core(keys1, keys2, c2, min_count, max_count)
+            hist += h.cpu().numpy()
+            tot += int(t)
+        hist[0] = 0  # bin 0 counts the dropped lanes
+        self._hist, self.tot = hist, tot
+
+    def hist(self) -> np.ndarray:
+        if self._hist is not None:
+            return self._hist
+        # bf_shift == 0: the exact counts pass 1 accumulated
+        return self._route.hist(YAK_N_COUNTS, max_count=YAK_MAX_COUNT)
+
+
+def make_yak_engine(**kw):
+    """The two-file engine (yak.py:1117-1131 without the table engines
+    and the multi-process branch): MeshSortYakEngine when the tools count
+    on the mesh (pipeline.counter.use_mesh), else SortYakEngine."""
+    return MeshSortYakEngine(**kw) if use_mesh() else SortYakEngine(**kw)
 
 
 def yak_count_file(fn1: str, fn2: Optional[str], opt: SortYakEngine

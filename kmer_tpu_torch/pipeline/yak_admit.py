@@ -31,7 +31,13 @@ Layout on the port: keys are biased int64 (kernels/keys.py; sentinel
 INT64_MAX), lane indices int64 (sentinel INT64_MAX).  JAX's u32 index
 reaches 2^32 - 2^26 (`_MAX_LANES`), which int32 would turn negative; the
 guard stays, with its message, so that both packages accept the same
-runs.  The mesh forms (kmer_tpu's ShardedDeferredYak) are not ported.
+runs.
+
+`ShardedDeferredYak` is the mesh form: one admission engine a shard, fed
+with the shard's owned keys in stream order (dist/sharded.py `route`,
+`all_to_all`), each with its own lane base and step bounds.  The JAX
+package instead sends every device a fixed, sentinel-padded window of
+lanes a step, so that one bounds vector serves all of them.
 """
 
 from __future__ import annotations
@@ -347,27 +353,87 @@ class DeferredYakAdmission:
         self._base += n
         self._pending = True
         if batch_end:
-            self.bounds.append(self._base)
-            self._pending = False
+            self.close_step()
+
+    def close_step(self) -> None:
+        """End the current batch at the lanes added so far (a batch that
+        added none still gets its bound)."""
+        self.bounds.append(self._base)
+        self._pending = False
 
     def finish(self) -> Tuple[np.ndarray, int]:
         """(per-batch newly admitted counts, total admitted).  Call once,
         after the last block."""
+        _keys, per_batch, tot = self.resolve()
+        return per_batch, tot
+
+    def resolve(self):
+        """(admitted keys, per-batch newly admitted counts, total
+        admitted): the admitted keys are key-sorted, the lanes not
+        admitted SENT (None when nothing was added).  Call once, after
+        the last block."""
         if self._pending:
-            self.bounds.append(self._base)
-            self._pending = False
+            self.close_step()
         planes = self.fs.first2_planes()
         if not self.bounds or planes is None:
-            return np.zeros((len(self.bounds),), np.int64), 0
+            return None, np.zeros((len(self.bounds),), np.int64), 0
         keys, idx = planes
         bounds = torch.from_numpy(_pad_bounds(self.bounds)).to(keys.device)
         n_bins = int(bounds.shape[0]) + 2
         if self.use_bloom:
             entries = _fp_sort(keys, idx, self.spec)
-            _, hist, tot = _fp_admits(entries, keys, idx, bounds,
-                                      self.spec.n_hashes, n_bins)
+            keys, hist, tot = _fp_admits(entries, keys, idx, bounds,
+                                         self.spec.n_hashes, n_bins)
         else:
-            _, hist, tot = _admits_nobloom(keys, idx, bounds, n_bins)
+            keys, hist, tot = _admits_nobloom(keys, idx, bounds, n_bins)
         per_batch = hist.cpu().numpy().astype(np.int64)[
             1: len(self.bounds) + 1]
-        return per_batch, int(tot)
+        return keys, per_batch, int(tot)
+
+
+class ShardedDeferredYak:
+    """The mesh form (yak_admit.py:625-704): one DeferredYakAdmission a
+    shard, fed each step with the shard's owned keys.
+
+    Keys can meet in the bloom only through a shared probe bit, a bit
+    lies in one prefix subtable, and the prefix's low owner_bits are the
+    owner (BloomSpec.owner_bits), so every (bit, l1) comparison is within
+    one shard.  A shard's lanes arrive in global stream order restricted
+    to its keys (dist.sharded `route` and `all_to_all`), so its own lane
+    count is a valid lane index.  The JAX package gives every device the
+    same padded lane count a step and so one shared bounds vector; here
+    each shard has its own lane base and bounds, one bound a step, and
+    the per-step counts are summed over the shards after `finish`.
+    budget_bytes applies per shard."""
+
+    def __init__(self, mesh, spec: Optional[bloom.BloomSpec],
+                 use_bloom: bool, budget_bytes: int = 1 << 30,
+                 stream_sorted: Optional[bool] = None,
+                 plain_kernels: bool = False):
+        self.mesh = mesh
+        self.shards = [
+            DeferredYakAdmission(spec, use_bloom, budget_bytes,
+                                 stream_sorted, dev, plain_kernels)
+            for dev in mesh.devices]
+
+    def add_chunk(self, owned, step_end: bool = True) -> None:
+        """One step's owned keys, a tensor a shard (a shard that owns no
+        key this step still closes the step)."""
+        for adm, keys in zip(self.shards, owned):
+            if keys.shape[0]:
+                adm.add_block(keys, step_end)
+            elif step_end:
+                adm.close_step()
+
+    def finish(self):
+        """(admitted keys a shard, per-step newly admitted counts summed
+        over the shards, total admitted).  A shard's admitted keys are
+        key-sorted with the rest SENT, as the shrink join takes them;
+        empty for a shard that owns no key."""
+        keys, per_step, tot = [], 0, 0
+        for adm in self.shards:
+            k, ps, t = adm.resolve()
+            keys.append(k if k is not None else torch.full(
+                (0,), SENT, dtype=torch.int64, device=adm.fs.device))
+            per_step, tot = per_step + ps, tot + t
+        return keys, per_step, tot

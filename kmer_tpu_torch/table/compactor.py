@@ -129,8 +129,14 @@ class KmerCompactor:
     # package: compaction peaks near 3x the accumulated run bytes.
     def __init__(self, device, budget_bytes: int = 2 << 30,
                  key_bits: Optional[int] = None,
-                 stream_sorted: bool = False, plain_kernels: bool = False):
+                 stream_sorted: bool = False, plain_kernels: bool = False,
+                 stream_chunk: Optional[int] = None,
+                 stream_min: Optional[int] = None):
         self.device = torch.device(device)
+        # the stream ladder's run quantum and smallest padded run (a mesh
+        # shard takes smaller ones, as the JAX package's mesh does)
+        self.stream_chunk = stream_chunk or _STREAM_CHUNK
+        self.stream_min = stream_min or _STREAM_MIN
         self.runs: List[Run] = []
         self.budget_bytes = budget_bytes
         self._bytes = 0
@@ -175,8 +181,8 @@ class KmerCompactor:
         from .stream_ladder import StreamLadder
 
         return StreamLadder(
-            chunk=_STREAM_CHUNK,
-            min_pad=_STREAM_MIN,
+            chunk=self.stream_chunk,
+            min_pad=self.stream_min,
             sort_fn=lambda p: (torch.sort(p[0]).values,),
             merge_fn=self._merge_runs,
             pad_fn=self._pad_run,
@@ -249,7 +255,7 @@ class KmerCompactor:
         """Fold all runs into one (key, count) run (compactor.py:523-561)."""
         if self.stream:
             if (not self.runs
-                    and self.stream.data_lanes <= _STREAM_CHUNK * 2):
+                    and self.stream.data_lanes <= self.stream_chunk * 2):
                 keys = self._stream_keys()
                 self.stream.clear()
                 self._store_compacted(_compact(keys, None, pre_sorted=True))
@@ -267,7 +273,7 @@ class KmerCompactor:
     def hist(self, n_bins: int, max_count: Optional[int], min_keep: int = 1):
         """(histogram int64[n_bins], n_distinct) over all keys."""
         if (self.stream and self.runs
-                and self.stream.data_lanes > _STREAM_CHUNK * 2):
+                and self.stream.data_lanes > self.stream_chunk * 2):
             # big mixed state: compact piecewise first so the final sort
             # sees counted runs only
             self.compact()

@@ -11,8 +11,10 @@ same key planes (pipeline/yak.py `YakSimTap`); pass 2's lines repeat the
 pre-shrink total.  KMER_TPU_FAST_YAK=1 skips the simulation and prints
 one summary line instead.  With two different files, where the bloom's
 false positives show in the output, the two-pass engine runs as the
-reference does (pipeline/yak.py `SortYakEngine`, `yak_count_file`).  The
--t flag is accepted for CLI parity.
+reference does (pipeline/yak.py `SortYakEngine`, `yak_count_file`).  On
+the mesh (pipeline/counter.py `use_mesh`) the count engine and the
+two-file engine are the mesh's, and one file prints a single `[M` line
+for its whole pass.  The -t flag is accepted for CLI parity.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ from __future__ import annotations
 import os
 import sys
 
-from ..pipeline.counter import InputError, make_count_engine
+from ..pipeline.counter import (InputError, MeshSortCountEngine,
+                                make_count_engine)
 from ..pipeline.yak import (YAK_COUNTER_BITS, YAK_MAX_COUNT, YAK_N_COUNTS,
                             YakSimTap, make_yak_engine, yak_count_file)
 from ..utils.cli import c_atoi, ketopt
@@ -78,14 +81,19 @@ def main(argv=None):
     eng = make_count_engine(k=k, block_bases=chunk,
                             qual_policy=("resume", k, 3))
     sim = None
-    if not fast:
+    # the mesh's steps are partitioned by device, so it prints one
+    # summary line instead of the per-batch simulation (yak_count.py:
+    # 87-103; PARITY.md divergence 8)
+    if not fast and not isinstance(eng, MeshSortCountEngine):
         sim = YakSimTap(pre=pre, bf_shift=bf_shift, bf_n_hash=bf_n_hash,
                         log=_log, device=eng.device,
                         plain_kernels=eng.plain_kernels)
         sim.begin_batches()
     try:
-        eng.count_paths([pos[0]],
-                        tap=sim.ingest_planes if sim is not None else None)
+        if sim is not None:
+            eng.count_paths([pos[0]], tap=sim.ingest_planes)
+        else:
+            eng.count_paths([pos[0]])
     except InputError:
         sys.stderr.write(f"Error: failed to open {pos[0]}\n")
         return 1

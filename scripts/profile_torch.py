@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """profile_torch.py — where the PyTorch/CUDA port's device time goes.
 
-Usage: python3 scripts/profile_torch.py [--runs kc31,yak,kc15,yak2,edvaf]
+Usage: python3 scripts/profile_torch.py [--runs kc31,yak,kc15,yak2,edvaf,
+                                               mesh31,mesh2]
                                         [--top N] [--out DIR] [--seed N]
                                         [--reads FASTQ] [--tag TAG]
 
@@ -16,6 +17,9 @@ build/chip_smoke/.  For each run:
                                    two compactors, the shrink join)
   edvaf  ed-vaf-counter -e1 on chip_smoke.py's 1,000-site panel over
          the first 2,048 reads of B (one batch of the Myers loop)
+  mesh31 kc31 on the mesh of chip_smoke.py's mesh phase (4 logical
+         shards of the card: routing, exchange, a compactor a shard)
+  mesh2  yak2 on that mesh (deferred admission a shard, no bits array)
 
 two warm passes, then one pass under torch.profiler (CPU and CUDA
 activities).  Each pass prints its wall; the profiled pass also prints
@@ -33,6 +37,7 @@ their call counts.  With
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import os
@@ -42,7 +47,8 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RUNS = {"kc31": ("kc-c4", ["-k31"]), "yak": ("yak-count", ["-k31", "-b30"]),
         "kc15": ("kc-c4", ["-k15"]), "yak2": ("yak-count", ["-k31", "-b30"]),
-        "edvaf": ("ed-vaf-counter", ["-e1"])}
+        "edvaf": ("ed-vaf-counter", ["-e1"]),
+        "mesh31": ("kc-c4", ["-k31"]), "mesh2": ("yak-count", ["-k31", "-b30"])}
 
 
 def _device_us(ev) -> float:
@@ -59,7 +65,7 @@ def _inputs(name, path, seed):
         out = os.path.join(smoke.DATA_DIR, "edvaf", "profile.vaf")
         return ["-p", pat, "-o", out, head], \
             smoke.EDVAF_READS * smoke.READ_LEN
-    if name != "yak2":
+    if name not in ("yak2", "mesh2"):
         return [path], None  # the engine counts them
     mb = (smoke.MBASES, dict((n, mb) for n, _, mb, _ in smoke.SNP_SAMPLES)["B"])
     return [path, smoke.snp_inputs(seed)[2]["B"]], \
@@ -68,17 +74,28 @@ def _inputs(name, path, seed):
 
 def _recording(name, tool):
     """The engines a run builds (none for ed-vaf-counter)."""
-    import contextlib
-
     import chip_smoke as smoke
-    from kmer_tpu_torch.tools import yak_count
+    from kmer_tpu_torch.tools import kc, yak_count
 
+    if name.startswith("mesh"):
+        return _on_mesh(yak_count if tool == "yak-count" else kc,
+                        tool == "yak-count")
     if name == "yak2":
         return smoke.recording_yak_engines()
     if name == "edvaf":
         return contextlib.nullcontext([])
     return smoke.recording_engines(yak_count if tool == "yak-count"
                                    else None)
+
+
+@contextlib.contextmanager
+def _on_mesh(tool_module, yak):
+    """The tool on chip_smoke.py's mesh, its engines recorded."""
+    import chip_smoke as smoke
+
+    with smoke.on_mesh(smoke.mesh_card()), \
+            smoke.recording_mesh_engines(tool_module, yak) as made:
+        yield made
 
 
 def profile_run(name, path, top, out_dir, tag="", seed=0):

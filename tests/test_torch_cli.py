@@ -138,6 +138,28 @@ def test_host_tools_and_packed_ingest_never_import_jax(tmp_path):
             assert f.readline().startswith("# Average depth:")
 
 
+def test_mesh_never_imports_jax():
+    """kc-c4 and yak-count (one file and two) on the mesh
+    (KMER_TPU_FORCE_MESH=1, four CPU shards) run with neither jax nor any
+    kmer_tpu module loaded."""
+    r = _python(
+        "import torch\n"
+        "from kmer_tpu_torch.dist import sharded\n"
+        "sharded.default_devices = lambda: [torch.device('cpu')] * 4\n"
+        "from kmer_tpu_torch.pipeline import counter\n"
+        "assert isinstance(counter.make_count_engine(31),\n"
+        "                  counter.MeshSortCountEngine)\n"
+        "from kmer_tpu_torch.tools import get_tool\n"
+        f"assert get_tool('kc-c4')(['-k31', {READS!r}]) == 0\n"
+        f"assert get_tool('yak-count')(['-b20', {READS!r}]) == 0\n"
+        f"assert get_tool('yak-count')(['-b20', {READS!r}, {GENOME!r}]) "
+        "== 0\n",
+        {"KMER_TPU_PLATFORM": "cpu", "KMER_TPU_FORCE_MESH": "1"})
+    assert r.returncode == 0, r.stderr
+    assert len(r.stdout.splitlines()) == 255 + 2 * 1023
+    assert r.stderr.count("[M] processed") > 2
+
+
 def test_reused_host_modules_never_import_jax():
     """Every module of the port imports, and kc-c4 and yak-count run
     through the pure-Python reader copy (KMER_TPU_NO_NATIVE), with

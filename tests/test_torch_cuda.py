@@ -680,3 +680,66 @@ def test_packed_engine_on_card_matches_cpu(dev, k, monkeypatch):
         out.append((e.hist(256, 1023).tolist(), e._n_distinct,
                     e.total_kmers))
     assert out[0] == out[1] == out[2]
+
+
+@pytest.mark.parametrize("k", [15, 31])
+def test_mesh_on_card_matches_cpu_mesh(dev, k, capsys, monkeypatch):
+    """A mesh of four shards dealt round-robin over the visible cards
+    (on one card, four logical shards of it; on four, one a card, each
+    shard's kernels launched on its own card) counts what four CPU
+    shards count (kc-c4's engine, budget trips included), and two-file
+    yak-count on it prints what the CPU mesh prints, `[M` lines too."""
+    from kmer_tpu_torch.dist import sharded
+    from kmer_tpu_torch.pipeline.counter import MeshSortCountEngine
+    from kmer_tpu_torch.tools import get_tool
+
+    paths = [os.path.join(FIXTURES, f) for f in ("sampleA1.fq.gz",
+                                                 "sampleB.fq.gz")]
+    n_cards = torch.cuda.device_count()
+    cards = [torch.device("cuda", j % n_cards) for j in range(4)]
+    cpus = [torch.device("cpu")] * 4
+    out = []
+    for devices in (cards, cpus):
+        e = MeshSortCountEngine(k, block_bases=1 << 18, devices=devices,
+                                budget_bytes=1 << 18)
+        e.count_paths(paths)
+        out.append((e.hist(256, 1023).tolist(), e._n_distinct,
+                    e.total_kmers))
+    assert out[0] == out[1]
+    monkeypatch.setenv("KMER_TPU_FORCE_MESH", "1")
+    out = []
+    for plat, devices in (("cuda", cards), ("cpu", cpus)):
+        monkeypatch.setenv("KMER_TPU_PLATFORM", plat)
+        monkeypatch.setattr(sharded, "default_devices",
+                            lambda d=devices: list(d))
+        assert get_tool("yak-count")([f"-k{k}", "-b19", "-K65536",
+                                      *paths]) == 0
+        cap = capsys.readouterr()
+        out.append((cap.out, [ln for ln in cap.err.splitlines()
+                              if ln.startswith("[M")]))
+    assert out[0] == out[1] and len(out[0][1]) > 2
+
+
+def test_kernels_launch_on_the_tensors_card(dev):
+    """Every kernel wrapper, given tensors on the last visible card while
+    the first card is current, launches on the tensors' card and agrees
+    with its plain version (a mesh puts shard j on cuda:j; on one card
+    both are cuda:0).  The (key, index) merge needs more than 48 KiB of
+    shared memory, an attribute set for the current card only."""
+    card = torch.device("cuda", torch.cuda.device_count() - 1)
+    with torch.cuda.device(0):
+        x = torch.from_numpy(np.random.default_rng(5).choice(
+            np.frombuffer(b"ACGTN", np.uint8), size=(1 << 16) + 7)).to(card)
+        keys, nv = extract.extract_keys(x, 31)
+        want, nw = extract.extract_keys_plain(x, 31)
+        assert torch.equal(keys, want) and int(nv) == int(nw)
+        keys, _ = _sorted_keys(card, (1 << 16) + 3, 1)
+        hist, nd = seghist.segment_hist_sorted(keys, None, _CFGS[0])
+        want, wnd = seghist.segment_hist_sorted_plain(keys, None, _CFGS[0])
+        assert torch.equal(hist, want) and int(nd) == int(wnd)
+        for a, b in (_runs(card, 4097, 12345, 2), _runs1(card, 4097, 12345,
+                                                          3)):
+            assert torch.equal(merge.merge_runs(a, b),
+                               torch.sort(torch.cat([a, b])).values)
+        _check_merge3(_runs3(card, 4097, 12345, 4))
+        assert torch.cuda.current_device() == 0
