@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """chip_smoke.py — run the port's kc-c4, yak-count (one file and two),
 SNP-fingerprint and ed-vaf-counter paths on one GPU, with ASCII and
-packed 2-bit ingest, its host-only tools, and the mesh on logical shards
-of the card.
+packed 2-bit ingest, its host-only tools, the mesh on logical shards
+of the card, and runs of several processes.
 
 Usage: python3 chip_smoke.py [--seed N]
 
@@ -113,12 +113,31 @@ Phases, each printing its own lines:
               fixture == phase 12's bytes), and a checkpoint saved on the
               card mesh after sampleA1 and resumed on a 4-shard CPU mesh
               for sampleB (hist == an uninterrupted run)
+ 15. multiproc  runs of 2 processes x 2 logical shards of the card (4
+              global shards, gloo, each process started with a free
+              port, its rank and the world size, killed if it hangs):
+              kc-c4 -k31 over phase 4's file and a second 256 Mbase file
+              of the same recipe (one file a process) == one engine over
+              both, and == with the plain kernel versions; two-file
+              yak-count -k31 -b30 A B == phase 10's stdout; vaf-counter A
+              == phase 9's VAF file (process 0 writes it, process 1
+              none); KMER_TPU_SINGLE_READER=1 two-file yak-count ==
+              phase 10's stdout and phase 14's `[M` lines; a checkpoint
+              saved by a generation that counted the first file and
+              resumed by a new one that counts the second == one engine
+              over both.  Extract, the int64 merge path and seghist (and
+              the (key, index) merge path for yak-count) must launch in
+              each worker; it prints each run's wall, Mbases/s, each
+              process's peak device memory and the exchange's time a
+              step (D2H + gloo + H2D, synchronized) beside its PCIe byte
+              bound.  On a machine of several cards, one process a card
+              under NCCL: kc-c4 and two-file yak-count again
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; the kernels line takes the counts of extract, seghist and the
 int64 merge path from phase 4, the int32 merge path's from phase 8 and
-the (key, index) merge path's from phase 6 (phases 7, 10 and 14 print
-their own).  No path may launch a
+the (key, index) merge path's from phase 6 (phases 7, 10, 14 and 15
+print their own).  No path may launch a
 bitonic kernel, and after every phase neither jax nor any module of the
 JAX package (kmer_tpu) may be loaded.
 
@@ -2525,7 +2544,384 @@ def phase_mesh(seed, out):
     say("mesh", f"checkpoint: saved on the card mesh after sampleA1, "
         f"resumed on a {MESH_SHARDS}-shard CPU mesh for sampleB: hist == "
         f"an uninterrupted card run ({full._n_distinct} distinct)")
-    return {"launches": launches, "yak2_launches": ylaunch}
+    return {"launches": launches, "yak2_launches": ylaunch,
+            "yak2_lines": ygot[1]}
+
+
+# -- phase 15: several processes ---------------------------------------------
+
+MP_PROCS = 2  # processes on the one card, under gloo
+MP_SHARDS = 2  # logical shards of the card a process: 4 global shards
+PCIE_BYTES_PER_S = 64e9  # H100 SXM host link, PCIe Gen5 x16, a direction
+
+# one worker process of a run of several: multihost.initialize with the
+# rank, world size and port given, then the spec's items in order (every
+# process runs the same items, so every collective lines up), each with
+# its launch counts set to 0 just before it and read just after; writes
+# result<rank>.json.  argv: rank, world size, port, spec file, out dir
+MP_WORKER = r"""
+import contextlib, io, json, os, sys, time
+spec = json.load(open(sys.argv[4]))
+sys.path.insert(0, spec["repo"])
+import torch
+from kmer_tpu_torch.dist import multihost, sharded
+if spec["shards"]:
+    sharded.default_devices = lambda: [torch.device("cuda", 0)] * spec["shards"]
+pid, nproc, port, out_dir = (int(sys.argv[1]), int(sys.argv[2]),
+                             sys.argv[3], sys.argv[5])
+multihost.initialize("127.0.0.1:" + port, nproc, pid)
+import torch.distributed as dist
+from kmer_tpu_torch.kernels import _build
+from kmer_tpu_torch.pipeline import counter
+from kmer_tpu_torch.tools import get_tool, kc
+_build.library()
+K = spec["k"]
+POLICY = ("resume", K, 3)
+
+
+def barrier():
+    torch.cuda.synchronize()
+    sharded.allgather_ints([0])
+
+
+def captured(fn, *a):
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = fn(*a)
+    assert rc in (0, None), (rc, err.getvalue()[-2000:])
+    return out.getvalue(), [ln for ln in err.getvalue().splitlines()
+                            if ln.startswith("[M")]
+
+
+def hist_text(eng):
+    return captured(kc._print_hist, eng.hist(256, max_count=None))[0]
+
+
+def run(item):
+    kind = item["kind"]
+    if kind == "kc":  # the tool's counting path: make_count_engine
+        h = kc._run_counter(item["paths"], K, 1023, qual_policy=POLICY)
+        assert isinstance(h.eng, multihost.MultihostSortEngine), h.eng
+        return {"out": hist_text(h.eng), "bases": h.eng.total_bases,
+                "stats": h.eng.stats.report()}
+    if kind == "kc_plain":
+        eng = multihost.MultihostSortEngine(K, qual_policy=POLICY,
+                                            plain_kernels=True)
+        eng.count_paths(item["paths"])
+        return {"out": hist_text(eng)}
+    if kind == "tool":
+        os.environ.update(item.get("env", {}))
+        args = [a.replace("{pid}", str(pid)) for a in item["args"]]
+        out, lines = captured(get_tool(item["tool"]), args)
+        for name in item.get("env", {}):
+            del os.environ[name]
+        return {"out": out, "lines": lines}
+    if kind == "save":  # generation 1: count, save, and the run ends
+        eng = multihost.MultihostSortEngine(K, qual_policy=POLICY)
+        eng.count_paths(item["paths"])
+        eng.save_checkpoint(item["ckpt"])
+        return {"files": sorted(f for f in os.listdir(
+            os.path.dirname(item["ckpt"])) if ".proc" in f)}
+    if kind == "resume":
+        eng = multihost.MultihostSortEngine(K, qual_policy=POLICY)
+        eng.resume_checkpoint_into(item["ckpt"])
+        eng.count_paths(item["paths"])
+        return {"out": hist_text(eng), "bases": eng.total_bases}
+    if kind == "exchange":  # one step's exchange, synchronized, 5 times
+        eng = multihost.MultihostSortEngine(K, qual_policy=POLICY)
+        batch = next(multihost._local_batches(
+            multihost.shard_files(item["paths"]), K, eng.row_bases,
+            eng.n_local, POLICY), None)  # None: this process has no file
+        rows = torch.from_numpy(batch[0]) if batch else []
+        rb = batch[3] if batch and batch[3] and batch[3] > K else None
+        keys = [counter.extract_row(r.to(d), K, rb, None, "ascii",
+                                    eng.eng._extract, eng.eng._extract_rows)[0]
+                for r, d in zip(rows, eng.mesh.devices)]
+        routed = sharded.route_rows(keys, eng.n_dev)
+        times = []
+        for _ in range(6):
+            barrier()
+            e0 = dict(sharded.EXCHANGE)
+            t0 = time.perf_counter()
+            sharded.all_to_all(routed, eng.mesh)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return {"ms": sum(times[1:]) / 5 * 1e3,
+                "bytes": sharded.EXCHANGE["bytes"] - e0["bytes"],
+                "lanes": sum(int(k.shape[0]) for k in keys),
+                "row_bases": eng.row_bases}
+    raise ValueError(kind)
+
+
+results = []
+for item in spec["items"]:
+    barrier()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    e0 = dict(sharded.EXCHANGE)
+    t0 = time.perf_counter()
+    r = run(item)
+    torch.cuda.synchronize()
+    r["wall"] = time.perf_counter() - t0
+    r["launches"] = dict(_build.LAUNCHES)
+    r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    r["exchange"] = {k: sharded.EXCHANGE[k] - e0[k] for k in e0}
+    r["name"] = item["name"]
+    results.append(r)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "kmer_tpu"))
+assert not bad, bad
+with open(os.path.join(out_dir, f"result{pid}.json"), "w") as f:
+    json.dump({"backend": dist.get_backend(), "results": results,
+               "device": str(torch.cuda.current_device())}, f)
+dist.destroy_process_group()
+"""
+
+
+def free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def run_multiproc(name, items, n_proc=MP_PROCS, shards=MP_SHARDS,
+                  timeout=900):
+    """Start n_proc workers (MP_WORKER) on a free port, each with shards
+    logical shards of card 0 (shards=0: the process's own card, one
+    process a card), and wait for them; a worker that does not end in
+    time is killed, and any exit code but 0 fails the phase.  Returns
+    each process's result dict, by rank."""
+    d = os.path.join(DATA_DIR, "multiproc", name)
+    os.makedirs(d, exist_ok=True)
+    spec = os.path.join(d, "spec.json")
+    with open(spec, "w") as f:
+        json.dump({"repo": HERE, "k": K, "shards": shards,
+                   "items": items}, f)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("KMER_TPU_")}
+    if shards:  # every process on card 0, under gloo
+        env["CUDA_VISIBLE_DEVICES"] = "0"
+    port = str(free_port())
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MP_WORKER, str(pid), str(n_proc), port, spec,
+         d], env={**env, "LOCAL_RANK": str(pid)},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for pid in range(n_proc)]
+    outs = [None] * n_proc
+    try:
+        deadline = time.monotonic() + timeout
+        for i, p in enumerate(procs):
+            outs[i] = p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for pid, (p, out) in enumerate(zip(procs, outs)):
+        need(out is not None and p.returncode == 0,
+             f"[multiproc] {name}: worker {pid} exited {p.returncode}: "
+             f"{(out or ('', ''))[1][-3000:]}")
+    res = []
+    for pid in range(n_proc):
+        with open(os.path.join(d, f"result{pid}.json")) as f:
+            res.append(json.load(f))
+    return res
+
+
+def mp_line(r, bases=None):
+    """wall, Mbases/s, peak memory and exchange time a step of an item."""
+    x = r["exchange"]
+    rate = f" = {bases / 1e6 / r['wall']:.2f} Mbases/s" if bases else ""
+    return (f"{r['wall']:.3f} s{rate}, peak device memory "
+            f"{r['peak_gib']:.2f} GiB, {x['steps']} exchanges "
+            f"({x['s'] / max(x['steps'], 1) * 1e3:.2f} ms of host wall a "
+            f"step, {x['bytes'] / 1e6:.0f} MB sent + received)")
+
+
+def phase_multiproc(seed, out):
+    """Runs of two processes, each with two logical shards of the card
+    (four global shards, gloo): kc-c4 -k31 over two 256 Mbase files ==
+    one engine over both (kernels and plain versions), two-file
+    yak-count == phase 10, vaf-counter A == phase 9 (process 0's file
+    alone), single-reader two-file yak-count == phase 10's stdout and
+    phase 14's `[M` lines, a checkpoint kill-and-resume; on a machine of
+    several cards, one process a card under NCCL."""
+    import torch
+
+    from kmer_tpu_torch.pipeline.counter import SortCountEngine
+
+    path = reads_file(MBASES, seed)
+    t0 = time.perf_counter()
+    path2 = reads_file(MBASES, seed + 100)
+    say("multiproc", f"second file {os.path.relpath(path2, HERE)} ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+    path_b = snp_inputs(seed)[2]["B"]
+    fqs = snp_inputs(seed)[2]
+    pat = os.path.join(DATA_DIR, "snp_card", "snps.pat")
+    vaf_dir = os.path.join(DATA_DIR, "multiproc", "vaf")
+    for pid in range(MP_PROCS):
+        vaf = os.path.join(vaf_dir, f"p{pid}", "A.vaf")
+        os.makedirs(os.path.dirname(vaf), exist_ok=True)
+        if os.path.exists(vaf):
+            os.remove(vaf)
+    ck_dir = os.path.join(DATA_DIR, "multiproc", "ckpt")
+    os.makedirs(ck_dir, exist_ok=True)
+    for f in os.listdir(ck_dir):
+        os.remove(os.path.join(ck_dir, f))
+    ckpt = os.path.join(ck_dir, "state.ckpt")
+    bases = MBASES * 1_000_000 // READ_LEN * READ_LEN
+
+    one = SortCountEngine(K, qual_policy=("resume", K, 3))
+    t0 = time.perf_counter()
+    one.count_paths([path, path2])
+    want = hist_text(one)
+    owall = time.perf_counter() - t0
+    need(one.total_bases == 2 * bases, "one engine missed bases")
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    yak_args = [*YAK2_ARGS, path, path_b]
+    items = [
+        {"name": "kc", "kind": "kc", "paths": [path, path2]},
+        {"name": "exchange", "kind": "exchange", "paths": [path, path2]},
+        {"name": "kc_plain", "kind": "kc_plain", "paths": [path, path2]},
+        {"name": "yak2", "kind": "tool", "tool": "yak-count",
+         "args": yak_args},
+        {"name": "vaf", "kind": "tool", "tool": "vaf-counter",
+         "args": [f"-k{SNP_K}", "-p", pat, "-o",
+                  os.path.join(vaf_dir, "p{pid}", "A.vaf"), fqs["A"]]},
+        {"name": "yak2_sr", "kind": "tool", "tool": "yak-count",
+         "args": yak_args, "env": {"KMER_TPU_SINGLE_READER": "1"}},
+        {"name": "save", "kind": "save", "paths": [path], "ckpt": ckpt},
+    ]
+    t0 = time.perf_counter()
+    gen1 = run_multiproc("gen1", items)
+    jwall = time.perf_counter() - t0
+    by = [{r["name"]: r for r in res["results"]} for res in gen1]
+    need(all(res["backend"] == "gloo" for res in gen1),
+         f"two processes on one card did not take gloo: "
+         f"{[res['backend'] for res in gen1]}")
+    p0, p1 = by
+
+    # 1. kc-c4 -k31 over both files, one a process
+    need(p0["kc"]["out"] == want, "kc-c4 on two processes != one engine "
+         "over both files")
+    need(p1["kc"]["out"] == "", "process 1 printed a histogram")
+    need(p0["kc"]["bases"] == 2 * bases, "the processes missed bases")
+    for pid, p in enumerate(by):
+        la = p["kc"]["launches"]
+        need(all(la[n] > 0 for n in KC_PATH_KERNELS),
+             f"kc-c4 on process {pid}: a kernel never launched: {la}")
+        need(not any(la[n] for n in BITONIC_KERNELS),
+             f"kc-c4 on process {pid} ran a bitonic merge: {la}")
+    say("multiproc", f"kc-c4 -k{K} A + A' ({2 * MBASES} Mbases), "
+        f"{MP_PROCS} processes x {MP_SHARDS} shards of the card (gloo): "
+        f"process 0 == one engine over both ({owall:.3f} s = "
+        f"{2 * bases / 1e6 / owall:.2f} Mbases/s), process 1 prints "
+        f"nothing; phase 4 (one engine, A): {out['e2e']['wall']:.3f} s")
+    for pid, p in enumerate(by):
+        say("multiproc", f"  process {pid}: {mp_line(p['kc'], 2 * bases)}; "
+            f"{p['kc']['stats']}")
+        say("multiproc", f"  process {pid} launches: "
+            f"{json.dumps(p['kc']['launches'])}")
+    # the exchange of one step, synchronized (D2H, gloo, H2D)
+    for pid, p in enumerate(by):
+        x = p["exchange"]
+        bound = x["bytes"] / PCIE_BYTES_PER_S * 1e3
+        say("multiproc", f"  process {pid}: one step's exchange ({x['lanes']} "
+            f"lanes in, rows of {x['row_bases']} bases): {x['ms']:.3f} ms "
+            f"(host wall, synchronized, mean of 5); {x['bytes'] / 1e6:.1f} "
+            f"MB across PCIe (D2H + H2D) = {bound:.3f} ms at 64 GB/s "
+            f"({100 * bound / x['ms']:.1f}%)")
+    # 2. plain versions
+    need(p0["kc_plain"]["out"] == want and p1["kc_plain"]["out"] == "",
+         "kc-c4 on two processes: kernels != the plain versions")
+    need(not any(v for p in by for v in p["kc_plain"]["launches"].values()),
+         "the plain run launched a kernel")
+    say("multiproc", f"plain versions: same stdout, "
+        f"{p0['kc_plain']['wall']:.3f} s")
+    # 3. two-file yak-count
+    need(p0["yak2"]["out"] == out["yak2"]["got"][0],
+         "two-file yak-count on two processes != phase 10's stdout")
+    need(p1["yak2"]["out"] == "", "process 1 printed yak-count rows")
+    # each pass reads one file, so process 0 reads (and extracts) both;
+    # every process merges its shards' (key, index) lanes
+    for pid, p in enumerate(by):
+        la = p["yak2"]["launches"]
+        need((la["extract"] > 0 or pid) and all(la[n] > 0
+                                                for n in YAK_TAP_KERNELS),
+             f"two-file yak-count on process {pid}: extract or the (key, "
+             f"index) merge path never launched: {la}")
+        la = p["yak2_sr"]["launches"]
+        need(la["extract"] > 0 and all(la[n] > 0 for n in YAK_TAP_KERNELS),
+             f"single-reader yak-count on process {pid}: extract or the "
+             f"(key, index) merge path never launched: {la}")
+    mb_b = dict((n, mb) for n, _, mb, _ in SNP_SAMPLES)["B"]
+    ybases = bases + mb_b * 1_000_000 // READ_LEN * READ_LEN
+    say("multiproc", f"yak-count {' '.join(YAK2_ARGS)} A B: process 0 == "
+        f"phase 10's stdout ({out['yak2']['wall']:.3f} s), "
+        f"{len(p0['yak2']['lines'])} [M lines")
+    for pid, p in enumerate(by):
+        say("multiproc", f"  process {pid}: {mp_line(p['yak2'], ybases)}; "
+            f"launches {json.dumps(p['yak2']['launches'])}")
+    # 4. vaf-counter A
+    need(read_file(os.path.join(vaf_dir, "p0", "A.vaf")) == read_file(
+        os.path.join(DATA_DIR, "snp_card", "A.vaf")),
+        "vaf-counter A on two processes != phase 9's VAF file")
+    need(not os.path.exists(os.path.join(vaf_dir, "p1", "A.vaf")),
+         "process 1 wrote a VAF file")
+    say("multiproc", f"vaf-counter -k{SNP_K} A: process 0's file == phase "
+        f"9's, process 1 wrote none; {mp_line(p0['vaf'], bases)}")
+    # 5. single reader
+    need(p0["yak2_sr"]["out"] == out["yak2"]["got"][0],
+         "single-reader yak-count != phase 10's stdout")
+    need(p0["yak2_sr"]["lines"] == out["mesh"]["yak2_lines"],
+         "single-reader yak-count's [M lines != phase 14's 4-shard mesh")
+    say("multiproc", f"KMER_TPU_SINGLE_READER=1 yak-count A B: stdout == "
+        f"phase 10's, {len(p0['yak2_sr']['lines'])} [M lines == phase "
+        f"14's 4-shard mesh; {mp_line(p0['yak2_sr'], ybases)}")
+    # 6. checkpoint: generation 1 saved after A and ended; a new one
+    # resumes on a new port and counts A'
+    need(p0["save"]["files"] == ["state.ckpt.proc0of2.npz",
+                                 "state.ckpt.proc1of2.npz"],
+         f"generation 1 wrote {p0['save']['files']}")
+    gen2 = run_multiproc("gen2", [{"name": "resume", "kind": "resume",
+                                   "paths": [path2], "ckpt": ckpt}])
+    r0 = gen2[0]["results"][0]
+    need(r0["out"] == want and r0["bases"] == 2 * bases
+         and gen2[1]["results"][0]["out"] == "",
+         "a checkpoint kill-and-resume != one engine over both files")
+    say("multiproc", f"checkpoint: generation 1 counted A and saved "
+        f"{p0['save']['wall']:.3f} s, a new generation resumed and counted "
+        f"A' ({r0['wall']:.3f} s): hist == one engine over both")
+    say("multiproc", f"first generation's workers: {jwall:.1f} s of wall")
+
+    if torch.cuda.device_count() > 1:
+        n = torch.cuda.device_count()
+        t0 = time.perf_counter()
+        res = run_multiproc("nccl", items[:1] + items[3:4], n_proc=n,
+                            shards=0)
+        need(all(r["backend"] == "nccl" for r in res),
+             "one process a card did not take NCCL")
+        q = [{r["name"]: r for r in x["results"]} for x in res]
+        need(q[0]["kc"]["out"] == want and q[0]["yak2"]["out"]
+             == out["yak2"]["got"][0]
+             and not any(x["kc"]["out"] or x["yak2"]["out"] for x in q[1:]),
+             f"{n} processes under NCCL != one engine / phase 10")
+        say("multiproc", f"{n} processes, one card each (NCCL): kc-c4 == one "
+            f"engine, yak-count == phase 10; {time.perf_counter() - t0:.1f} s")
+        for pid, x in enumerate(q):
+            say("multiproc", f"  process {pid} on cuda:{res[pid]['device']}: "
+                f"kc-c4 {mp_line(x['kc'], 2 * bases)}; yak-count "
+                f"{mp_line(x['yak2'], ybases)}")
+    else:
+        say("multiproc", "one card: only the gloo form ran (NCCL needs a "
+            "card a process)")
+    return {"kc": p0["kc"], "yak2": p0["yak2"]}
 
 
 def main(argv=None):
@@ -2559,7 +2955,8 @@ def main(argv=None):
               ("edvaf", lambda: phase_edvaf(args.seed)),
               ("fixture", phase_fixture),
               ("hosttools", phase_hosttools),
-              ("mesh", lambda: phase_mesh(args.seed, out)))
+              ("mesh", lambda: phase_mesh(args.seed, out)),
+              ("multiproc", lambda: phase_multiproc(args.seed, out)))
     out = {}
     try:
         for phase, fn in phases:

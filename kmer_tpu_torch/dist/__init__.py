@@ -1,1 +1,1 @@
-"""The device mesh: one process, several devices (port of kmer_tpu/dist)."""
+"""The device mesh, in one process or several (port of kmer_tpu/dist)."""

@@ -1,4 +1,4 @@
-"""Sharded k-mer counting over a mesh of devices in one process (port of
+"""Sharded k-mer counting over a mesh of devices (port of
 kmer_tpu/dist/sharded.py: `make_mesh`, the sort-based routing,
 `ShardedSortEngine` and the mesh form of `counts_for`).
 
@@ -29,16 +29,24 @@ A `Mesh` is an ordered list of torch devices with the JAX package's
 device may appear more than once: the tests run eight CPU entries, as
 the JAX suite runs eight virtual CPU devices, and a single card can hold
 several logical shards.
+
+Several processes (torch.distributed, dist/multihost.py) make one mesh
+of every process's shards, process-major as JAX orders `jax.devices()`:
+process p holds global shards p * n_local .. (p + 1) * n_local - 1, and
+`all_to_all` crosses processes with one ragged `all_to_all_single`.
+The factorization and the owners are those of the global shard count.
 """
 
 from __future__ import annotations
 
 import math
 import os
+import time
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import default_device
 from ..kernels import extract
@@ -53,42 +61,101 @@ _MESH_STREAM_CHUNK = 1 << 22
 _MESH_STREAM_MIN = 1 << 12
 
 
-class Mesh:
-    """Devices in shard order, factored as (data, shard) (JAX's
-    `Mesh(devices.reshape(data, shard), ("data", "shard"))`)."""
+# -- processes -------------------------------------------------------------
 
-    def __init__(self, devices: Sequence, data: int, shard: int):
+def process_index() -> int:
+    """This process's rank, 0 unless torch.distributed is initialized."""
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def process_count() -> int:
+    """The world size, 1 unless torch.distributed is initialized."""
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def collective_device() -> torch.device:
+    """Where a collective's tensors live: the process's card under
+    NCCL, the CPU under gloo (whose collectives take host tensors)."""
+    if dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def allgather_ints(values) -> np.ndarray:
+    """Every process's int64 vector (the same length everywhere),
+    stacked in rank order: (process_count, len).  A collective."""
+    t = torch.as_tensor(np.asarray(values, np.int64).ravel()).to(
+        collective_device())
+    out = [torch.empty_like(t) for _ in range(process_count())]
+    dist.all_gather(out, t)
+    return torch.stack(out).cpu().numpy()
+
+
+def allreduce_ints(values, op: str = "sum") -> np.ndarray:
+    """The elementwise sum (or "max") of an int64 vector over the
+    processes.  A collective."""
+    t = torch.as_tensor(np.asarray(values, np.int64).ravel()).to(
+        collective_device())
+    dist.all_reduce(t, op=dist.ReduceOp.MAX if op == "max"
+                    else dist.ReduceOp.SUM)
+    return t.cpu().numpy()
+
+
+class Mesh:
+    """This process's devices in shard order, factored with the rest of
+    the processes' as (data, shard) (JAX's `Mesh(devices.reshape(data,
+    shard), ("data", "shard"))`): `size` counts the shards of every
+    process, `devices` those of this one, which are global shards
+    `first` .. `first` + len(devices) - 1."""
+
+    def __init__(self, devices: Sequence, data: int, shard: int,
+                 n_proc: int = 1, pid: int = 0):
         self.devices = [torch.device(d) for d in devices]
-        assert data * shard == len(self.devices)
+        assert data * shard == len(self.devices) * n_proc
         self.shape = {"data": data, "shard": shard}
+        self.n_proc, self.pid = n_proc, pid
+        self.first = pid * len(self.devices)
 
     @property
     def size(self) -> int:
-        return len(self.devices)
+        return self.shape["data"] * self.shape["shard"]
+
+
+def local_rank() -> int:
+    """LOCAL_RANK (torchrun's name), else the rank: a process's index
+    among those on its host."""
+    return int(os.environ.get("LOCAL_RANK", process_index()))
 
 
 def default_devices() -> List[torch.device]:
-    """The mesh's devices when none are given: every visible CUDA
-    device, or the one CPU device under KMER_TPU_PLATFORM=cpu (the
-    device rule of kmer_tpu_torch.default_device)."""
+    """The mesh's devices when none are given (the device rule of
+    kmer_tpu_torch.default_device): the one CPU device under
+    KMER_TPU_PLATFORM=cpu; in a run of several processes, this process's
+    card, cuda:(LOCAL_RANK % cards), never every visible one; else
+    every visible CUDA device."""
     dev = default_device()
     if dev.type != "cuda":
         return [dev]
-    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    n = torch.cuda.device_count()
+    if process_count() > 1:
+        return [torch.device("cuda", local_rank() % n)]
+    return [torch.device("cuda", i) for i in range(n)]
 
 
 def make_mesh(devices=None, data: Optional[int] = None,
               shard: Optional[int] = None) -> Mesh:
-    """A ("data", "shard") mesh (sharded.py:56-69); without sizes, the
-    most square factorization of the device count."""
+    """A ("data", "shard") mesh (sharded.py:56-69) of `devices` (this
+    process's) and every other process's as many; without sizes, the
+    most square factorization of the global shard count."""
     devices = default_devices() if devices is None else list(devices)
-    n = len(devices)
+    n_proc = process_count()
+    n = len(devices) * n_proc
     if data is None or shard is None:
         for s in range(math.isqrt(n), 0, -1):
             if n % s == 0:
                 data, shard = s, n // s
                 break
-    return Mesh(devices, data, shard)
+    return Mesh(devices, data, shard, n_proc, process_index())
 
 
 def _owner_sort(keys: torch.Tensor, n_dest: int):
@@ -131,9 +198,64 @@ def all_to_all(send: Sequence[Sequence[torch.Tensor]], mesh: Mesh
                ) -> List[torch.Tensor]:
     """Owner j receives cat(send[i][j] for each source i in order), on
     mesh.devices[j]: the tiled, source-ordered all_to_all of
-    sharded.py:309-314 with ragged buckets."""
+    sharded.py:309-314 with ragged buckets.  `send` holds this process's
+    rows, each with a bucket for every global owner; the result holds
+    this process's owners, and with several processes the sources are
+    every process's rows, process-major (`_exchange`)."""
+    if mesh.n_proc > 1:
+        return _exchange(send, mesh)
     return [torch.cat([row[j].to(dev, non_blocking=True) for row in send])
             for j, dev in enumerate(mesh.devices)]
+
+
+# host seconds, steps and bytes of the cross-process exchange, for the
+# smoke's per-step report
+EXCHANGE = {"steps": 0, "s": 0.0, "bytes": 0}
+
+
+def _exchange(send, mesh: Mesh) -> List[torch.Tensor]:
+    """all_to_all across processes.  One all-gather of the lane counts
+    (source row x global owner, rows past this process's padded with 0),
+    then one ragged `all_to_all_single`: the buffer for process q holds
+    q's owners in order, each with this process's rows in order, so what
+    arrives from process p splits into one piece an owner, and owner j
+    is the concatenation of its pieces in process order.  Under gloo the
+    buffers go through pinned host memory; under NCCL they stay on the
+    card."""
+    t0 = time.perf_counter()
+    n_proc, n_loc = mesh.n_proc, len(mesh.devices)
+    counts = np.zeros((n_loc, mesh.size), np.int64)
+    for i, row in enumerate(send):
+        counts[i] = [b.shape[0] for b in row]
+    allc = allgather_ints(counts).reshape(n_proc, n_loc, n_proc, n_loc)
+    dev = collective_device()
+    pieces = [row[q * n_loc + j] for q in range(n_proc)
+              for j in range(n_loc) for row in send]
+    staged = dev.type == "cpu" and any(d.type == "cuda"
+                                       for d in mesh.devices)
+    if pieces and not staged:
+        buf = torch.cat([p.to(dev) for p in pieces])
+    elif pieces:
+        card = torch.cat([p.to(mesh.devices[0]) for p in pieces])
+        buf = torch.empty(card.shape, dtype=torch.int64, pin_memory=True)
+        buf.copy_(card)
+    else:
+        buf = torch.empty(0, dtype=torch.int64, device=dev)
+    in_splits = counts.reshape(n_loc, n_proc, n_loc).sum(axis=(0, 2))
+    # (source process, my owner) lanes
+    mine = allc[:, :, mesh.pid, :].sum(axis=1)
+    recv = torch.empty(int(mine.sum()), dtype=torch.int64, device=dev,
+                       pin_memory=staged)
+    dist.all_to_all_single(recv, buf, mine.sum(axis=1).tolist(),
+                           in_splits.tolist())
+    parts = torch.split(recv, mine.ravel().tolist())
+    out = [torch.cat([parts[p * n_loc + j].to(d, non_blocking=True)
+                      for p in range(n_proc)])
+           for j, d in enumerate(mesh.devices)]
+    EXCHANGE["steps"] += 1
+    EXCHANGE["bytes"] += 8 * (int(buf.shape[0]) + int(recv.shape[0]))
+    EXCHANGE["s"] += time.perf_counter() - t0
+    return out
 
 
 class ShardedSortEngine:
@@ -209,7 +331,7 @@ class ShardedSortEngine:
         rb = row_bytes if row_bytes and row_bytes > self.k else None
         if ingest == "packed_structural" and rb is None:
             raise ValueError("structural packed ingest needs row_bytes")
-        assert len(rows) <= self.n_dev, "more rows than shards"
+        assert len(rows) <= len(self.mesh.devices), "more rows than shards"
         keys = []
         for i, row in enumerate(rows):
             dev = self.mesh.devices[i]
@@ -238,26 +360,33 @@ class ShardedSortEngine:
         for comp in self.shards:
             comp.compact()
 
+    def _sum_procs(self, v: np.ndarray) -> np.ndarray:
+        """v summed over the processes (a collective) when there are
+        several: the JAX package's psum over "data" and "shard"."""
+        return allreduce_ints(v) if self.mesh.n_proc > 1 else v
+
     def hist(self, n_bins: int, max_count=None, min_keep: int = 1):
         """The histogram summed over the shards (keys are uniquely owned,
         sharded.py:356-357); _n_distinct is their distinct total, 0 with
         no input."""
-        h, nd = np.zeros(n_bins, np.int64), 0
+        h = np.zeros(n_bins + 1, np.int64)
         for comp in self.shards:
             hs, nds = comp.hist(n_bins, max_count, min_keep)
-            h += hs
-            nd += nds
-        self._n_distinct = nd
-        return h
+            h[:n_bins] += hs
+            h[n_bins] += nds
+        h = self._sum_procs(h)
+        self._n_distinct = int(h[n_bins])
+        return h[:n_bins]
 
     def counts_for(self, query_hi, query_lo) -> np.ndarray:
         """Total multiplicity of each query key, in query order: the sum
         of the shards' answers, of which only the owner's can be nonzero
-        (sharded_counts_for_fn, sharded.py:852-876)."""
+        (sharded_counts_for_fn, sharded.py:852-876).  With several
+        processes every one must ask the same queries."""
         out = np.zeros(len(query_hi), np.int64)
         for comp in self.shards:
             out += comp.counts_for(query_hi, query_lo)
-        return out
+        return self._sum_procs(out)
 
     def save_checkpoint(self, path: str) -> None:
         """Every shard compacted to (key, count) runs, written in the JAX
@@ -265,7 +394,11 @@ class ShardedSortEngine:
         shape (data, shard, L), sentinel keys with count 0 past each
         shard's run, L the largest run rounded up to JAX's size class
         (:735; 1 when every shard is empty), meta = [k, total_kmers,
-        total_dropped = 0].  Written to a temporary file and renamed."""
+        total_dropped = 0].  Written to a temporary file and renamed.
+        One process only: dist.multihost writes a file a process."""
+        if self.mesh.n_proc > 1:
+            raise ValueError("a mesh of several processes saves through "
+                             "dist.multihost.MultihostSortEngine")
         self.compact()
         runs = [comp.runs[0] if comp.runs else None for comp in self.shards]
         n_max = max((int(r[0].shape[0]) for r in runs if r is not None),

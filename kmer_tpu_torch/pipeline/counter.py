@@ -1,7 +1,8 @@
 """The end-to-end k-mer counting engines (port of
 kmer_tpu/pipeline/counter.py): SortCountEngine on one device, and
 MeshSortCountEngine on the single-process mesh (dist/sharded.py), which
-`make_count_engine` picks under `use_mesh()`.
+`make_count_engine` picks under `use_mesh()`; in a run of several
+processes it picks dist/multihost.py's MultihostSortEngine.
 
   reader thread:  the native C++ reader (io/native, a copy of the JAX
                   package's) decompresses, parses and packs reads into
@@ -678,8 +679,15 @@ class MeshSortCountEngine:
 def make_count_engine(k: int, block_bases: int = 10_000_000,
                       budget_bytes: int = 2 << 30, prefetch: bool = True,
                       qual_policy=None):
-    """The CLI tools' engine factory (counter.py:845-866 without its
-    multi-process branch): the mesh engine when use_mesh(), else one
-    engine on the default device (see default_device)."""
-    cls = MeshSortCountEngine if use_mesh() else SortCountEngine
+    """The CLI tools' engine factory (counter.py:845-866): the engine of
+    every process's shards in a run of several (torch.distributed
+    initialized, dist.multihost.initialize), the mesh engine when
+    use_mesh(), else one engine on the default device (see
+    default_device).  All give the same histograms and counts."""
+    from ..dist import multihost, sharded
+
+    if sharded.process_count() > 1:
+        cls = multihost.MultihostSortEngine
+    else:
+        cls = MeshSortCountEngine if use_mesh() else SortCountEngine
     return cls(k, block_bases, budget_bytes, prefetch, qual_policy)

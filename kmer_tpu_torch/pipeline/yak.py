@@ -17,7 +17,8 @@ default) and counts the admitted lanes in one compactor; pass 2 counts
 file 2 in a second compactor; the shrink joins the two by one stable
 sort.
 
-On the mesh (pipeline/counter.py `use_mesh`) two-file yak-count runs
+On the mesh (pipeline/counter.py `use_mesh`), and in a run of several
+processes (dist/multihost.py), two-file yak-count runs
 `MeshSortYakEngine`: no bits array; each step's k-mers are routed to
 their owners (dist/sharded.py, ragged owner buckets in stream order
 where the JAX package sends sentinel-padded windows of fixed width),
@@ -352,14 +353,33 @@ class SortYakEngine:
 
 
 def _mesh_row_batches(eng, paths: Sequence[str], st: IngestStats):
-    """The mesh yak engine's steps (yak.py:575-598, one process): n_dev
-    reader blocks of row_bases bases a step (capacity_block = row_bases +
-    4096), the last step short, row_bytes kept only when every row shares
-    it, ASCII ingest always.  Yields (rows, row_bytes, n_seqs)."""
+    """The mesh yak engine's steps (yak.py:508-598), ASCII ingest always.
+    Yields (this process's rows, row_bytes, the step's n_seqs).
+
+    One process: n_dev reader blocks of row_bases bases a step
+    (capacity_block = row_bases + 4096), the last step short, row_bytes
+    kept only when every row shares it.
+
+    Several processes: each reads its own files (dist.multihost
+    `shard_files`) in n_local blocks of row_bases bases, row_bases wide,
+    every process stepping in lockstep and n_seqs summed over them.
+    KMER_TPU_SINGLE_READER=1 instead has process 0 read every file and
+    broadcast global batches of capacity_block-wide rows: batch
+    composition, bloom admission order and the `[M` lines then match a
+    1-process run of the same mesh (PARITY.md divergences 8 and 10)."""
     pin = any(d.type == "cuda" for d in eng.mesh.devices)
+    policy = ("resume", eng.k, 3)
+    if eng.mesh.n_proc > 1:
+        from ..dist import multihost
+
+        for rows, rb, _nb, ns in multihost.process_steps(
+                paths, eng.k, eng.row_bases, eng.mesh, policy, pin, True, st,
+                capacity=eng.capacity_block):
+            yield rows, rb, ns
+        return
     for rows, rb, _aux, _ingest, _nb, n_seqs in mesh_steps(
-            paths, eng.k, eng.row_bases, eng.capacity_block,
-            ("resume", eng.k, 3), eng.n_dev, False, pin, True, st):
+            paths, eng.k, eng.row_bases, eng.capacity_block, policy,
+            eng.n_dev, False, pin, True, st):
         yield rows, rb, n_seqs
 
 
@@ -483,6 +503,8 @@ class MeshSortYakEngine:
             h, t = _shrink_join_core(keys1, keys2, c2, min_count, max_count)
             hist += h.cpu().numpy()
             tot += int(t)
+        both = self._route._sum_procs(np.append(hist, tot))
+        hist, tot = both[:-1], int(both[-1])
         hist[0] = 0  # bin 0 counts the dropped lanes
         self._hist, self.tot = hist, tot
 
@@ -494,10 +516,14 @@ class MeshSortYakEngine:
 
 
 def make_yak_engine(**kw):
-    """The two-file engine (yak.py:1117-1131 without the table engines
-    and the multi-process branch): MeshSortYakEngine when the tools count
-    on the mesh (pipeline.counter.use_mesh), else SortYakEngine."""
-    return MeshSortYakEngine(**kw) if use_mesh() else SortYakEngine(**kw)
+    """The two-file engine (yak.py:1117-1131 without the table engines):
+    MeshSortYakEngine in a run of several processes or when the tools
+    count on the mesh (pipeline.counter.use_mesh), else SortYakEngine."""
+    from ..dist.sharded import process_count
+
+    if process_count() > 1 or use_mesh():
+        return MeshSortYakEngine(**kw)
+    return SortYakEngine(**kw)
 
 
 def yak_count_file(fn1: str, fn2: Optional[str], opt: SortYakEngine

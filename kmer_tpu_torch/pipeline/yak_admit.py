@@ -427,7 +427,7 @@ class ShardedDeferredYak:
 
     def finish(self):
         """(admitted keys a shard, per-step newly admitted counts summed
-        over the shards, total admitted).  A shard's admitted keys are
+        over the shards and the processes, total admitted).  A shard's admitted keys are
         key-sorted with the rest SENT, as the shrink join takes them;
         empty for a shard that owns no key."""
         keys, per_step, tot = [], 0, 0
@@ -436,4 +436,9 @@ class ShardedDeferredYak:
             keys.append(k if k is not None else torch.full(
                 (0,), SENT, dtype=torch.int64, device=adm.fs.device))
             per_step, tot = per_step + ps, tot + t
+        if self.mesh.n_proc > 1:  # every process has stepped alike
+            from ..dist.sharded import allreduce_ints
+
+            both = allreduce_ints([*per_step, tot])
+            per_step, tot = both[:-1], int(both[-1])
         return keys, per_step, tot

@@ -3,8 +3,9 @@ the PyTorch/CUDA engine, and kc-py1, kc-cpp1 and kc-cpp2, the
 raw-string-keyed baselines, as host code copied from the JAX package.
 
 Same flags, defaults, usage and error text, and the same stdout: 255
-`count\tnum_distinct` rows.  The -p/-t flags are accepted for CLI parity;
-the engine is one device (kmer_tpu_torch.pipeline.counter).
+`count\tnum_distinct` rows, printed by process 0 alone in a run of
+several processes (utils.log.is_primary).  The -p/-t flags are accepted
+for CLI parity; the engine is pipeline.counter.make_count_engine's.
 """
 
 from __future__ import annotations
@@ -13,11 +14,14 @@ import sys
 
 from ..pipeline.counter import make_count_engine
 from ..utils.cli import c_atoi, ketopt
+from ..utils.log import is_primary
 
 KC_BITS = 10  # kc-c2.c:10 / kc-c4.c:11
 
 
 def _print_hist(hist, lo=1, hi=256):
+    if not is_primary():  # one histogram a run, not one a process
+        return
     out = []
     for i in range(lo, hi):
         out.append(f"{i}\t{hist[i]}")

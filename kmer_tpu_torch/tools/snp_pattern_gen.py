@@ -10,12 +10,14 @@ genome on the port's engine (records of mixed length take the flat
 extraction form) and reads the candidates' counts back with
 one `counts_for` call (the candidate-map filter of
 count_candidate_kmers, snp-pattern-gen.c:162-190, falls out of querying
-only candidates); passes 1/3 are tiny host-side k-mer ops.  The port
-runs as one process, so the pattern file is always written.
+only candidates); passes 1/3 are tiny host-side k-mer ops.  In a run of
+several processes only process 0 writes the pattern file
+(utils.log.is_primary); the others write to os.devnull.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 
 import numpy as np
@@ -24,7 +26,7 @@ from ..io.fastx import FastxReader
 from ..io.formats import read_bed_snps, write_pattern_row
 from ..pipeline.counter import make_count_engine
 from ..utils.cli import c_atoi, ketopt
-from ..utils.log import minfo
+from ..utils.log import is_primary, minfo
 from ..utils.seq import canonical_kmer, encode_kmer, hash64_np
 
 
@@ -145,7 +147,9 @@ def main(argv=None):
             counts[key] = cnt
 
     n_total = n_unique = 0
-    with open(out_fn, "w", encoding="latin-1") as out_fp:
+    # one pattern file a run (the counts are the same on every process)
+    out_path = out_fn if is_primary() else os.devnull
+    with open(out_path, "w", encoding="latin-1") as out_fp:
         for entry in per_snp:
             n_total += 1
             if entry is None:

@@ -13,8 +13,8 @@ the stream-sorted ladder), and ALL pattern k-mers resolve at the end
 with one `counts_for` call (compactor.counts_for: two binary searches a
 map key over the sorted key plane) — the analog of worker_lookup's
 per-k-mer hash probe + atomic increments (vaf-counter.c:449-479), turned
-inside out.  The port runs as one process, so the VAF file is always
-written.
+inside out.  In a run of several processes only process 0 writes the
+VAF file (utils.log.is_primary); the counts are the same on every one.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ import torch
 from ..io.formats import read_patterns, write_vaf_file
 from ..pipeline.counter import make_count_engine
 from ..utils.cli import c_atoi, ketopt
-from ..utils.log import minfo, verbose, warn
+from ..utils.log import is_primary, minfo, verbose, warn
 from ..utils.seq import canonical_kmer, encode_kmer, hash64_np
 
 
@@ -178,7 +178,11 @@ def main(argv=None):
 
     minfo("main", "Writing VAF file...")
     t0 = time.time()
-    avg_depth = write_vaf_file(out_fn, patterns)
+    if is_primary():  # one VAF file a run (the counts are all-reduced)
+        avg_depth = write_vaf_file(out_fn, patterns)
+    else:
+        total = sum(p.ref_count + p.alt_count for p in patterns)
+        avg_depth = total / (len(patterns) if patterns else 1)
     time_write = time.time() - t0
     minfo("main", f"Done. Average depth: {avg_depth:.2f}")
 

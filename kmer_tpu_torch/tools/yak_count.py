@@ -12,9 +12,11 @@ pre-shrink total.  KMER_TPU_FAST_YAK=1 skips the simulation and prints
 one summary line instead.  With two different files, where the bloom's
 false positives show in the output, the two-pass engine runs as the
 reference does (pipeline/yak.py `SortYakEngine`, `yak_count_file`).  On
-the mesh (pipeline/counter.py `use_mesh`) the count engine and the
-two-file engine are the mesh's, and one file prints a single `[M` line
-for its whole pass.  The -t flag is accepted for CLI parity.
+the mesh (pipeline/counter.py `use_mesh`), and in a run of several
+processes, the count engine and the two-file engine are the mesh's, and
+one file prints a single `[M` line for its whole pass; stdout comes from
+process 0 alone (utils.log.is_primary).  The -t flag is accepted for
+CLI parity.
 """
 
 from __future__ import annotations
@@ -22,17 +24,24 @@ from __future__ import annotations
 import os
 import sys
 
-from ..pipeline.counter import (InputError, MeshSortCountEngine,
-                                make_count_engine)
+from ..dist.sharded import process_count
+from ..pipeline.counter import InputError, make_count_engine, use_mesh
 from ..pipeline.yak import (YAK_COUNTER_BITS, YAK_MAX_COUNT, YAK_N_COUNTS,
                             YakSimTap, make_yak_engine, yak_count_file)
 from ..utils.cli import c_atoi, ketopt
+from ..utils.log import is_primary
 
 
 def _log(n_seqs, tot):
     sys.stderr.write(
         f"[M] processed {n_seqs} sequences; {tot} distinct k-mers in the hash table\n"
     )
+
+
+def _print_rows(h):
+    if is_primary():  # one histogram a run, not one a process
+        sys.stdout.write("\n".join(f"{i}\t{h[i]}"
+                                   for i in range(1, YAK_N_COUNTS)) + "\n")
 
 
 def main(argv=None):
@@ -78,13 +87,14 @@ def main(argv=None):
 
     fast = os.environ.get("KMER_TPU_FAST_YAK", "").strip().lower() in (
         "1", "true", "on", "yes")
-    eng = make_count_engine(k=k, block_bases=chunk,
-                            qual_policy=("resume", k, 3))
-    sim = None
     # the mesh's steps are partitioned by device, so it prints one
     # summary line instead of the per-batch simulation (yak_count.py:
     # 87-103; PARITY.md divergence 8)
-    if not fast and not isinstance(eng, MeshSortCountEngine):
+    mesh_like = process_count() > 1 or use_mesh()
+    eng = make_count_engine(k=k, block_bases=chunk,
+                            qual_policy=("resume", k, 3))
+    sim = None
+    if not fast and not mesh_like:
         sim = YakSimTap(pre=pre, bf_shift=bf_shift, bf_n_hash=bf_n_hash,
                         log=_log, device=eng.device,
                         plain_kernels=eng.plain_kernels)
@@ -110,8 +120,7 @@ def main(argv=None):
     if sim is None:
         _log(eng.total_seqs, tot)
     sys.stderr.write(f"[M::main] {tot} distinct k-mers after shrinking\n")
-    out = [f"{i}\t{h[i]}" for i in range(1, YAK_N_COUNTS)]
-    sys.stdout.write("\n".join(out) + "\n")
+    _print_rows(h)
     return 0
 
 
@@ -129,6 +138,5 @@ def _two_files(fn1, fn2, k, pre, chunk, bf_shift, bf_n_hash):
     h = eng.hist()
     sys.stderr.write(
         f"[M::main] {eng.tot} distinct k-mers after shrinking\n")
-    out = [f"{i}\t{h[i]}" for i in range(1, YAK_N_COUNTS)]
-    sys.stdout.write("\n".join(out) + "\n")
+    _print_rows(h)
     return 0
