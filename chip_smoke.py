@@ -2,7 +2,8 @@
 """chip_smoke.py — run the port's kc-c4, yak-count (one file and two),
 SNP-fingerprint and ed-vaf-counter paths on one GPU, with ASCII and
 packed 2-bit ingest, its host-only tools, the mesh on logical shards
-of the card, and runs of several processes.
+of the card, runs of several processes, and the open-addressing table
+engines.
 
 Usage: python3 chip_smoke.py [--seed N]
 
@@ -132,14 +133,32 @@ Phases, each printing its own lines:
               step (D2H + gloo + H2D, synchronized) beside its PCIe byte
               bound.  On a machine of several cards, one process a card
               under NCCL: kc-c4 and two-file yak-count again
+ 16. table    the open-addressing table engines (KMER_TPU_TABLE_YAK=1):
+              the slot-resolve kernel (csrc/table.cu) against its plain
+              version on the first three 10 Mbase blocks of A (a fresh
+              table; a table near GROW_LOAD holding tombstones, and
+              insert_gated's planes there; lookups with create_new off),
+              with rounds, probe-lanes, both times (CUDA events), the
+              byte bound (random 32-byte sectors) and the launch floor
+              of a round, and the plain-torch count delta, first lane
+              and hist beside their bounds; `KMER_TPU_TABLE_YAK=1
+              yak-count -k31 -b30 A B` through the tool (YakEngine):
+              stdout and `[M` lines == phase 10's, extract and resolve
+              launch and no merge or seghist kernel; wall, Mbases/s,
+              peak memory, final capacity, rebuilds, rounds; a
+              checkpoint saved after pass 1 and resumed on the card ==
+              phase 10's stdout; MeshYakEngine on phase 14's 4 shards
+              (== phase 10's stdout, phase 14's `[M` lines) and in phase
+              15's two processes (== phase 10's stdout, phase 15's `[M`
+              lines)
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; the kernels line takes the counts of extract, seghist and the
-int64 merge path from phase 4, the int32 merge path's from phase 8 and
-the (key, index) merge path's from phase 6 (phases 7, 10, 14 and 15
-print their own).  No path may launch a
-bitonic kernel, and after every phase neither jax nor any module of the
-JAX package (kmer_tpu) may be loaded.
+int64 merge path from phase 4, the int32 merge path's from phase 8, the
+(key, index) merge path's from phase 6 and resolve's from phase 16's
+tool run (phases 7, 10, 14 and 15 print their own).  No path may launch
+a bitonic kernel, and after every phase neither jax nor any module of
+the JAX package (kmer_tpu) may be loaded.
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero without
@@ -485,8 +504,9 @@ def merge_path_rows(rows, sfx, runs, cases, sizes):
     and at 2^lg output lanes for lg in sizes (two 2^(lg-1)-lane runs, 15%
     sentinel lanes), and the ways to compute the whole merge timed in
     turns on the same runs: the kernels, the plain version, torch.sort
-    (library_ms; no one PyTorch call sorts (key, index) lanes) and the
-    old bitonic merge with the concatenation it needs, each as a run of
+    (library_ms; for (key, index) lanes the two stable torch.sort calls
+    of key_idx_sort, as no one PyTorch call sorts them) and the old
+    bitonic merge with the concatenation it needs, each as a run of
     calls between two events.  A run is a tuple of planes.  The kernels line takes the 2^25 numbers (the ladder's
     first merge)."""
     import torch
@@ -557,22 +577,23 @@ def merge_path_rows(rows, sfx, runs, cases, sizes):
             "partition_plain": lambda: partition_plain(*a, *b, tile),
             "bitonic+cat": lambda: old(*cat(a, b)),
         }
-        if sfx != "3":
-            ways["torch.sort"] = lambda: sort(*cat(a, b))
+        # (key, index) lanes: a sort by index, then a stable one by key
+        ways["torch.sort"] = lambda: sort(*cat(a, b))
         times = {w: [] for w in ways}
         for w in [*ways, *reversed(ways)]:  # in turns, both ways round
             times[w].append(time_run_ms(ways[w]))
         t = {w: sum(v) / len(v) for w, v in times.items()}
         nbytes = 2 * lane_bytes * n + 8 * splits.shape[0]
-        lib = t.get("torch.sort")
+        lib = t["torch.sort"]
+        lib_name = ("two stable torch.sort" if sfx == "3"
+                    else "torch.sort")
         say("kernels", f"{name} 2^{lg} lanes (two 2^{lg - 1}-lane runs): "
             f"equal to the sort; merge_path{sfx} {t['merge_path']:.3f} ms + "
             f"merge_partition{sfx} {t['merge_partition']:.3f} ms (together "
             f"{t['merge_runs']:.3f} ms), bound "
             f"{nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms; plain "
-            f"{t['plain']:.3f} ms; "
-            + (f"torch.sort {lib:.3f} ms; " if lib is not None else "")
-            + f"bitonic merge + cat {t['bitonic+cat']:.3f} ms")
+            f"{t['plain']:.3f} ms; {lib_name} {lib:.3f} ms; "
+            f"bitonic merge + cat {t['bitonic+cat']:.3f} ms")
         if lg == 25:
             rows[name] = kernel_row(e, t["merge_path"], t["plain"], nbytes,
                                     lib)
@@ -2229,6 +2250,9 @@ KERNELS = [
      "kmer_tpu/kernels/bitonic.py:232"),
     ("merge_partition3", "kmer_tpu_torch/csrc/merge.cu",
      "kmer_tpu/kernels/bitonic.py:121"),
+    # not a Pallas kernel: the while_loop of count_table.resolve_slots
+    ("resolve", "kmer_tpu_torch/csrc/table.cu",
+     "kmer_tpu/table/count_table.py:74"),
 ]
 
 
@@ -2924,6 +2948,391 @@ def phase_multiproc(seed, out):
     return {"kc": p0["kc"], "yak2": p0["yak2"]}
 
 
+# -- phase 16: the open-addressing table engines (KMER_TPU_TABLE_YAK=1) -----
+
+# the table path runs extract and the slot resolve, and no merge and no
+# segment histogram: that is what shows KMER_TPU_TABLE_YAK=1 switched
+TABLE_KERNELS = ("extract", "resolve")
+SECTOR_BYTES = 32  # a random access moves one 32-byte sector
+
+
+@contextlib.contextmanager
+def recording_resolves():
+    """Record each resolve kernel call's (rounds, probes, lanes)."""
+    from kmer_tpu_torch.kernels import table as kt
+
+    calls, real = [], kt.resolve_slots_kernel
+
+    def record(state, tkey, keys, valid, create_new):
+        r = real(state, tkey, keys, valid, create_new)
+        calls.append((r.rounds, r.probes, keys.shape[0]))
+        return r
+
+    kt.resolve_slots_kernel = record
+    try:
+        yield calls
+    finally:
+        kt.resolve_slots_kernel = real
+
+
+@contextlib.contextmanager
+def recording_table_engines():
+    """Keep the engines that yak-count's two-file branch builds."""
+    from kmer_tpu_torch.tools import yak_count
+
+    made, real = [], yak_count.make_yak_engine
+
+    def record(**kw):
+        made.append(real(**kw))
+        return made[-1]
+
+    yak_count.make_yak_engine = record
+    try:
+        yield made
+    finally:
+        yak_count.make_yak_engine = real
+
+
+def first_blocks(path, n):
+    """The first n extracted 10 Mbase blocks of path on the card (key
+    planes, as the engines' reader and the extract kernel give them)."""
+    import torch
+
+    from kmer_tpu_torch.kernels import extract
+    from kmer_tpu_torch.pipeline import counter
+
+    chunk = 10_000_000
+    it = counter._extracted_blocks(
+        [path], K, chunk, chunk + max(4096, chunk // 32), ("resume", K, 3),
+        torch.device("cuda"), False, extract.extract_keys,
+        extract.extract_keys_rows, counter.IngestStats())
+    out = [next(it)[0] for _ in range(n)]
+    it.close()
+    return out
+
+
+def resolve_bytes(r, m, cap):
+    """The least bytes of one resolve: the keys (8 B) and valid flags in,
+    slot (8 B) and found out a lane, created out a slot, and for each
+    probe of each round the random sectors of its state byte and of its
+    key (the data decides the probes: this call's count)."""
+    return m * (8 + 1 + 8 + 1) + cap + r.probes * 2 * SECTOR_BYTES
+
+
+def resolve_case(label, table, keys, create_new, floor_ms):
+    """The resolve kernel against its plain version on copies of one
+    table's planes, timed in turns (CUDA events, setup outside);
+    (max_abs_err, kernel ms, plain ms, bytes, Resolved)."""
+    import torch
+
+    from kmer_tpu_torch.kernels import table as kt
+    from kmer_tpu_torch.kernels.keys import SENT
+
+    valid = keys != SENT
+    st0, k0 = table.state, table.key
+    a = (st0.clone(), k0.clone())
+    b = (st0.clone(), k0.clone())
+    got = kt.resolve_slots_kernel(*a, keys, valid, create_new)
+    want = kt.resolve_slots_plain(*b, keys, valid, create_new)
+    err = max(max_abs_err(x, y) for x, y in (
+        (a[0], b[0]), (a[1], b[1]), (got.slot, want.slot),
+        (got.found, want.found), (got.created, want.created)))
+    need(err == ERR_FREE and (got.rounds, got.probes)
+         == (want.rounds, want.probes),
+         f"[table] resolve {label}: kernel != plain (max err {err}, "
+         f"rounds {got.rounds} / {want.rounds})")
+    del a, b, want
+
+    def setup():
+        return st0.clone(), k0.clone()
+
+    ms, plain_ms = [], []
+    for turn in ("kernel", "plain", "plain", "kernel"):
+        fn = (kt.resolve_slots_kernel if turn == "kernel"
+              else kt.resolve_slots_plain)
+        (ms if turn == "kernel" else plain_ms).append(time_ms(
+            lambda p: fn(*p, keys, valid, create_new), setup, reps=3))
+    ms, plain_ms = sum(ms) / 2, sum(plain_ms) / 2
+    m, cap = keys.shape[0], table.capacity
+    nbytes = resolve_bytes(got, m, cap)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    say("table", f"resolve {label}: {m} lanes ({int(valid.sum())} valid) "
+        f"into {cap} slots ({int(table.n_full)} FULL before), create_new "
+        f"{create_new}: kernel == plain; {got.rounds} rounds, {got.probes} "
+        f"probe-lanes ({got.probes / max(int(valid.sum()), 1):.3f} a lane); "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms; bound "
+        f"{nbytes / 1e6:.1f} MB = {bound:.4f} ms ({100 * bound / ms:.1f}%); "
+        f"launch floor {got.rounds} rounds x {floor_ms:.4f} ms = "
+        f"{got.rounds * floor_ms:.4f} ms")
+    return err, ms, plain_ms, nbytes, got
+
+
+def round_floor_ms(dev, chain=256):
+    """One round's floor (two launches, the count's memset and its
+    4-byte read back, over one lane): a lookup whose probe chain is
+    `chain` slots long (FULL with another key, then EMPTY) takes chain + 1
+    rounds, a lookup at an EMPTY slot one; the floor is the difference
+    over chain, each timed as a run of 20 calls."""
+    import torch
+
+    from kmer_tpu_torch.kernels import table as kt
+    from kmer_tpu_torch.kernels.hash64 import slot_mix32
+    from kmer_tpu_torch.table import count_table as ct
+
+    cap = 1 << 16
+    one = torch.tensor([12345], dtype=torch.int64, device=dev)
+    ok = torch.ones(1, dtype=torch.bool, device=dev)
+    empty, walk = ct.make(cap, dev), ct.make(cap, dev)
+    base = int(slot_mix32(one)) & (cap - 1)
+    run = (base + torch.arange(chain, device=dev)) & (cap - 1)
+    walk.state[run] = ct.FULL
+    walk.key[run] = 54321
+    ms = [time_run_ms(lambda t=t: kt.resolve_slots_kernel(
+        t.state, t.key, one, ok, False), reps=20) for t in (empty, walk)]
+    r = kt.resolve_slots_kernel(walk.state, walk.key, one, ok, False)
+    need(r.rounds == chain + 1, f"the floor's chain took {r.rounds} rounds")
+    return (ms[1] - ms[0]) / chain
+
+
+def plain_parts(table, slot, contrib, keys):
+    """The table's plain-torch device parts at the path's shapes, timed
+    as a run of 5 calls (CUDA events), each with its byte bound: the
+    count delta (index_add_ on int64, & 0xFFFFFFFF, the min), the first
+    lane a slot (scatter_reduce amin) and hist (one bincount)."""
+    import torch
+
+    from kmer_tpu_torch.table import count_table as ct
+
+    cap, m = table.capacity, keys.shape[0]
+    lane = torch.arange(m, device=keys.device)
+
+    def delta():
+        return ct._add_counts(table, ct._slot_delta(cap, slot, contrib), 1023)
+
+    def first():
+        f = torch.full((cap + 1,), m, dtype=torch.int64, device=keys.device)
+        return f.scatter_reduce_(0, slot, lane, "amin")[slot] == lane
+
+    parts = {
+        # slot and flag in, cnt read and written
+        "count delta": (delta, m * 9 + cap * 8),
+        # slot in, the first-lane plane and a flag a lane out
+        "first lane": (first, m * 8 + (cap + 1) * 8 + m),
+        # state and cnt in, 1024 bins out
+        "hist": (lambda: ct.hist(table, 1024), cap * 5 + 1024 * 8),
+    }
+    rows = {}
+    for name, (fn, nbytes) in parts.items():
+        ms = time_run_ms(fn)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        rows[name] = (ms, bound)
+        say("table", f"{name} (plain torch), {m} lanes over {cap} slots: "
+            f"{ms:.4f} ms; bound {nbytes / 1e6:.1f} MB = {bound:.4f} ms "
+            f"({100 * bound / ms:.1f}%)")
+    return rows
+
+
+def yak_rows_text(h):
+    return "\n".join(f"{i}\t{h[i]}" for i in range(1, len(h))) + "\n"
+
+
+def phase_table(seed, out):
+    """The open-addressing table engines: the resolve kernel against its
+    plain version on the first three 10 Mbase blocks of A (a fresh
+    table; a table near GROW_LOAD holding tombstones, through
+    insert_gated; lookups), `KMER_TPU_TABLE_YAK=1 yak-count -k31 -b30 A
+    B` through the tool (== phase 10's stdout and `[M` lines; extract
+    and resolve launch, no merge and no seghist), a YakEngine checkpoint
+    saved after pass 1 and resumed on the card (== phase 10's stdout),
+    and the table engine on phase 14's 4 shards of the card and in phase
+    15's two processes (== phase 10's stdout)."""
+    import torch
+
+    from kmer_tpu_torch.kernels import _build, bloom
+    from kmer_tpu_torch.kernels.keys import SENT
+    from kmer_tpu_torch.pipeline import yak
+    from kmer_tpu_torch.pipeline.counter import GROW_LOAD
+    from kmer_tpu_torch.table import count_table as ct
+
+    dev = torch.device("cuda")
+    path_a = reads_file(MBASES, seed)
+    path_b = snp_inputs(seed)[2]["B"]
+    args = [*YAK2_ARGS, path_a, path_b]
+    blocks = first_blocks(path_a, 3)
+    floor = round_floor_ms(dev)
+    say("table", f"one round's floor (one lane: 2 launches, a memset, the "
+        f"4-byte read back): {floor:.4f} ms")
+
+    # 1. a fresh table sized for block 1, as YakEngine._maybe_grow sizes it
+    n1 = int((blocks[0] != SENT).sum())
+    cap = 1 << 20
+    while n1 > GROW_LOAD * cap:
+        cap *= 2
+    err, ms, plain_ms, nbytes, r = resolve_case(
+        "block 1, fresh table", ct.make(cap, dev), blocks[0], True, floor)
+    row = {**kernel_row(err, ms, plain_ms, nbytes), "rounds": r.rounds,
+           "probes": r.probes}
+    # 2. blocks 1-2 bloom-gated into 2^25 slots, as the engine inserts
+    # them but with no rebuild, so their tombstones stay: block 3's worst
+    # case then lies past GROW_LOAD, and still fits
+    spec = bloom.BloomSpec(10, 30, 4)
+    bits = bloom.make_bits(spec, dev)
+    t = ct.make(1 << 25, dev)
+    for keys in blocks[:2]:
+        v = keys != SENT
+        bits, preset = bloom.insert_sequential(bits, keys, v, spec)
+        t, _n, _d = ct.insert_gated(t, keys, v, preset, yak.YAK_MAX_COUNT)
+    n_dead = int((t.state == ct.DELETED).sum())
+    n3 = int((blocks[2] != SENT).sum())
+    say("table", f"before block 3: {int(t.n_full)} FULL, {n_dead} DELETED "
+        f"in {t.capacity} slots ({(int(t.n_full) + n_dead) / t.capacity:.3f}"
+        f"); with block 3's {n3} lanes at worst "
+        f"{(int(t.n_full) + n_dead + n3) / t.capacity:.3f} (GROW_LOAD "
+        f"{GROW_LOAD})")
+    e2, ms2, pms2, nb2, _r2 = resolve_case(
+        "block 3, near GROW_LOAD with tombstones", t, blocks[2], True, floor)
+    valid3 = blocks[2] != SENT
+    bits, preset = bloom.insert_sequential(bits, blocks[2], valid3, spec)
+    res = []
+    for plain in (False, True):
+        c = ct.CountTable(t.state.clone(), t.key.clone(), t.cnt.clone(),
+                          t.n_full.clone())
+        c, n_new, n_dead = ct.insert_gated(c, blocks[2], valid3, preset,
+                                           yak.YAK_MAX_COUNT, plain)
+        res.append((c, int(n_new), int(n_dead)))
+    (ck, nk, dk), (cp, np_, dp) = res
+    e_g = max(max_abs_err(x, y) for x, y in zip(ck[:3], cp[:3]))
+    need(e_g == ERR_FREE and (nk, dk) == (np_, dp),
+         f"[table] insert_gated on block 3: kernel != plain (err {e_g})")
+    say("table", f"insert_gated block 3: planes (state, key, cnt) kernel == "
+        f"plain; {nk} new keys, {dk} rolled back to DELETED")
+    # 3. lookups: block 1 against the table after block 3
+    e3, ms3, pms3, nb3, _r3 = resolve_case(
+        "lookups of block 1 after block 3", ck, blocks[0], False, floor)
+    row["max_abs_err"] = max(err, e2, e_g, e3)
+    slot = ct.resolve_slots(
+        ct.CountTable(t.state.clone(), t.key.clone(), t.cnt, t.n_full),
+        blocks[2], valid3, True).slot
+    parts = plain_parts(ck, slot, valid3 & preset, blocks[2])
+    del t, ck, cp, res, slot, preset, bits, blocks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. KMER_TPU_TABLE_YAK=1 yak-count -k31 -b30 A B through the tool
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    with setenv("KMER_TPU_TABLE_YAK", "1"), recording_table_engines() as \
+            made, recording_resolves() as calls:
+        t0 = time.perf_counter()
+        got = run_tool("yak-count", args)
+        wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    eng = made[0]
+    need(type(eng) is yak.YakEngine and eng.device.type == "cuda"
+         and not eng.plain_kernels,
+         f"KMER_TPU_TABLE_YAK=1 did not run YakEngine on the card: {eng!r}")
+    need(got == out["yak2"]["got"],
+         "the table engine's yak-count != phase 10's (stdout or [M lines)")
+    need(all(launches[n] > 0 for n in TABLE_KERNELS),
+         f"the table path never launched extract or resolve: {launches}")
+    need(not any(v for n, v in launches.items() if n not in TABLE_KERNELS),
+         f"the table path launched a merge or seghist kernel: {launches}")
+    mb_b = dict((n, mb) for n, _, mb, _ in SNP_SAMPLES)["B"]
+    bases = (MBASES + mb_b) * 1_000_000 // READ_LEN * READ_LEN
+    rounds = [c[0] for c in calls]
+    say("table", f"KMER_TPU_TABLE_YAK=1 yak-count {' '.join(YAK2_ARGS)} A "
+        f"B: {wall:.3f} s = {bases / 1e6 / wall:.2f} Mbases/s (phase 10, "
+        f"the sort engine: {out['yak2']['wall']:.3f} s); stdout and "
+        f"{len(got[1])} [M lines == phase 10's; peak device memory "
+        f"{peak:.2f} GiB; final capacity {eng.table.capacity} slots, "
+        f"{eng.rebuilds} rebuilds, {int(eng.table.n_full)} keys kept")
+    say("table", f"resolve calls {len(calls)}: {sum(rounds)} rounds "
+        f"(at most {max(rounds)} a call), "
+        f"{sum(c[1] for c in calls)} probe-lanes over "
+        f"{sum(c[2] for c in calls)} lanes")
+    for i, st in enumerate(eng.stats, 1):
+        say("table", f"pass {i} IngestStats: {st.report()}")
+    say("table", f"launches in this run: {json.dumps(launches)}")
+    del made, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 5. a checkpoint after pass 1, resumed on the card
+    ck_path = os.path.join(DATA_DIR, "table.ckpt.npz")
+    e1 = yak.YakEngine(k=K, pre=10, bf_shift=30, bf_n_hash=4, device=dev)
+    e1.count([path_a], create_new=True)
+    t0 = time.perf_counter()
+    e1.save_checkpoint(ck_path)
+    save_s = time.perf_counter() - t0
+    del e1
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    e2 = yak.YakEngine.resume_checkpoint(ck_path, device=dev)
+    load_s = time.perf_counter() - t0
+    e2.destroy_bloom()
+    e2.clear()
+    e2.count([path_b], create_new=False)
+    e2.shrink(2, yak.YAK_MAX_COUNT)
+    need(yak_rows_text(e2.hist()) == out["yak2"]["got"][0],
+         "a YakEngine checkpoint resumed on the card != phase 10's stdout")
+    say("table", f"checkpoint after pass 1 ({os.path.getsize(ck_path) / 1e6:.0f} "
+        f"MB, the JAX package's layout): saved in {save_s:.1f} s, resumed "
+        f"in {load_s:.1f} s; pass 2 + shrink == phase 10's stdout")
+    os.remove(ck_path)
+    del e2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 6. the table engine on phase 14's 4 shards of the card
+    _build.reset_launches()
+    with on_mesh(mesh_card()), setenv("KMER_TPU_TABLE_YAK", "1"), \
+            recording_table_engines() as made:
+        t0 = time.perf_counter()
+        mgot = run_tool("yak-count", args)
+        mwall = time.perf_counter() - t0
+    mlaunch = dict(_build.LAUNCHES)
+    need(type(made[0]) is yak.MeshYakEngine and made[0].n_dev == MESH_SHARDS
+         and all(t.state.is_cuda for t in made[0].tables),
+         "KMER_TPU_TABLE_YAK=1 on the mesh did not run MeshYakEngine on "
+         "the card's shards")
+    need(mgot == (out["yak2"]["got"][0], out["mesh"]["yak2_lines"]),
+         "the table engine on the mesh != phase 10's stdout and phase 14's "
+         "[M lines")
+    need(all(mlaunch[n] > 0 for n in TABLE_KERNELS) and not any(
+        v for n, v in mlaunch.items() if n not in TABLE_KERNELS),
+         f"the mesh table path's launches: {mlaunch}")
+    say("table", f"on {MESH_SHARDS} shards of the card: {mwall:.3f} s, "
+        f"stdout == phase 10's, {len(mgot[1])} [M lines == phase 14's; "
+        f"capacity {made[0].cap_local} a shard, {made[0].rebuilds} "
+        f"rebuilds; launches {json.dumps(mlaunch)}")
+    del made
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 7. the table engine in phase 15's two processes
+    res = run_multiproc("table", [
+        {"name": "yak2_table", "kind": "tool", "tool": "yak-count",
+         "args": args, "env": {"KMER_TPU_TABLE_YAK": "1"}}])
+    p = [r["results"][0] for r in res]
+    need(p[0]["out"] == out["yak2"]["got"][0] and p[1]["out"] == "",
+         "the table engine on two processes != phase 10's stdout")
+    need(p[0]["lines"] == out["multiproc"]["yak2"]["lines"],
+         "the table engine on two processes: [M lines != phase 15's")
+    for pid, q in enumerate(p):
+        la = q["launches"]
+        need((la["extract"] > 0 or pid) and la["resolve"] > 0 and not any(
+            v for n, v in la.items() if n not in TABLE_KERNELS),
+            f"the table path on process {pid}: launches {la}")
+        say("table", f"  process {pid}: {mp_line(q, bases)}; launches "
+            f"{json.dumps(la)}")
+    say("table", f"on {MP_PROCS} processes x {MP_SHARDS} shards: stdout == "
+        f"phase 10's, {len(p[0]['lines'])} [M lines == phase 15's")
+    return {"row": row, "launches": launches, "parts": parts}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2956,7 +3365,8 @@ def main(argv=None):
               ("fixture", phase_fixture),
               ("hosttools", phase_hosttools),
               ("mesh", lambda: phase_mesh(args.seed, out)),
-              ("multiproc", lambda: phase_multiproc(args.seed, out)))
+              ("multiproc", lambda: phase_multiproc(args.seed, out)),
+              ("table", lambda: phase_table(args.seed, out)))
     out = {}
     try:
         for phase, fn in phases:
@@ -2973,6 +3383,9 @@ def main(argv=None):
         launches[name] = out["onepl"]["launches"][name]
     for name in YAK_TAP_KERNELS:
         launches[name] = out["yak"]["launches"][name]
+    launches["resolve"] = out["table"]["launches"]["resolve"]
+    rows["resolve"] = {k: v for k, v in out["table"]["row"].items()
+                       if k not in ("rounds", "probes")}
     print(card)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -1,6 +1,7 @@
 """Sharded k-mer counting over a mesh of devices (port of
 kmer_tpu/dist/sharded.py: `make_mesh`, the sort-based routing,
-`ShardedSortEngine` and the mesh form of `counts_for`).
+`ShardedSortEngine`, the mesh form of `counts_for`, and the
+open-addressing tables a shard of the table engines).
 
 Every valid k-mer has exactly one owner, the shard whose index is the
 key's low bits, `key & (n_shards - 1)` (the hash-prefix routing of the
@@ -51,6 +52,7 @@ import torch.distributed as dist
 from .. import default_device
 from ..kernels import extract
 from ..kernels.keys import SENT, from_hi_lo, to_hi_lo
+from ..table import count_table as ct
 from ..table.compactor import KmerCompactor, stream_sorted_default
 
 
@@ -444,3 +446,110 @@ class ShardedSortEngine:
                     torch.from_numpy(np.ascontiguousarray(
                         cnt[real]).view(np.int32)).to(comp.device))
         self.total_kmers = int(z["meta"][1])
+
+
+# -- the open-addressing tables, one a shard (sharded.py:100-171, 881-1041)
+#
+# One CountTable (table/count_table.py) on each of this process's shard
+# devices, all of one capacity.  The JAX package holds them as
+# (data, shard, cap) planes under shard_map and sums or maximizes with
+# psum / pmax; here they are a list, and across processes the sums and
+# maxima go through allreduce_ints (a collective: every process calls
+# these in step).  A shard's lane plane is its owner bucket from
+# `route_batch`: ragged, valid keys only, in global stream order, where
+# JAX's is n_dev sentinel-padded windows.  The lane order, and so every
+# slot, is the same; only the tag's stride m (the plane's length)
+# differs, which changes a winner only once round * m passes 2^32.
+
+def make_sharded_tables(mesh: Mesh, cap_local: int) -> List[ct.CountTable]:
+    return [ct.make(cap_local, dev) for dev in mesh.devices]
+
+
+def _reduce(mesh: Mesh, values, op: str) -> int:
+    """The sum (or "max") over the shards of every process of one int a
+    shard, `values` holding this process's."""
+    local = max(values, default=0) if op == "max" else sum(values)
+    return int(allreduce_ints([local], op)[0]) if mesh.n_proc > 1 \
+        else int(local)
+
+
+def sharded_yak_ingest(mesh: Mesh, tables, bits, owned, spec,
+                       create_new: bool, use_bloom: bool,
+                       exact_bloom: bool = False,
+                       plain_kernels: bool = False):
+    """Each shard's bloom gate and table insert over its owned keys
+    (sharded_yak_ingest_fn, sharded.py:897-953): a shard holds the bloom
+    bits and the slots of the keys it owns (BloomSpec.owner_bits), so
+    each is shard-local, and its lanes in stream order make the
+    sequential bloom exact.  Returns (tables, bits, n_new summed, n_dead
+    of the worst shard: growth must relieve its chains)."""
+    from ..pipeline.yak import _yak_ingest_core
+
+    out_t, out_b, n_new, n_dead = [], [], [], []
+    for table, b, keys in zip(tables, bits, owned):
+        t, b, nn, nd = _yak_ingest_core(table, b, keys, spec, create_new,
+                                        use_bloom, exact_bloom, plain_kernels)
+        out_t.append(t)
+        out_b.append(b)
+        n_new.append(int(nn))
+        n_dead.append(int(nd))
+    return (out_t, out_b, _reduce(mesh, n_new, "sum"),
+            _reduce(mesh, n_dead, "max"))
+
+
+def sharded_clear(tables) -> List[ct.CountTable]:
+    """Every shard's counts zeroed (sharded_clear_fn, yak_ch_clear)."""
+    return [ct.clear_counts(t) for t in tables]
+
+
+def sharded_rebuild(tables, new_capacity: int, min_count: int = 0,
+                    max_count=None, plain_kernels: bool = False
+                    ) -> List[ct.CountTable]:
+    """Every shard rebuilt into new_capacity slots keeping counts in
+    [min_count, max_count] (sharded_rebuild_fn: the growth rehash, and
+    yak_ch_shrink)."""
+    return [ct.rebuild(t, new_capacity, min_count, max_count, plain_kernels)
+            for t in tables]
+
+
+def sharded_valid_max(mesh: Mesh, owned) -> int:
+    """The most lanes any shard owns in a routed step (every one valid):
+    the headroom each table needs before the insert
+    (sharded_chunk_valid_max_fn)."""
+    return _reduce(mesh, [k.shape[0] for k in owned], "max")
+
+
+def sharded_nfull_stats(mesh: Mesh, tables):
+    """(max, sum) of the shards' FULL slots (sharded_nfull_stats_fn): the
+    growth input and the distinct total after the shrink."""
+    nf = [int(t.n_full) for t in tables]
+    return _reduce(mesh, nf, "max"), _reduce(mesh, nf, "sum")
+
+
+def sharded_table_hist(mesh: Mesh, tables, n_bins: int) -> np.ndarray:
+    """The count histogram summed over the shards (sharded_hist_fn):
+    keys are uniquely owned, so the sum is the histogram."""
+    h = np.zeros(n_bins, np.int64)
+    for t in tables:
+        h += ct.hist(t, n_bins).cpu().numpy()
+    return allreduce_ints(h) if mesh.n_proc > 1 else h
+
+
+def sharded_count_step(router: ShardedSortEngine, tables, rows,
+                       max_count: Optional[int], row_bytes=None,
+                       plain_kernels: bool = False):
+    """The table-based kc step (sharded_count_step_fn, sharded.py:
+    100-153): extract each row on its shard, route the keys to their
+    owners (`router.route_batch`) and insert each shard's into its
+    table.  Returns (tables, n_new summed, n_dropped = 0: the buckets
+    are ragged, no window overflows).  The caller sizes the tables."""
+    owned = router.route_batch(rows, row_bytes=row_bytes)
+    out, n_new = [], []
+    for table, keys in zip(tables, owned):
+        valid = torch.ones(keys.shape[0], dtype=torch.bool,
+                           device=keys.device)
+        t, nn = ct.insert(table, keys, valid, max_count,
+                          plain_kernels=plain_kernels)
+        out.append(t)
+        n_new.append(int(nn))
+    return out, _reduce(router.mesh, n_new, "sum"), 0

@@ -1,5 +1,6 @@
 """The reference counters' invertible 64-bit hash on int64 tensors (port
-of kmer_tpu/kernels/hash64.py:21-47).
+of kmer_tpu/kernels/hash64.py:21-47), and the count table's slot mix
+`slot_mix32` (:50-64).
 
 hash64(key, mask) with mask = 2^(2k) - 1 for k <= 31.  Every value stays
 below 2^62, so int64 arithmetic never overflows and the arithmetic `>>`
@@ -51,3 +52,27 @@ def hash64(key: torch.Tensor, mask_nbits: int) -> torch.Tensor:
     key = key ^ (key >> 28)
     key = add(key, shl(key, 31))
     return key
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for x in [0, 2^32) held in int64: the product is
+    taken in two 16-bit halves of x, so no int64 product passes 2^49."""
+    return (((((x >> 16) * c) & 0xFFFF) << 16) + (x & 0xFFFF) * c) \
+        & 0xFFFFFFFF
+
+
+def slot_mix32(keys: torch.Tensor) -> torch.Tensor:
+    """The count table's slot mix (kmer_tpu/kernels/hash64.py:50-64) of
+    biased int64 keys (kernels/keys.py), as int64 values in [0, 2^32):
+    two rounds of the murmur3 finalizer on the unbiased key's (hi, lo)
+    uint32 halves.  The table's layout follows from it, so it equals the
+    JAX package's bit for bit: uint32 arithmetic carried in int64,
+    masked to 32 bits after every multiply."""
+    raw = keys ^ (-(1 << 63))
+    hi = (raw >> 32) & 0xFFFFFFFF
+    x = (raw & 0xFFFFFFFF) ^ _mul32(hi, 0x9E3779B9)
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)

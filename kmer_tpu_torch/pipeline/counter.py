@@ -25,6 +25,7 @@ IngestStats) are ported here rather than imported.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import queue
 import threading
@@ -39,6 +40,10 @@ from ..io import fastx, native, packing
 from ..kernels import extract
 from ..kernels.keys import from_hi_lo, to_hi_lo
 from ..table.compactor import KmerCompactor, stream_sorted_default
+
+# the open-addressing tables' load factor (counter.py:36): the yak table
+# engines grow before a batch could push FULL + DELETED slots past it
+GROW_LOAD = 0.65
 
 # byte -> popcount (the mask-elision test without unpackbits' 8x blowup)
 _POPCNT8 = np.array([bin(i).count("1") for i in range(256)], np.uint8)
@@ -403,6 +408,33 @@ def _extracted_blocks(paths: Sequence[str], k: int, block_bases: int,
         yield keys, n_kmers, n_bases, n_seqs, batch_end
 
 
+@contextlib.contextmanager
+def _maybe_profile():
+    """KMER_TPU_PROFILE=<dir> traces the streaming loop with torch.profiler
+    (host activity, and the card's when there is one) and writes a
+    Chrome trace into <dir> when the loop ends, one file a loop
+    (trace.<pid>.<ns>.json): the port's form of counter.py:280-296,
+    which captures a jax.profiler trace there."""
+    out = os.environ.get("KMER_TPU_PROFILE")
+    if not out:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    prof = profile(activities=acts)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        os.makedirs(out, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(
+            out, f"trace.{os.getpid()}.{time.time_ns()}.json"))
+
+
 class SortCountEngine:
     """Streaming counter on the sort-based compactor, on one device."""
 
@@ -468,20 +500,22 @@ class SortCountEngine:
         st = self.stats = IngestStats()
         t_loop = time.perf_counter()
         thr0 = self.compactor.throttle_wait_s
-        for keys, n_kmers, n_bases, n_seqs, batch_end in _extracted_blocks(
-                paths, self.k, self.block_bases, self.capacity,
-                self.qual_policy, self.device, self.prefetch, self._extract,
-                self._extract_rows, st):
-            t1 = time.perf_counter()
-            self.compactor.add_raw(keys)
-            self.total_bases += int(n_bases)
-            self.total_seqs += n_seqs
-            self._nk_dev.append(n_kmers)
-            if tap is not None:
-                tap(keys, n_kmers, n_seqs, batch_end)
-            st.dispatch_s += time.perf_counter() - t1
-            if progress is not None:
-                progress(self)
+        with _maybe_profile():
+            for keys, n_kmers, n_bases, n_seqs, batch_end in \
+                    _extracted_blocks(paths, self.k, self.block_bases,
+                                      self.capacity, self.qual_policy,
+                                      self.device, self.prefetch,
+                                      self._extract, self._extract_rows, st):
+                t1 = time.perf_counter()
+                self.compactor.add_raw(keys)
+                self.total_bases += int(n_bases)
+                self.total_seqs += n_seqs
+                self._nk_dev.append(n_kmers)
+                if tap is not None:
+                    tap(keys, n_kmers, n_seqs, batch_end)
+                st.dispatch_s += time.perf_counter() - t1
+                if progress is not None:
+                    progress(self)
         st.loop_s = time.perf_counter() - t_loop
         st.throttle_s = self.compactor.throttle_wait_s - thr0
 
@@ -637,17 +671,19 @@ class MeshSortCountEngine:
         st = self.stats = IngestStats()
         t_loop = time.perf_counter()
         pin = any(d.type == "cuda" for d in self.mesh.devices)
-        for rows, rb, aux, ingest, n_bases, n_seqs in mesh_steps(
-                paths, self.k, self.row_bases, self.capacity,
-                self.qual_policy, self.n_dev, _use_packed_ingest(paths),
-                pin, self.prefetch, st):
-            t1 = time.perf_counter()
-            self.eng.add_batch(rows, row_bytes=rb, aux=aux, ingest=ingest)
-            self.total_bases += n_bases
-            self.total_seqs += n_seqs
-            st.dispatch_s += time.perf_counter() - t1
-            if progress is not None:
-                progress(self)
+        with _maybe_profile():
+            for rows, rb, aux, ingest, n_bases, n_seqs in mesh_steps(
+                    paths, self.k, self.row_bases, self.capacity,
+                    self.qual_policy, self.n_dev, _use_packed_ingest(paths),
+                    pin, self.prefetch, st):
+                t1 = time.perf_counter()
+                self.eng.add_batch(rows, row_bytes=rb, aux=aux,
+                                   ingest=ingest)
+                self.total_bases += n_bases
+                self.total_seqs += n_seqs
+                st.dispatch_s += time.perf_counter() - t1
+                if progress is not None:
+                    progress(self)
         st.loop_s = time.perf_counter() - t_loop
 
     def hist(self, n_bins: int, max_count=None, min_keep: int = 1):

@@ -1,8 +1,9 @@
 """yak-count's engines (port of kmer_tpu/pipeline/yak.py: the constants,
-`_clamp_bf_shift`, `_exact_bloom_default`, `_bloom_geometry_ok`,
-`_make_bloom`, `_tap_admit`, `YakSimTap`, `_shrink_join_core`,
-`SortYakEngine`, `_mesh_row_batches`, `MeshSortYakEngine`,
-`make_yak_engine`, `yak_count_file`).
+`_yak_ingest_core`, `_clamp_bf_shift`, `_exact_bloom_default`,
+`_bloom_geometry_ok`, `_make_bloom`, `_tap_admit`, `YakSimTap`,
+`YakEngine`, `_mesh_row_batches`, `MeshYakEngine`, `_shrink_join_core`,
+`SortYakEngine`, `MeshSortYakEngine`, `make_yak_engine`,
+`yak_count_file`).
 
 Single-file yak-count counts on the sort engine (pipeline/counter.py);
 `YakSimTap` rides the engine's extracted key planes and gives the
@@ -24,8 +25,14 @@ their owners (dist/sharded.py, ragged owner buckets in stream order
 where the JAX package sends sentinel-padded windows of fixed width),
 pass 1's admission resolves per shard when the pass ends
 (pipeline/yak_admit.py `ShardedDeferredYak`), and the shrink join runs
-per shard and sums.  The table engines (`YakEngine`, `MeshYakEngine`,
-`KMER_TPU_TABLE_YAK=1`) are not ported.
+per shard and sums.
+
+KMER_TPU_TABLE_YAK=1 runs the open-addressing table engines instead, as
+in the JAX package: `YakEngine` on one device and `MeshYakEngine` on the
+mesh or across processes.  Each block's bloom gate and insert go into a
+count table (table/count_table.py, its slot resolution csrc/table.cu on
+the card) whose planes equal the JAX engine's; `YakEngine` saves and
+resumes between the passes in the JAX package's checkpoint layout.
 """
 
 from __future__ import annotations
@@ -40,13 +47,43 @@ import torch
 from ..kernels import bloom
 from ..kernels.bloom import BLK_SHIFT, BloomSpec
 from ..kernels.keys import SENT
+from ..table import count_table as ct
 from ..table.compactor import KmerCompactor, stream_sorted_default
 from ..utils.log import warn
-from .counter import IngestStats, _extracted_blocks, mesh_steps, use_mesh
+from .counter import (GROW_LOAD, IngestStats, _extracted_blocks, mesh_steps,
+                      use_mesh)
 
 YAK_COUNTER_BITS = 10  # yak-count.c:9
 YAK_N_COUNTS = 1 << YAK_COUNTER_BITS
 YAK_MAX_COUNT = YAK_N_COUNTS - 1
+
+
+def _yak_ingest_core(table: ct.CountTable, bits: torch.Tensor,
+                     keys: torch.Tensor, spec, create_new: bool,
+                     use_bloom: bool, exact_bloom: bool = False,
+                     plain_kernels: bool = False):
+    """The bloom gate and table insert of one block of sentinelized keys
+    (yak.py:55-93, yak_ch_insert_list, yak-count.c:150-177): valid lanes
+    are the non-sentinel ones.  Pass 1 (create_new) sets the bloom bits
+    (the sequential test-and-set with exact_bloom) and inserts gated by
+    them, or inserts every lane without a bloom; pass 2 increments keys
+    already present.  Returns (table, bits, n_new, n_dead), the last
+    two 0-dim int64 tensors; bits is updated in place."""
+    valid = keys != SENT
+    n_dead = torch.zeros((), dtype=torch.int64, device=keys.device)
+    if not create_new:
+        table = ct.add_existing(table, keys, valid, YAK_MAX_COUNT,
+                                plain_kernels=plain_kernels)
+        return table, bits, torch.zeros_like(n_dead), n_dead
+    if use_bloom:
+        ins = bloom.insert_sequential if exact_bloom else bloom.insert
+        bits, preset = ins(bits, keys, valid, spec)
+        table, n_new, n_dead = ct.insert_gated(table, keys, valid, preset,
+                                               YAK_MAX_COUNT, plain_kernels)
+    else:
+        table, n_new = ct.insert(table, keys, valid, YAK_MAX_COUNT,
+                                 plain_kernels=plain_kernels)
+    return table, bits, n_new, n_dead
 
 
 def _clamp_bf_shift(bf_shift: int, owner_bits: int = 0) -> int:
@@ -179,6 +216,175 @@ class YakSimTap:
     @property
     def budget_trips(self) -> int:
         return self.adm.fs.trips
+
+
+class YakEngine:
+    """The open-addressing two-pass yak engine on one device
+    (yak.py:330-502): every block's bloom gate and insert go into one
+    count table (`_yak_ingest_core`), grown before a batch could pass
+    GROW_LOAD; `[M` lines a reader batch, as the reference prints them.
+
+    `device` defaults to default_device(); `plain_kernels` makes the
+    extraction and the slot resolution take their plain PyTorch
+    versions.  `stats` holds one IngestStats a `count` call; `rebuilds`
+    counts the table's rebuilds (growth and tombstone sweeps)."""
+
+    def __init__(self, k=31, pre=10, bf_shift=0, bf_n_hash=4,
+                 chunk_size=10_000_000, init_capacity=1 << 20, log=None,
+                 device=None, plain_kernels: bool = False):
+        from .. import default_device
+        from ..kernels import extract
+
+        self.device = torch.device(device) if device is not None \
+            else default_device()
+        self.k = k
+        self.pre = pre
+        self.bf_shift = bf_shift
+        self.bf_n_hash = bf_n_hash
+        self.chunk_size = chunk_size
+        # one reference batch a buffer: separators' headroom
+        self.capacity_block = int(chunk_size) + max(4096, chunk_size // 32)
+        self.log = log
+        self.plain_kernels = plain_kernels
+        self._extract = (extract.extract_keys_plain if plain_kernels
+                         else extract.extract_keys)
+        self._extract_rows = (extract.extract_keys_rows_plain
+                              if plain_kernels else extract.extract_keys_rows)
+        self.batch_seq_counts = []  # per-batch n_seqs of the last count()
+        self._batch_seqs, self._batch_pending = 0, False
+        self.table = ct.make(init_capacity, self.device)
+        self._n_dead = 0  # DELETED tombstones since the last rebuild
+        self.rebuilds = 0
+        (self.use_bloom, self.bf_shift, self.spec, self.bits,
+         self.exact_bloom) = _make_bloom(pre, bf_shift, bf_n_hash,
+                                         device=self.device)
+        self.tot = 0  # cumulative distinct insertions (yak's h->tot)
+        self.stats = []
+
+    def _rebuild(self, cap: int, min_count: int = 0, max_count=None):
+        self.table = ct.rebuild(self.table, cap, min_count, max_count,
+                                self.plain_kernels)
+        self._n_dead = 0  # the rebuild swept the tombstones
+        self.rebuilds += 1
+
+    def _maybe_grow(self, incoming: int = 0) -> None:
+        """Keep FULL slots, tombstones and a worst case of `incoming` new
+        keys under GROW_LOAD (yak.py:361-383): the slot resolution ends
+        only while free slots outnumber a batch's distinct keys.  The new
+        capacity is sized from live keys alone, since the rebuild sweeps
+        the tombstones."""
+        n_full = int(self.table.n_full)
+        cap = self.table.capacity
+        while n_full + incoming > GROW_LOAD * cap:
+            cap *= 2
+        if (cap != self.table.capacity
+                or n_full + self._n_dead + incoming
+                > GROW_LOAD * self.table.capacity):
+            self._rebuild(cap)
+
+    def count(self, paths: Sequence[str], create_new: bool) -> None:
+        """One pass over `paths`, `[M` lines at the reader's batch ends
+        (yak-count.c:427)."""
+        st = IngestStats()
+        self.stats.append(st)
+        t_loop = time.perf_counter()
+        self.begin_batches()
+        for keys, nk, _nb, n_seqs, batch_end in _extracted_blocks(
+                paths, self.k, self.chunk_size, self.capacity_block,
+                ("resume", self.k, 3), self.device, True, self._extract,
+                self._extract_rows, st):
+            t1 = time.perf_counter()
+            self.ingest_planes(keys, nk, n_seqs, batch_end, create_new)
+            st.dispatch_s += time.perf_counter() - t1
+        self.finish_batches()
+        st.loop_s = time.perf_counter() - t_loop
+
+    def begin_batches(self) -> None:
+        self.batch_seq_counts = []
+        self._batch_seqs, self._batch_pending = 0, False
+
+    def ingest_planes(self, keys, n_valid, n_seqs, batch_end,
+                      create_new: bool = True) -> None:
+        """One extracted block (lanes in read order) through the bloom
+        gate and the table, with the per-batch `[M` accounting."""
+        if create_new:
+            # worst case: every valid lane a new key; tombstones count
+            # in the load, as they are probe-opaque
+            self._maybe_grow(incoming=int(n_valid))
+        self.table, self.bits, n_new, n_dead = _yak_ingest_core(
+            self.table, self.bits, keys, self.spec, create_new,
+            self.use_bloom, self.exact_bloom, self.plain_kernels)
+        if create_new:
+            self.tot += int(n_new)
+            self._n_dead += int(n_dead)
+        self._batch_seqs += int(n_seqs)
+        self._batch_pending = True
+        if batch_end:
+            self._flush_batch()
+
+    def _flush_batch(self) -> None:
+        if self.log is not None:
+            self.log(self._batch_seqs, self.tot)
+        self.batch_seq_counts.append(self._batch_seqs)
+        self._batch_seqs, self._batch_pending = 0, False
+
+    def finish_batches(self) -> None:
+        """The last, partial batch prints too (the reference runs its
+        steps on sum_len > 0 at EOF)."""
+        if self._batch_pending:
+            self._flush_batch()
+
+    def destroy_bloom(self) -> None:
+        self.use_bloom = False
+        self.exact_bloom = False
+        self.spec = None
+        self.bits = torch.zeros(8, dtype=torch.uint8, device=self.device)
+
+    def clear(self) -> None:
+        self.table = ct.clear_counts(self.table)
+
+    def shrink(self, min_count: int, max_count: int) -> None:
+        self._rebuild(self.table.capacity, min_count, max_count)
+        self.tot = int(self.table.n_full)
+
+    def hist(self) -> np.ndarray:
+        return ct.hist(self.table, YAK_N_COUNTS).cpu().numpy()
+
+    def save_checkpoint(self, path: str) -> None:
+        """The table and the bloom's bits in the JAX package's npz layout
+        (yak.py:463-482): state uint8, key_hi / key_lo / cnt uint32, bits
+        uint8, meta = int64[k, pre, bf_shift, bf_n_hash, n_full, tot,
+        use_bloom, chunk_size]; written to a temporary file and renamed.
+        Between the passes, so a killed pass 2 resumes without pass 1."""
+        state, hi, lo, cnt = ct.to_jax_planes(self.table)
+        tmp = path + ".tmp.npz"
+        np.savez_compressed(
+            tmp, state=state, key_hi=hi, key_lo=lo, cnt=cnt,
+            bits=self.bits.cpu().numpy(),
+            meta=np.asarray(
+                [self.k, self.pre, self.bf_shift, self.bf_n_hash,
+                 int(self.table.n_full), self.tot, int(self.use_bloom),
+                 self.chunk_size], np.int64))
+        os.replace(tmp, path)
+
+    @classmethod
+    def resume_checkpoint(cls, path: str, log=None, device=None,
+                          plain_kernels: bool = False) -> "YakEngine":
+        """An engine from a checkpoint that either package wrote."""
+        z = np.load(path)
+        k, pre, bfs, bfh, n_full, tot, use_bloom, chunk = (
+            int(x) for x in z["meta"])
+        eng = cls(k=k, pre=pre, bf_shift=bfs, bf_n_hash=bfh,
+                  chunk_size=chunk, init_capacity=1, log=log, device=device,
+                  plain_kernels=plain_kernels)
+        eng.table = ct.from_jax_planes(z["state"], z["key_hi"], z["key_lo"],
+                                       z["cnt"], n_full, eng.device)
+        eng.tot = tot
+        if use_bloom:
+            eng.bits = torch.from_numpy(z["bits"]).to(eng.device)
+        else:
+            eng.destroy_bloom()
+        return eng
 
 
 def _shrink_join_core(keys1: torch.Tensor, keys2: torch.Tensor,
@@ -383,6 +589,143 @@ def _mesh_row_batches(eng, paths: Sequence[str], st: IngestStats):
         yield rows, rb, n_seqs
 
 
+class MeshYakEngine:
+    """YakEngine on the mesh (yak.py:601-772): every structure partitioned
+    by key ownership, the routing of dist.sharded.ShardedSortEngine.
+    Each shard holds the bloom bits and the table slots of the keys it
+    owns, so yak_ch_insert_list's gate and insert (yak-count.c:150-177)
+    run shard-local after the exchange (dist.sharded
+    `sharded_yak_ingest`); clear, shrink and hist are per-shard with
+    summed results.  Bloom probe values equal the single-device ones
+    (BloomSpec.owner_bits), and each owner's lanes arrive in global
+    stream order, so the sequential bloom is exact shard by shard.  One
+    `[M` line a mesh step.  `devices` and `plain_kernels` as
+    MeshSortYakEngine's; `rebuilds` as YakEngine's."""
+
+    def __init__(self, k=31, pre=10, bf_shift=0, bf_n_hash=4,
+                 chunk_size=10_000_000, init_capacity=1 << 16, log=None,
+                 devices=None, plain_kernels: bool = False):
+        from ..dist import sharded
+
+        self.k = k
+        self.pre = pre
+        self.bf_shift = bf_shift
+        self.bf_n_hash = bf_n_hash
+        self.log = log
+        self.mesh = sharded.make_mesh(devices)
+        self.n_dev = self.mesh.size
+        self.device = self.mesh.devices[0]
+        self.owner_bits = self.n_dev.bit_length() - 1
+        self.plain_kernels = plain_kernels
+        self.row_bases = max(int(chunk_size) // self.n_dev, 1 << 16)
+        self.capacity_block = self.row_bases + 4096
+        self.cap_local = init_capacity
+        self.tables = sharded.make_sharded_tables(self.mesh, init_capacity)
+        bloom_wanted = (bf_n_hash > 0 and bf_shift > pre
+                        and (bf_shift - pre) >= BLK_SHIFT)
+        self.use_bloom = (bloom_wanted and pre >= self.owner_bits
+                          and _bloom_geometry_ok(bf_shift, pre,
+                                                 self.owner_bits))
+        if bloom_wanted and not self.use_bloom:
+            # the per-shard bloom partition needs at least one prefix bit
+            # per owner; with fewer, pass 1 admits every key
+            warn("yak_count",
+                 f"-p{pre} has fewer prefix bits than the {self.n_dev}"
+                 f"-device mesh needs ({self.owner_bits}); bloom "
+                 "prefilter disabled (two-file admission differs from "
+                 "a single-chip run)")
+        if self.use_bloom:
+            self.bf_shift = _clamp_bf_shift(bf_shift, self.owner_bits)
+            self.spec = BloomSpec(pre, self.bf_shift, bf_n_hash,
+                                  self.owner_bits)
+            self.bits = [bloom.make_bits(self.spec, d)
+                         for d in self.mesh.devices]
+        else:
+            self.spec = None
+            self.bits = [torch.zeros(8, dtype=torch.uint8, device=d)
+                         for d in self.mesh.devices]
+        self.exact_bloom = _exact_bloom_default(self.use_bloom)
+        self.tot = 0
+        self._n_dead = 0  # the worst shard's tombstones since a rebuild
+        self.rebuilds = 0
+        self._route = sharded.ShardedSortEngine(self.mesh, k,
+                                                plain_kernels=plain_kernels)
+        self.stats = []
+
+    def _rebuild(self, cap: int, min_count: int = 0, max_count=None):
+        from ..dist import sharded
+
+        self.tables = sharded.sharded_rebuild(self.tables, cap, min_count,
+                                              max_count, self.plain_kernels)
+        self._n_dead = 0  # the rebuild swept the tombstones
+        self.cap_local = cap
+        self.rebuilds += 1
+
+    def _maybe_grow(self, incoming: int) -> None:
+        """Size every shard's table for the worst-case step (yak.py:
+        704-723): one capacity for all, grown to the fullest shard's
+        need; the worst shard's tombstones count and are swept."""
+        from ..dist import sharded
+
+        n_full = sharded.sharded_nfull_stats(self.mesh, self.tables)[0]
+        cap = self.cap_local
+        while n_full + incoming > GROW_LOAD * cap:
+            cap *= 2
+        if (cap != self.cap_local
+                or n_full + self._n_dead + incoming
+                > GROW_LOAD * self.cap_local):
+            self._rebuild(cap)
+
+    def count(self, paths: Sequence[str], create_new: bool) -> None:
+        st = IngestStats()
+        self.stats.append(st)
+        t_loop = time.perf_counter()
+        for rows, rb, n_seqs in _mesh_row_batches(self, paths, st):
+            t1 = time.perf_counter()
+            self._step_rows(rows, rb, n_seqs, create_new)
+            st.dispatch_s += time.perf_counter() - t1
+        st.loop_s = time.perf_counter() - t_loop
+
+    def _step_rows(self, rows, rb, n_seqs: int, create_new: bool) -> None:
+        from ..dist import sharded
+
+        owned = self._route.route_batch(rows, row_bytes=rb)
+        if create_new:
+            self._maybe_grow(sharded.sharded_valid_max(self.mesh, owned))
+        self.tables, self.bits, n_new, n_dead = sharded.sharded_yak_ingest(
+            self.mesh, self.tables, self.bits, owned, self.spec, create_new,
+            self.use_bloom, self.exact_bloom, self.plain_kernels)
+        if create_new:
+            self.tot += n_new
+            self._n_dead += n_dead
+        if self.log is not None:
+            self.log(n_seqs, self.tot)
+
+    def destroy_bloom(self) -> None:
+        self.use_bloom = False
+        self.exact_bloom = False
+        self.spec = None
+        self.bits = [torch.zeros(8, dtype=torch.uint8, device=d)
+                     for d in self.mesh.devices]
+
+    def clear(self) -> None:
+        from ..dist import sharded
+
+        self.tables = sharded.sharded_clear(self.tables)
+
+    def shrink(self, min_count: int, max_count: int) -> None:
+        from ..dist import sharded
+
+        self._rebuild(self.cap_local, min_count, max_count)
+        self.tot = sharded.sharded_nfull_stats(self.mesh, self.tables)[1]
+
+    def hist(self) -> np.ndarray:
+        from ..dist import sharded
+
+        return sharded.sharded_table_hist(self.mesh, self.tables,
+                                          YAK_N_COUNTS)
+
+
 class MeshSortYakEngine:
     """The two-pass yak engine on the mesh (yak.py:774-922).
 
@@ -516,14 +859,17 @@ class MeshSortYakEngine:
 
 
 def make_yak_engine(**kw):
-    """The two-file engine (yak.py:1117-1131 without the table engines):
-    MeshSortYakEngine in a run of several processes or when the tools
-    count on the mesh (pipeline.counter.use_mesh), else SortYakEngine."""
+    """The two-file engine (yak.py:1117-1131): the sort-based engines by
+    default, MeshSortYakEngine in a run of several processes or when the
+    tools count on the mesh (pipeline.counter.use_mesh), else
+    SortYakEngine; KMER_TPU_TABLE_YAK=1 takes the open-addressing table
+    engines instead, MeshYakEngine and YakEngine."""
     from ..dist.sharded import process_count
 
+    table = os.environ.get("KMER_TPU_TABLE_YAK", "") == "1"
     if process_count() > 1 or use_mesh():
-        return MeshSortYakEngine(**kw)
-    return SortYakEngine(**kw)
+        return MeshYakEngine(**kw) if table else MeshSortYakEngine(**kw)
+    return YakEngine(**kw) if table else SortYakEngine(**kw)
 
 
 def yak_count_file(fn1: str, fn2: Optional[str], opt: SortYakEngine

@@ -97,6 +97,31 @@ def test_port_cli_never_imports_jax(tmp_path):
     assert "rs1" in open(vaf).read()
 
 
+def test_table_yak_never_imports_jax():
+    """KMER_TPU_TABLE_YAK=1 two-file yak-count (YakEngine, and
+    MeshYakEngine under KMER_TPU_FORCE_MESH=1) runs with neither jax nor
+    any kmer_tpu module loaded."""
+    r = _python(
+        "import os\n"
+        "from kmer_tpu_torch.pipeline import yak\n"
+        "from kmer_tpu_torch.tools import get_tool\n"
+        "made = []\n"
+        "real = yak.make_yak_engine\n"
+        "from kmer_tpu_torch.tools import yak_count\n"
+        "yak_count.make_yak_engine = lambda **kw: made.append(real(**kw)) "
+        "or made[-1]\n"
+        "for mesh in ('0', '1'):\n"
+        "    os.environ['KMER_TPU_FORCE_MESH'] = mesh\n"
+        f"    assert get_tool('yak-count')(['-b20', {READS!r}, "
+        f"{GENOME!r}]) == 0\n"
+        "assert [type(e).__name__ for e in made] == ['YakEngine', "
+        "'MeshYakEngine'], made\n",
+        {"KMER_TPU_PLATFORM": "cpu", "KMER_TPU_TABLE_YAK": "1"})
+    assert r.returncode == 0, r.stderr
+    assert len(r.stdout.splitlines()) == 2 * 1023
+    assert r.stderr.count("distinct k-mers after shrinking") == 2
+
+
 def test_host_tools_and_packed_ingest_never_import_jax(tmp_path):
     """kc-py1, kc-cpp1, kc-cpp2, vcf-vaf-counter and bam-vaf-counter (on
     an unindexed BAM: the native scan where it builds), and kc-c4 under

@@ -742,4 +742,111 @@ def test_kernels_launch_on_the_tensors_card(dev):
             assert torch.equal(merge.merge_runs(a, b),
                                torch.sort(torch.cat([a, b])).values)
         _check_merge3(_runs3(card, 4097, 12345, 4))
+        t = _table_case(card, 12, 0.3, "fresh", 9)
+        _check_resolve(t, True)
         assert torch.cuda.current_device() == 0
+
+
+# -- the count table's slot resolution (csrc/table.cu) -------------------
+
+def _table_case(dev, log2m, load, kind, seed):
+    """(table, keys, valid) on dev: a table near `load` (its keys inserted
+    with the plain resolve, a tenth of them then rolled back to DELETED
+    by insert_gated) sized so that 2^log2m lanes fit under GROW_LOAD; the
+    batch's keys: `fresh` (a pool of m / 4 distinct keys, half of them
+    in the table), `dup` (8 keys), or `one` (k = 32: one key)."""
+    from kmer_tpu_torch.table import count_table as ct
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    m = 1 << log2m
+    n0 = int(load * m)
+    cap = 1 << max(4, (int((n0 + m) / 0.65)).bit_length())
+    table = ct.make(cap, dev)
+    old = torch.randint(-(1 << 62), 1 << 62, (max(n0, 1),), generator=g,
+                        device=dev)
+    if n0:
+        ones = torch.ones(n0, dtype=torch.bool, device=dev)
+        table, _ = ct.insert(table, old, ones, 1023, plain_kernels=True)
+        ghosts = torch.randint(-(1 << 62), 1 << 62, (n0 // 10 + 1,),
+                               generator=g, device=dev)
+        table, _, nd = ct.insert_gated(
+            table, ghosts, torch.ones_like(ghosts, dtype=torch.bool),
+            torch.zeros_like(ghosts, dtype=torch.bool), 1023,
+            plain_kernels=True)
+        assert int(nd) == ghosts.shape[0]
+    n_pool = {"fresh": max(m // 4, 2), "dup": 8, "one": 1}[kind]
+    pool = torch.randint(-(1 << 62), 1 << 62, (n_pool,), generator=g,
+                         device=dev)
+    pool[: n_pool // 2] = old[torch.randint(0, old.shape[0], (n_pool // 2,),
+                                            generator=g, device=dev)]
+    keys = pool[torch.randint(0, n_pool, (m,), generator=g, device=dev)]
+    valid = torch.rand(m, generator=g, device=dev) > 0.1
+    keys[~valid] = SENT
+    return table, keys, valid
+
+
+def _check_resolve(case, create_new):
+    from kmer_tpu_torch.kernels import table as kt
+
+    table, keys, valid = case
+    st, tk = table.state.clone(), table.key.clone()
+    got = kt.resolve_slots(table.state, table.key, keys, valid, create_new)
+    want = kt.resolve_slots_plain(st, tk, keys, valid, create_new)
+    torch.cuda.synchronize()
+    for a, b in ((table.state, st), (table.key, tk), (got.slot, want.slot),
+                 (got.found, want.found), (got.created, want.created)):
+        assert torch.equal(a, b)
+    assert (got.rounds, got.probes) == (want.rounds, want.probes)
+    return got
+
+
+@pytest.mark.parametrize("create_new", [True, False])
+@pytest.mark.parametrize("kind", ["fresh", "dup", "one"])
+@pytest.mark.parametrize("load", [0.0, 0.6])
+@pytest.mark.parametrize("log2m", [20, 22, 24])
+def test_resolve_kernel_matches_plain(dev, log2m, load, kind, create_new):
+    """csrc/table.cu against the plain round loop on the same table and
+    batch: planes, slot, found, created, rounds and probes all equal; a
+    fresh table and one near GROW_LOAD with tombstones, lookups
+    (create_new off) included."""
+    from kmer_tpu_torch.kernels import _build
+
+    case = _table_case(dev, log2m, load, kind, log2m * 7 + int(10 * load))
+    n0 = _build.LAUNCHES["resolve"]
+    got = _check_resolve(case, create_new)
+    assert _build.LAUNCHES["resolve"] - n0 == got.rounds > 0
+
+
+@pytest.mark.parametrize("mesh", [False, True])
+def test_table_yak_engines_on_card_match_plain_and_cpu(dev, mesh):
+    """YakEngine (and MeshYakEngine on four shards of the card) through
+    the two-file flow: the kernel run's planes after pass 1, hist and
+    `[M` totals equal the card run with plain versions and the CPU run."""
+    from kmer_tpu_torch.kernels import _build
+    from kmer_tpu_torch.pipeline import yak
+    from kmer_tpu_torch.table import count_table as ct
+
+    paths = [os.path.join(FIXTURES, f) for f in ("sampleA1.fq.gz",
+                                                 "sampleB.fq.gz")]
+    kw = dict(k=31, pre=10, bf_shift=19, bf_n_hash=4, chunk_size=1 << 16)
+    out = []
+    for where, plain in ((dev, False), (dev, True), ("cpu", False)):
+        logs = []
+        if mesh:
+            e = yak.MeshYakEngine(devices=[where] * 4, plain_kernels=plain,
+                                  log=lambda n, t: logs.append((n, t)), **kw)
+        else:
+            e = yak.YakEngine(device=where, plain_kernels=plain,
+                              log=lambda n, t: logs.append((n, t)), **kw)
+        n0 = _build.LAUNCHES["resolve"]
+        e.count([paths[0]], create_new=True)
+        tables = e.tables if mesh else [e.table]
+        planes = [[x.tolist() for x in ct.to_jax_planes(t)] for t in tables]
+        if where != "cpu":
+            assert (_build.LAUNCHES["resolve"] > n0) != plain
+        e.destroy_bloom()
+        e.clear()
+        e.count([paths[1]], create_new=False)
+        e.shrink(2, 1023)
+        out.append((planes, logs, e.tot, e.hist().tolist()))
+    assert out[0] == out[1] == out[2]
