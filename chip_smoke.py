@@ -28,7 +28,16 @@ Phases, each printing its own lines:
               timed in turns with its plain version, torch.sort and the
               old bitonic merge (with the concatenation it needs), whose
               six kernels are still checked and timed one by one
-              (printed, not in the kernels line: no path launches them)
+              (printed, not in the kernels line: no path launches them);
+              both Myers kernels (csrc/myers.cu) at ed-vaf-counter's
+              batch (2,048 reads x 2,000 21-base patterns, n_alpha 4),
+              pattern lengths 0, 1, 21, 32, W = 2, 4, 9 (n_alpha 40) and
+              reads of 0-4,096 bases, and phase 11's long-pattern batch,
+              each at its max_e and past every lane's best (all counts
+              compared), each main-path shape timed in turns with its
+              plain version,
+              with the operation bound and the issue side from the SASS
+              of the kernel's loop
   4. e2e      `kc-c4 -k31` through kmer_tpu_torch.tools on a synthetic
               gzipped FASTQ (24 MiB genome, 150 bp reads, 0.5% errors,
               256 Mbases, made from --seed and cached under
@@ -78,9 +87,13 @@ Phases, each printing its own lines:
               memory (the 1 GiB bits array and both compactors)
  11. edvaf    ed-vaf-counter -e1 with the first 1,000 sites of phase 9's
               panel (2,000 patterns at k = 21) on sample B (64 Mbases):
-              wall, Mbases/s and the Myers loop's share of the wall; on
+              wall, Mbases/s and the Myers kernel's share of the wall;
+              `myers` must launch once a batch and no other kernel; on
               B's first 2,048 reads (one batch) the card's VAF file must
-              equal the CPU's; no kernel may launch (plain torch)
+              equal the CPU's, and so must it with a panel of LONG_SITES
+              sites at k = 45 and 97 cut from phase 9's genome (the
+              sites found in those reads first), where `myers_multiword`
+              must launch once
  12. fixture  kc-c4 on tests/fixtures at k=15, 21 and 31, yak-count on the
               reads fixture, two-file yak-count on sampleA1 + sampleB
               (-k31 -b19 -K65536, -k15 -b19, -b0), the SNP chain on the
@@ -155,8 +168,9 @@ Phases, each printing its own lines:
 Each path's launch counts are set to 0 just before it runs and read just
 after; the kernels line takes the counts of extract, seghist and the
 int64 merge path from phase 4, the int32 merge path's from phase 8, the
-(key, index) merge path's from phase 6 and resolve's from phase 16's
-tool run (phases 7, 10, 14 and 15 print their own).  No path may launch
+(key, index) merge path's from phase 6, resolve's from phase 16's
+tool run, myers's from phase 11's run on B and myers_multiword's from
+its long-pattern run (phases 7, 10, 14 and 15 print their own).  No path may launch
 a bitonic kernel, and after every phase neither jax nor any module of
 the JAX package (kmer_tpu) may be loaded.
 
@@ -169,6 +183,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import gc
 import io
 import json
@@ -713,11 +728,10 @@ def reads_block(rng, dev):
     return torch.from_numpy(buf).to(dev)
 
 
-def sass_per_thread(symbol):
-    """Static SASS instruction count of the one kernel whose mangled name
-    holds `symbol`, from cuobjdump of the built library (None when the
-    toolkit has no cuobjdump).  The extract kernel has no loop left, so
-    this counts each branch once."""
+def sass_lines(symbol):
+    """The SASS instructions (address, text) of the one kernel whose
+    mangled name holds `symbol`, from cuobjdump of the built library
+    (None when the toolkit has no cuobjdump)."""
     import re
     import shutil
 
@@ -733,14 +747,42 @@ def sass_per_thread(symbol):
                        capture_output=True, text=True, timeout=120)
     if r.returncode != 0:
         return None
-    count, inside = 0, False
+    lines, inside = [], False
     for line in r.stdout.splitlines():
         if "Function :" in line:
             inside = symbol in line
-        elif inside and re.match(r"\s*/\*[0-9a-f]{4}\*/\s+[A-Z@]", line) \
-                and " NOP" not in line:
-            count += 1
-    return count or None
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+([A-Z@].*?)\s*;", line)
+        if inside and m and " NOP" not in f" {m.group(2)}":
+            lines.append((int(m.group(1), 16), m.group(2)))
+    return lines or None
+
+
+def sass_per_thread(symbol):
+    """Static SASS instruction count of a kernel (sass_lines).  The
+    extract kernel has no loop left, so this counts each branch once."""
+    lines = sass_lines(symbol)
+    return len(lines) if lines else None
+
+
+def sass_per_step(symbol):
+    """(SASS instructions of a kernel's loop over text positions, steps
+    in it): of the bodies of the backward branches, the one with the most
+    one-byte global loads (`LDG` with a U8 operand: one read code a step,
+    so the compiler's unroll factor), the longest on a tie.  None where
+    cuobjdump is missing or prints no branch address."""
+    import re
+
+    lines = sass_lines(symbol)
+    best = None
+    for addr, text in lines or ():
+        m = re.search(r"\bBRA\s+(?:`\()?0x([0-9a-f]+)", text)
+        if m and int(m.group(1), 16) < addr:
+            body = [t for a, t in lines if int(m.group(1), 16) <= a <= addr]
+            steps = sum(1 for t in body if "LDG" in t and ".U8" in t)
+            if steps and (best is None or (steps, len(body)) > best):
+                best = (steps, len(body))
+    return None if best is None else (best[1], best[0])
 
 
 def sm_clock_mhz():
@@ -900,6 +942,166 @@ def seghist_rows(rows, g, dev):
         torch.cuda.empty_cache()
 
 
+# the 32-bit operations of one (read, pattern, text position) step of
+# kernels/myers.py myers_hw_counts, unmasked: the Peq gather, xv, the sum
+# (eq & pv) + pv (2), xh (2), ph (3), mh, the top-bit tests of ph and mh
+# (4), the score's two adds, the shifts (2), new pv (4), new mv, and the
+# best/count update (6).  Each further word that a pattern spans in
+# myers_hw_counts_multiword adds its Peq gather, xv, the sum with the
+# ripple carry in and out (6), xh (2), ph (3), mh, the shifts across
+# words (6), new pv (4) and new mv; its top-bit tests are the lane's one
+# pair, already counted.  A word past the pattern's last (pv = mv = 0,
+# no carry in) needs nothing.
+MYERS_OPS_PER_STEP = 29
+MYERS_OPS_PER_WORD = 25
+PEAK_32BIT_OPS_PER_S = 67e12  # one H100 SXM, float32 outside the tensor cores
+EDVAF_READS = 2048  # one batch of 150 bp reads (the 1024-base bucket)
+LONG_SITES = 128  # the long-pattern panel of phase 11
+LONG_K = (45, 97)  # its k-mer lengths: 2 and 4 words
+
+
+def myers_work(pat_len, lens, width, n_words, n_alpha):
+    """(lane-steps, operations, bytes) a Myers scan needs on these inputs:
+    each lane steps its read's length (up to the width), and a pattern of
+    m bases spans ceil(m / 32) of the n_words words (one word where
+    n_words is None); the bytes are the codes it reads, Peq, both length
+    planes and the counts."""
+    n_pat = pat_len.shape[0]
+    read_steps = int(lens.clamp(0, width).sum())
+    steps = n_pat * read_steps
+    further = 0 if n_words is None else int(
+        ((pat_len + 31) // 32).clamp(1, n_words).sum() - n_pat)
+    ops = read_steps * (MYERS_OPS_PER_STEP * n_pat
+                        + MYERS_OPS_PER_WORD * further)
+    nbytes = (read_steps + 4 * n_pat * (n_words or 1) * n_alpha
+              + 4 * n_pat + 4 * lens.shape[0] + 4 * lens.shape[0] * n_pat)
+    return steps, ops, nbytes
+
+
+def myers_batch(rng, dev, *shape):
+    """tests/torch_myers_cases.py planted_batch(rng, *shape) on dev."""
+    import importlib.util
+
+    import torch
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_myers_cases", os.path.join(HERE, "tests",
+                                          "torch_myers_cases.py"))
+    cases = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cases)
+    return [torch.from_numpy(x).to(dev)
+            for x in cases.planted_batch(rng, *shape)], cases.EVERY_LANE
+
+
+def myers_rows(rows, rng, dev):
+    """Both Myers kernels (csrc/myers.cu) against their plain versions on
+    the card, lane for lane: ed-vaf-counter's batch (2,048 reads of 150
+    bases in the 1,024 bucket x 2,000 patterns of 21 bases, n_alpha 4 and
+    a catch-all code); pattern lengths 0, 1, 21 and 32 on reads of
+    0-4,096 bases; W = 2 on reads of 0-4,096 bases, W = 4 and W = 9 (the
+    scratch form) with n_alpha 40; and phase 11's long-pattern batch
+    (2,048 reads x 2 x LONG_SITES patterns of 45 and 97 bases, W = 4);
+    each at its max_e and at EVERY_LANE (tests/torch_myers_cases.py), so
+    that every lane's count is compared.  Each main-path shape is timed
+    in turns with its plain version (CUDA events, a run of 5, twice).
+    Bound: operations (MYERS_OPS_PER_STEP a lane-step, MYERS_OPS_PER_WORD
+    a further word its pattern spans) at the float32 rate, beside the
+    issue side from the loop's SASS."""
+    import torch
+
+    from kmer_tpu_torch.kernels import myers
+
+    cases = (
+        # label, reads, pattern lengths, patterns, n_alpha, width, read
+        # lengths, highest read code, words (None: one), max_e
+        ("tool", 2048, [21], 2000, 4, 1024, (150, 150), 4, None, 1),
+        ("m 0 1 21 32", 512, [0, 1, 21, 32], 96, 4, 4096, (0, 4096), 4,
+         None, 2),
+        ("W 2", 256, [5, 33, 64], 64, 40, 4096, (0, 4096), 45, 2, 2),
+        ("W 4", 512, [45, 97, 128], 128, 40, 600, (0, 600), 45, 4, 1),
+        ("W 9", 256, [33, 200, 288], 64, 40, 600, (0, 600), 45, 9, 2),
+        ("long", 2048, list(LONG_K), 2 * LONG_SITES, 4, 1024, (150, 150), 4,
+         4, 1),
+    )
+    err = {"myers": 0.0, "myers_multiword": 0.0}
+    timed = {}
+    for (label, n_reads, pat_lens, n_pat, n_alpha, width, read_lens,
+         code_max, n_words, max_e) in cases:
+        (pc, plen, codes, lens), every_lane = myers_batch(
+            rng, dev, n_reads, pat_lens, n_pat, n_alpha, width, read_lens,
+            code_max)
+        if n_words is None:
+            name = "myers"
+            peq = myers.build_peq(pc, plen, n_alpha)
+            kern, plain, more = (myers.myers_hw_counts_kernel,
+                                 myers.myers_hw_counts_plain, ())
+        else:
+            name = "myers_multiword"
+            peq = myers.build_peq_multiword(pc, plen, n_alpha, n_words)
+            kern, plain, more = (myers.myers_hw_counts_multiword_kernel,
+                                 myers.myers_hw_counts_multiword_plain,
+                                 (n_words,))
+        # at the case's max_e, then past every lane's best, where each
+        # lane's count (of end positions at its exact best) shows
+        found = []
+        for e_max in (max_e, every_lane):
+            got = kern(peq, plen, codes, lens, e_max, *more)
+            want = plain(peq, plen, codes, lens, e_max, *more)
+            e = max_abs_err(got, want)
+            need(e == ERR_FREE, f"{name} {label} max_e {e_max}: kernel != "
+                 f"plain (max err {e})")
+            err[name] = max(err[name], e)
+            found.append(int(got.sum()))
+        say("kernels", f"{name} {label} ({n_reads} reads of {read_lens[0]}-"
+            f"{read_lens[1]} bases x {n_pat} patterns of {pat_lens} bases, "
+            f"n_alpha {n_alpha}, W {n_words or 1}): equal to plain, "
+            f"{found[0]} end locations at max_e {max_e}, {found[1]} at "
+            f"max_e {every_lane}")
+        if label in ("tool", "long"):
+            kern = functools.partial(kern, peq, plen, codes, lens, max_e,
+                                     *more)
+            plain = functools.partial(plain, peq, plen, codes, lens, max_e,
+                                      *more)
+            ms = [time_run_ms(f) for f in (kern, plain, kern, plain)]
+            timed[name] = (ms, myers_work(plen, lens, width, n_words,
+                                          n_alpha), n_words)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = sm_clock_mhz()
+    for name, sym in (("myers", "myers_regsILi1E"),
+                      ("myers_multiword", "myers_regsILi4E")):
+        ms, (steps, ops, nbytes), n_words = timed[name]
+        row = {"max_abs_err": err[name], "ms": (ms[0] + ms[2]) / 2,
+               "plain_ms": (ms[1] + ms[3]) / 2,
+               "bound_ms": max(ops / PEAK_32BIT_OPS_PER_S,
+                               nbytes / HBM_BYTES_PER_S) * 1e3,
+               "bound_by": ("operations" if ops / PEAK_32BIT_OPS_PER_S
+                            >= nbytes / HBM_BYTES_PER_S else "bytes"),
+               "library_ms": None}
+        rows[name] = row
+        say("kernels", f"{name} at the main path's shape ({steps} "
+            f"lane-steps, W {n_words or 1}): kernel {ms[0]:.4f} / "
+            f"{ms[2]:.4f} ms, plain {ms[1]:.3f} / {ms[3]:.3f} ms; bound "
+            f"{row['bound_ms']:.4f} ms ({ops} operations at "
+            f"{PEAK_32BIT_OPS_PER_S:.3g}/s, the float32 rate: the table "
+            f"gives no integer rate, and counts an FMA as two; bytes "
+            f"{nbytes / 1e6:.1f} MB = "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms); no one PyTorch call "
+            "computes it")
+        loop = sass_per_step(sym)
+        if loop is None or mhz is None:
+            say("kernels", f"{name}: issue bound not measured (no "
+                "cuobjdump, no branch address or no SM clock)")
+            continue
+        body, per_iter = loop
+        per_step = body / per_iter
+        issue_ms = steps * per_step / 32 / (sms * 4 * mhz * 1e6) * 1e3
+        say("kernels", f"{name}: its loop is {body} SASS instructions for "
+            f"{per_iter} text step(s) = {per_step:.1f} a lane-step; issue "
+            f"bound at {sms} SMs x 4 warp-issues x {mhz:.0f} MHz: "
+            f"{issue_ms:.4f} ms ({100 * issue_ms / row['ms']:.1f}% of the "
+            "kernel's time)")
+
+
 def phase_kernels(seed):
     import numpy as np
     import torch
@@ -914,6 +1116,7 @@ def phase_kernels(seed):
 
     extract_rows(rows, rng, dev)
     seghist_rows(rows, g, dev)
+    myers_rows(rows, rng, dev)
 
     # the merge path for the three lane types (kernels 3-8 redesigned)
     merge_path_lane_types(rows, g, dev)
@@ -1955,21 +2158,13 @@ def phase_yak2(seed):
 
 
 EDVAF_SITES = 1000  # a small panel, as ed-vaf-counter's usage intends
-# the 32-bit operations of one (read, pattern, text position) step of
-# kernels/myers.py myers_hw_counts, unmasked: the Peq gather, xv, xh (4),
-# ph (3), mh, the score's two tests and two adds (6), the shift, new pv
-# (5), new mv, and the best/count update (6)
-MYERS_OPS_PER_STEP = 29
-PEAK_32BIT_OPS_PER_S = 67e12  # one H100 SXM, float32 outside the tensor cores
-EDVAF_READS = 2048  # one batch of 150 bp reads (the 1024-base bucket)
 
 
 @contextlib.contextmanager
 def timing_myers():
-    """(host seconds synchronized on both sides, lane-steps, bytes) of
-    every myers_hw_counts call of ed-vaf-counter: lane-steps are reads x
-    patterns x the batch's longest read, bytes the read codes it scans
-    and the int32 counts it writes."""
+    """(host seconds synchronized on both sides, lane-steps, operations,
+    bytes) of every myers_hw_counts call of ed-vaf-counter, from
+    myers_work: each lane steps its read's length."""
     import torch
 
     from kmer_tpu_torch.tools import ed_vaf_counter
@@ -1981,9 +2176,9 @@ def timing_myers():
         t0 = time.perf_counter()
         out = real(peq, pat_len, codes, lens, max_e)
         torch.cuda.synchronize()
-        lane_steps = out.numel() * int(lens.max())
-        calls.append((time.perf_counter() - t0, lane_steps,
-                      codes.shape[0] * int(lens.max()) + out.numel() * 4))
+        calls.append((time.perf_counter() - t0,
+                      *myers_work(pat_len, lens, codes.shape[1], None,
+                                  peq.shape[1])))
         return out
 
     ed_vaf_counter.myers_hw_counts = myers_hw_counts
@@ -2026,53 +2221,143 @@ def edvaf_inputs(seed):
     return pat, head, fqs["B"], mb_b * 1_000_000 // READ_LEN * READ_LEN
 
 
+def long_panel(d, head, seed):
+    """A pattern file of LONG_SITES sites of phase 9's panel with k-mers
+    of LONG_K bases (45 and 97, in turns), cut from phase 9's genome
+    around each SNP in the pattern-file layout (snp-pattern-gen stops at
+    -k 32): the sites whose k = 21 ref or alt k-mer occurs in `head` (B's
+    first reads) first, so that the long patterns are found there, then
+    the panel's next sites; each site's 21-mer must equal the genome's
+    cut at its position."""
+    import gzip
+
+    fasta, _, _ = snp_inputs(seed)
+    src = os.path.join(DATA_DIR, "snp_card", "snps.pat")
+    if not os.path.exists(src):
+        src = os.path.join(d, "snps.pat")
+    with open(src) as f:
+        rows = [ln.split("\t") for ln in f.read().splitlines()]
+    chroms, name = {}, None
+    with gzip.open(fasta, "rt") as f:
+        for line in f:
+            if line.startswith(">"):
+                name = line[1:].split()[0]
+                chroms[name] = []
+            else:
+                chroms[name].append(line.strip())
+    chroms = {c: "".join(parts) for c, parts in chroms.items()}
+    with open(head) as f:
+        reads = f.read().splitlines()[1::4]
+    seen = {r[i:i + SNP_K] for r in reads for i in range(len(r) - SNP_K + 1)}
+    hits = [r for r in rows if r[6] in seen or r[7] in seen]
+    picked, out = set(), []
+    for r in hits + rows:
+        k = LONG_K[len(out) % len(LONG_K)]
+        chrom, start, h = r[0], int(r[1]), k // 2
+        seq = chroms[chrom]
+        if r[3] in picked or start - h < 0 or start + h + 1 > len(seq):
+            continue
+        half = SNP_K // 2
+        need(seq[start - half:start + half + 1] == r[6],
+             f"long panel: {r[3]}'s 21-mer is not the genome's at {chrom}:"
+             f"{start}")
+        ref = seq[start - h:start + h + 1]
+        alt = ref[:h] + r[5] + ref[h + 1:]
+        out.append("\t".join([*r[:6], ref, alt]))
+        picked.add(r[3])
+        if len(out) == LONG_SITES:
+            break
+    need(len(out) == LONG_SITES, f"long panel: {len(out)} sites")
+    path = os.path.join(d, f"panel_long_{LONG_SITES}.pat")
+    with open(path, "w") as f:
+        f.write("\n".join(out) + "\n")
+    return path, len(hits)
+
+
+def edvaf_card_cpu(pat, head, out):
+    """ed-vaf-counter -e1 on head with pattern file pat, on the card and
+    on the CPU: (VAF bytes, wall s, launch counts) a platform."""
+    from kmer_tpu_torch.kernels import _build
+
+    res = {}
+    for plat in ("cuda", "cpu"):
+        with platform(plat):
+            vaf = f"{out}_{plat}.vaf"
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            run_tool_err("ed-vaf-counter", ["-e1", "-p", pat, "-o", vaf,
+                                            head])
+            res[plat] = (read_file(vaf), time.perf_counter() - t0,
+                         dict(_build.LAUNCHES))
+    need(not any(res["cpu"][2].values()), "ed-vaf-counter on the CPU "
+         f"launched a kernel: {res['cpu'][2]}")
+    return res
+
+
+def only(launches, want):
+    """launches has exactly the counts of `want` and 0 elsewhere."""
+    return all(launches[k] == want.get(k, 0) for k in launches)
+
+
 def phase_edvaf(seed):
     from kmer_tpu_torch.kernels import _build
 
     pat, head, fq, bases = edvaf_inputs(seed)
     d = os.path.dirname(pat)
-    _build.reset_launches()
     vaf = os.path.join(d, "B.vaf")
+    _build.reset_launches()
     with timing_myers() as calls:
         t0 = time.perf_counter()
         run_tool_err("ed-vaf-counter", ["-e1", "-p", pat, "-o", vaf, fq])
         wall = time.perf_counter() - t0
-    need(not any(_build.LAUNCHES.values()),
-         f"ed-vaf-counter launched a kernel: {dict(_build.LAUNCHES)}")
+    launches = dict(_build.LAUNCHES)
+    need(len(calls) > 0 and only(launches, {"myers": len(calls)}),
+         f"ed-vaf-counter: not one myers launch a batch ({len(calls)} "
+         f"batches) and no other kernel: {launches}")
     lines = read_file(vaf).decode().splitlines()
     need(len(lines) == EDVAF_SITES + 2, f"{len(lines)} VAF lines")
     depth = sum(int(ln.split("\t")[7]) for ln in lines[2:])
     need(depth > 0, "ed-vaf-counter found no pattern in sample B")
     myers_s = sum(c[0] for c in calls)
-    lane_steps = sum(c[1] for c in calls)
-    nbytes = sum(c[2] for c in calls)
+    lane_steps, ops, nbytes = (sum(c[i] for c in calls) for i in (1, 2, 3))
     say("edvaf", f"ed-vaf-counter -e1, {EDVAF_SITES} sites ("
         f"{2 * EDVAF_SITES} patterns, k={SNP_K}), sample B "
         f"{bases / 1e6:.0f} Mbases: "
-        f"{wall:.3f} s = {bases / 1e6 / wall:.2f} Mbases/s; the Myers loop "
-        f"{myers_s:.3f} s in {len(calls)} batches "
+        f"{wall:.3f} s = {bases / 1e6 / wall:.2f} Mbases/s; the Myers "
+        f"kernel {myers_s:.3f} s (host wall, synchronized) in {len(calls)} "
+        f"batches, {launches['myers']} launches "
         f"({100 * myers_s / wall:.1f}% of the wall); {lines[0]}, "
         f"total depth {depth}")
-    say("edvaf", f"Myers bounds: {lane_steps} lane-steps x "
-        f"{MYERS_OPS_PER_STEP} 32-bit operations = "
-        f"{lane_steps * MYERS_OPS_PER_STEP / PEAK_32BIT_OPS_PER_S:.4f} s "
+    say("edvaf", f"Myers bounds: {lane_steps} lane-steps, {ops} 32-bit "
+        f"operations = {ops / PEAK_32BIT_OPS_PER_S:.4f} s "
         f"at {PEAK_32BIT_OPS_PER_S:.3g}/s (the float32 rate: the table "
         f"gives no integer rate); bytes {nbytes / 1e6:.0f} MB = "
         f"{nbytes / HBM_BYTES_PER_S:.5f} s")
-    out = {}
-    for plat in ("cuda", "cpu"):
-        with platform(plat):
-            one = os.path.join(d, f"B_first_{EDVAF_READS}_{plat}.vaf")
-            t0 = time.perf_counter()
-            run_tool_err("ed-vaf-counter", ["-e1", "-p", pat, "-o", one,
-                                            head])
-            out[plat] = (read_file(one), time.perf_counter() - t0)
-    need(out["cuda"][0] == out["cpu"][0],
+    res = edvaf_card_cpu(pat, head, os.path.join(d, f"B_first_{EDVAF_READS}"))
+    need(res["cuda"][0] == res["cpu"][0],
          f"ed-vaf-counter on {EDVAF_READS} reads: card VAF != CPU VAF")
-    need(not any(_build.LAUNCHES.values()), "ed-vaf-counter launched a kernel")
+    need(only(res["cuda"][2], {"myers": 1}),
+         f"ed-vaf-counter on one batch: {res['cuda'][2]}")
     say("edvaf", f"first {EDVAF_READS} reads (one batch): card VAF == CPU "
-        f"VAF ({out['cuda'][1]:.3f} s on the card, {out['cpu'][1]:.3f} s on "
-        "the CPU)")
+        f"VAF ({res['cuda'][1]:.3f} s on the card, one myers launch; "
+        f"{res['cpu'][1]:.3f} s on the CPU)")
+    lpat, n_hits = long_panel(d, head, seed)
+    lres = edvaf_card_cpu(lpat, head,
+                          os.path.join(d, f"B_first_{EDVAF_READS}_long"))
+    need(lres["cuda"][0] == lres["cpu"][0],
+         f"ed-vaf-counter, {LONG_K}-base panel: card VAF != CPU VAF")
+    need(only(lres["cuda"][2], {"myers": 1, "myers_multiword": 1}),
+         f"ed-vaf-counter, long panel: {lres['cuda'][2]}")
+    llines = lres["cuda"][0].decode().splitlines()
+    ldepth = sum(int(ln.split("\t")[7]) for ln in llines[2:])
+    need(ldepth > 0, "ed-vaf-counter found no long pattern in B's head")
+    say("edvaf", f"{LONG_SITES} sites at k = {LONG_K} ({n_hits} of phase "
+        f"9's sites have a 21-mer in B's first {EDVAF_READS} reads): card "
+        f"VAF == CPU VAF, total depth {ldepth}; myers_multiword launched "
+        f"once ({lres['cuda'][1]:.3f} s on the card, {lres['cpu'][1]:.3f} s "
+        "on the CPU)")
+    return {"launches": launches, "long_launches": lres["cuda"][2],
+            "wall": wall, "myers_s": myers_s}
 
 
 # -- the host-only tools ---------------------------------------------------
@@ -2253,6 +2538,10 @@ KERNELS = [
     # not a Pallas kernel: the while_loop of count_table.resolve_slots
     ("resolve", "kmer_tpu_torch/csrc/table.cu",
      "kmer_tpu/table/count_table.py:74"),
+    # not Pallas kernels: the lax.scans of myers_hw_counts{,_multiword}
+    ("myers", "kmer_tpu_torch/csrc/myers.cu", "kmer_tpu/kernels/myers.py:50"),
+    ("myers_multiword", "kmer_tpu_torch/csrc/myers.cu",
+     "kmer_tpu/kernels/myers.py:134"),
 ]
 
 
@@ -3386,6 +3675,9 @@ def main(argv=None):
     launches["resolve"] = out["table"]["launches"]["resolve"]
     rows["resolve"] = {k: v for k, v in out["table"]["row"].items()
                        if k not in ("rounds", "probes")}
+    launches["myers"] = out["edvaf"]["launches"]["myers"]
+    launches["myers_multiword"] = out["edvaf"]["long_launches"][
+        "myers_multiword"]
     print(card)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -41,7 +41,8 @@ LAUNCHES = {"extract": 0, "seghist": 0, "merge_partition": 0,
             "merge_path": 0, "merge_partition1": 0, "merge_path1": 0,
             "merge_partition3": 0, "merge_path3": 0, "merge_tile": 0,
             "merge_xstage": 0, "merge_tile1": 0, "merge_xstage1": 0,
-            "merge_tile3": 0, "merge_xstage3": 0, "resolve": 0}
+            "merge_tile3": 0, "merge_xstage3": 0, "resolve": 0, "myers": 0,
+            "myers_multiword": 0}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -73,6 +74,9 @@ _SIGNATURES = {
     "ktt_merge_path3": [_P, _P, _I64, _P, _P, _I64, _P, _P, _P, _P],
     "ktt_resolve_round": [_P, _I64, _I64, _P, _P, _P, _P, _P, _I64, _P, _P,
                           _P, _P, _P, _P, _P, _I64, _I32, _P],
+    "ktt_myers": [_P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32, _P, _P],
+    "ktt_myers_multiword": [_P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32,
+                            _I32, _P, _P, _P],
 }
 
 _lock = threading.Lock()

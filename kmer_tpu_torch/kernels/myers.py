@@ -7,12 +7,19 @@ for every (read, pattern) pair, the best distance over all end positions
 and the number of end positions reaching it (edlib's numLocations).
 `myers_hw_counts` takes patterns of up to 32 bases, one 32-bit word a
 pattern; `myers_hw_counts_multiword` takes longer ones, W words with
-ripple carries between them.
+ripple carries between them.  Each comes in three forms, as
+kernels/table.py's resolve_slots does:
 
-Plain torch on the device of its inputs.  The JAX `lax.scan` over text
-positions is a Python loop here; each step is a handful of elementwise
-operations on the (reads x patterns) state.  Two choices of the port,
-neither of which changes a count:
+  *_plain    the JAX `lax.scan` over text positions as a Python loop of
+             elementwise torch operations on the (reads x patterns)
+             state, on the device of its inputs
+  *_kernel   csrc/myers.cu on the card: one thread a (read, pattern)
+             lane, its state in registers for the whole read (W words
+             for W <= 8; a wider W keeps its words in a scratch plane)
+  public     the kernel when a tensor lies on a CUDA device, the plain
+             version for CPU tensors
+
+Two choices of the plain loop, neither of which changes a count:
 
   * the loop stops at the batch's longest read, where JAX scans the
     whole padded width (1024 for 150 bp reads): steps past every read's
@@ -32,6 +39,8 @@ tests.
 from __future__ import annotations
 
 import torch
+
+from . import _build
 
 _I32_MIN = -(1 << 31)
 _BEST0 = 0x3FFFFFFF
@@ -109,9 +118,9 @@ def _steps(reads_codes: torch.Tensor, read_len: torch.Tensor):
         yield cols[t], v
 
 
-def myers_hw_counts(peq: torch.Tensor, pat_len: torch.Tensor,
-                    reads_codes: torch.Tensor, read_len: torch.Tensor,
-                    max_e: int) -> torch.Tensor:
+def myers_hw_counts_plain(peq: torch.Tensor, pat_len: torch.Tensor,
+                          reads_codes: torch.Tensor, read_len: torch.Tensor,
+                          max_e: int) -> torch.Tensor:
     """Counts of optimal end locations per (read, pattern), patterns of
     up to 32 bases (myers.py:50-108).
 
@@ -174,10 +183,11 @@ def _shl1(x, w):
     return (x[w] << 1) | ((x[w - 1] >> 31) & 1)
 
 
-def myers_hw_counts_multiword(peq: torch.Tensor, pat_len: torch.Tensor,
-                              reads_codes: torch.Tensor,
-                              read_len: torch.Tensor, max_e: int,
-                              n_words: int) -> torch.Tensor:
+def myers_hw_counts_multiword_plain(peq: torch.Tensor,
+                                    pat_len: torch.Tensor,
+                                    reads_codes: torch.Tensor,
+                                    read_len: torch.Tensor, max_e: int,
+                                    n_words: int) -> torch.Tensor:
     """myers_hw_counts for patterns longer than 32 bases (myers.py:
     134-233): W words a (read, pattern) lane, ((eq & pv) + pv) with a
     ripple carry from the low word up, the score from each pattern's top
@@ -231,6 +241,128 @@ def myers_hw_counts_multiword(peq: torch.Tensor, pat_len: torch.Tensor,
         score, best, cnt = _score_best(score, score + inc - dec, best, cnt,
                                        v)
     return torch.where(best <= max_e, cnt, 0)
+
+
+REG_WORDS = 8  # csrc/myers.cu kRegWords: a wider W keeps pv, mv in scratch
+
+
+def _check(name, peq, pat_len, reads_codes, read_len, n_words, max_e):
+    """Raise ValueError on what csrc/myers.cu does not take: peq int32
+    (P, n_alpha) for one word (n_words None) or (P, n_words, n_alpha),
+    n_alpha <= 256; pat_len int32 (P,); reads uint8 (R, L); read_len
+    int32 (R,); max_e an int32 (the plain version compares on int32
+    lanes); every tensor on one CUDA device, contiguous.  The grid's
+    limits (65,535 blocks on the smaller axis) and L < 2^31 are
+    launch()'s there: it refuses them with cudaErrorInvalidValue, on
+    which the launch raises."""
+    if (peq.dtype != torch.int32 or pat_len.dtype != torch.int32
+            or reads_codes.dtype != torch.uint8
+            or read_len.dtype != torch.int32):
+        raise ValueError(f"{name}: need int32 peq, pat_len and read_len and "
+                         f"uint8 read codes")
+    if n_words is None:
+        shape_ok = peq.dim() == 2
+    else:
+        shape_ok = peq.dim() == 3 and peq.shape[1] == n_words >= 1
+    if (not shape_ok or pat_len.shape != peq.shape[:1]
+            or reads_codes.dim() != 2
+            or read_len.shape != reads_codes.shape[:1]):
+        want = "n_alpha" if n_words is None else f"{n_words}, n_alpha"
+        raise ValueError(f"{name}: need peq (P, {want}), pat_len (P,), "
+                         f"read codes (R, L) and read_len (R,)")
+    if peq.shape[-1] > 256:
+        raise ValueError(f"{name}: at most 256 alphabet codes")
+    if not -(1 << 31) <= max_e < 1 << 31:
+        raise ValueError(f"{name}: max_e must fit in int32")
+    ts = (peq, pat_len, reads_codes, read_len)
+    if not all(t.is_cuda for t in ts) or len({t.device for t in ts}) != 1:
+        raise ValueError(f"{name}: the kernel takes CUDA tensors on one "
+                         f"device ({name.removesuffix('_kernel')} takes CPU "
+                         f"tensors too)")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{name}: need contiguous tensors")
+
+
+def myers_hw_counts_kernel(peq: torch.Tensor, pat_len: torch.Tensor,
+                           reads_codes: torch.Tensor, read_len: torch.Tensor,
+                           max_e: int) -> torch.Tensor:
+    """myers_hw_counts_plain on the card (csrc/myers.cu ktt_myers): the
+    same (R, P) int32 counts.  A read's steps stop at min(read_len, L);
+    an empty batch launches nothing."""
+    _check("myers_hw_counts_kernel", peq, pat_len, reads_codes, read_len,
+           None, max_e)
+    (R, L), (P, n_alpha) = reads_codes.shape, peq.shape
+    out = torch.empty((R, P), dtype=torch.int32, device=peq.device)
+    if out.numel():
+        _build.launch("ktt_myers", "myers", peq, peq.data_ptr(),
+                      pat_len.data_ptr(), reads_codes.data_ptr(),
+                      read_len.data_ptr(), R, P, L, n_alpha, max_e,
+                      out.data_ptr())
+    return out
+
+
+def myers_hw_counts_multiword_kernel(peq: torch.Tensor,
+                                     pat_len: torch.Tensor,
+                                     reads_codes: torch.Tensor,
+                                     read_len: torch.Tensor, max_e: int,
+                                     n_words: int) -> torch.Tensor:
+    """myers_hw_counts_multiword_plain on the card (csrc/myers.cu
+    ktt_myers_multiword): W = n_words words in registers up to REG_WORDS,
+    above it in a scratch plane of 2 x W x R x P uint32 allocated here."""
+    _check("myers_hw_counts_multiword_kernel", peq, pat_len, reads_codes,
+           read_len, n_words, max_e)
+    (R, L), (P, _, n_alpha) = reads_codes.shape, peq.shape
+    out = torch.empty((R, P), dtype=torch.int32, device=peq.device)
+    if out.numel():
+        scratch = (torch.empty(2 * n_words * R * P, dtype=torch.int32,
+                               device=peq.device)
+                   if n_words > REG_WORDS else None)
+        _build.launch("ktt_myers_multiword", "myers_multiword", peq,
+                      peq.data_ptr(), pat_len.data_ptr(),
+                      reads_codes.data_ptr(), read_len.data_ptr(), R, P, L,
+                      n_alpha, n_words, max_e,
+                      0 if scratch is None else scratch.data_ptr(),
+                      out.data_ptr())
+    return out
+
+
+def _on_card(*ts) -> bool:
+    return any(t.is_cuda for t in ts)
+
+
+def myers_hw_counts(peq: torch.Tensor, pat_len: torch.Tensor,
+                    reads_codes: torch.Tensor, read_len: torch.Tensor,
+                    max_e: int) -> torch.Tensor:
+    """Counts of optimal end locations per (read, pattern), patterns of
+    up to 32 bases (myers.py:50-108): the kernel when a tensor lies on a
+    CUDA device, the plain version for CPU tensors.
+
+    peq: (P, n_alpha) int32 from build_peq; pat_len: (P,) int32
+    reads_codes: (R, L) uint8; read_len: (R,) int32
+    Returns (R, P) int32: numLocations if the best distance <= max_e,
+    else 0."""
+    if _on_card(peq, pat_len, reads_codes, read_len):
+        return myers_hw_counts_kernel(peq, pat_len, reads_codes, read_len,
+                                      max_e)
+    return myers_hw_counts_plain(peq, pat_len, reads_codes, read_len, max_e)
+
+
+def myers_hw_counts_multiword(peq: torch.Tensor, pat_len: torch.Tensor,
+                              reads_codes: torch.Tensor,
+                              read_len: torch.Tensor, max_e: int,
+                              n_words: int) -> torch.Tensor:
+    """myers_hw_counts for patterns longer than 32 bases (myers.py:
+    134-233): the kernel when a tensor lies on a CUDA device, the plain
+    version for CPU tensors.
+
+    peq: (P, W, n_alpha) int32 from build_peq_multiword; pat_len: (P,)
+    int32; reads_codes: (R, L) uint8; read_len: (R,) int32
+    Returns (R, P) int32: numLocations if best <= max_e, else 0."""
+    if _on_card(peq, pat_len, reads_codes, read_len):
+        return myers_hw_counts_multiword_kernel(peq, pat_len, reads_codes,
+                                                read_len, max_e, n_words)
+    return myers_hw_counts_multiword_plain(peq, pat_len, reads_codes,
+                                           read_len, max_e, n_words)
 
 
 def hw_counts_long_pattern(pat_codes, reads_codes, read_len, max_e: int,

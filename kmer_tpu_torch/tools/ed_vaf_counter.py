@@ -4,9 +4,11 @@ kmer_tpu/tools/ed_vaf_counter.py).
 For every read and every pattern, count the optimal end locations of
 the ref and alt k-mers within edit distance -e (edlib's HW/LOC
 semantics), then write the standard VAF file.  The search is the Myers
-bit-vector scan (kernels/myers.py), plain torch on the default device
-(default_device(): CUDA, or the CPU with KMER_TPU_PLATFORM=cpu), in
-batches of reads by length bucket.
+bit-vector scan (kernels/myers.py) on the default device, in batches of
+reads by length bucket: on the card (default_device(): CUDA) the
+kernels of csrc/myers.cu, one launch a batch (and one more a batch for
+patterns longer than 32 bases); with KMER_TPU_PLATFORM=cpu their plain
+torch versions.
 
 As in the JAX tool: the alphabet is the raw bytes of the patterns (no
 case folding, N == N, every other read byte one never-match code); an

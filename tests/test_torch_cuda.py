@@ -577,10 +577,10 @@ def test_shrink_join_on_card_matches_cpu(dev):
 
 @pytest.mark.parametrize("multiword", [False, True])
 def test_myers_on_card_matches_cpu(dev, multiword):
-    """The Myers scans on the card equal the CPU's: 512 reads of 1..150
-    bases (and one of 0) against 64 patterns of up to 32 bases, or up to
-    97 in 4 words, max_e 2."""
-    from kmer_tpu_torch.kernels import myers
+    """The Myers scans on the card (csrc/myers.cu, one launch a call)
+    equal the CPU's: 512 reads of 1..150 bases (and one of 0) against 64
+    patterns of up to 32 bases, or up to 97 in 4 words, max_e 2."""
+    from kmer_tpu_torch.kernels import _build, myers
 
     rng = np.random.default_rng(7 + multiword)
     lens_p = [33, 41, 64, 97] if multiword else [5, 21, 31, 32]
@@ -595,19 +595,122 @@ def test_myers_on_card_matches_cpu(dev, multiword):
         i = r % 64
         m = min(int(plen[i]), int(lens[r]))
         codes[r, :m] = pc[i, :m]
+    counter = "myers_multiword" if multiword else "myers"
     out = []
     for device in (dev, "cpu"):
         args = [torch.from_numpy(x).to(device) for x in (pc, plen)]
         rc = [torch.from_numpy(x).to(device) for x in (codes, lens)]
+        n0 = _build.LAUNCHES[counter]
         if multiword:
             peq = myers.build_peq_multiword(*args, 4, 4)
             got = myers.myers_hw_counts_multiword(peq, args[1], *rc, 2, 4)
         else:
             peq = myers.build_peq(*args)
             got = myers.myers_hw_counts(peq, args[1], *rc, 2)
+        assert _build.LAUNCHES[counter] - n0 == (device == dev)
         out.append((peq.cpu(), got.cpu()))
     assert torch.equal(out[0][0], out[1][0])
     assert torch.equal(out[0][1], out[1][1]) and out[0][1].sum() > 0
+
+
+def _myers_on(device, name, max_e=None):
+    """One tests/torch_myers_cases.py case on device at max_e (None: the
+    case's own), through the public name: the counts."""
+    from kmer_tpu_torch.kernels import myers
+    from torch_myers_cases import myers_case
+
+    pc, plen, codes, lens, n_alpha, n_words, case_e = myers_case(name)
+    max_e = case_e if max_e is None else max_e
+    t = [torch.from_numpy(x).to(device) for x in (pc, plen, codes, lens)]
+    if n_words is None:
+        peq = myers.build_peq(t[0], t[1], n_alpha)
+        return myers.myers_hw_counts(peq, *t[1:], max_e)
+    peq = myers.build_peq_multiword(t[0], t[1], n_alpha, n_words)
+    return myers.myers_hw_counts_multiword(peq, *t[1:], max_e, n_words)
+
+
+@pytest.mark.parametrize("name", ["m_0_1_21_32", "n_alpha_1", "n_alpha_20",
+                                  "reads_1025_1500", "zero_length_reads",
+                                  "multiword_w9"])
+def test_myers_kernel_matches_plain(dev, name):
+    """csrc/myers.cu against the plain versions on the card, lane for
+    lane, on the cases tests/test_torch_ed_vaf.py holds the plain
+    versions to JAX on (m = 0, 1, 32; n_alpha 1 and 20 with codes past
+    the alphabet; reads of 1,025-1,500 bases; empty reads; W = 9, the
+    scratch form), at the case's max_e and at EVERY_LANE; one launch a
+    call."""
+    from kmer_tpu_torch.kernels import _build, myers
+    from torch_myers_cases import EVERY_LANE, myers_case
+
+    pc, plen, codes, lens, n_alpha, n_words, max_e = myers_case(name)
+    t = [torch.from_numpy(x).to(dev) for x in (pc, plen, codes, lens)]
+    counter = "myers" if n_words is None else "myers_multiword"
+    for e in (max_e, EVERY_LANE):
+        n0 = _build.LAUNCHES[counter]
+        got = _myers_on(dev, name, e)
+        assert _build.LAUNCHES[counter] - n0 == 1
+        if n_words is None:
+            peq = myers.build_peq(t[0], t[1], n_alpha)
+            want = myers.myers_hw_counts_plain(peq, *t[1:], e)
+        else:
+            peq = myers.build_peq_multiword(t[0], t[1], n_alpha, n_words)
+            want = myers.myers_hw_counts_multiword_plain(peq, *t[1:], e,
+                                                         n_words)
+        assert torch.equal(got, want)
+        assert torch.equal(got.cpu(), _myers_on("cpu", name, e))
+
+
+@pytest.mark.parametrize("max_e", [1, 1 << 29])
+@pytest.mark.parametrize("n_words", [None, 4])
+def test_myers_kernel_at_the_tools_shape(dev, n_words, max_e):
+    """ed-vaf-counter's batch: 2,048 reads of 150 bases in the 1,024-base
+    bucket (255 fill) against 2,000 patterns of 21 bases (one word) or of
+    45 and 97 bases (4 words), codes ACGT plus a catch-all N: the kernel
+    equals the plain version on the card at the tool's max_e 1 and at
+    1 << 29, past every lane's best, where every lane's count shows."""
+    from kmer_tpu_torch.kernels import myers
+
+    rng = np.random.default_rng(21 if n_words is None else 97)
+    lens_p = [21] if n_words is None else [45, 97]
+    plen = np.array([lens_p[i % len(lens_p)] for i in range(2000)],
+                    np.int32)
+    pc = rng.integers(0, 4, (2000, max(lens_p))).astype(np.uint8)
+    codes = np.full((2048, 1024), 255, np.uint8)
+    codes[:, :150] = rng.integers(0, 4, (2048, 150))
+    codes[:, :150][rng.random((2048, 150)) < 0.001] = 4
+    for r in range(0, 2048, 2):
+        i = int(rng.integers(0, 2000))
+        m = int(plen[i])
+        at = int(rng.integers(0, 150 - m + 1))
+        codes[r, at:at + m] = pc[i, :m]
+    lens = np.full(2048, 150, np.int32)
+    t = [torch.from_numpy(x).to(dev) for x in (pc, plen, codes, lens)]
+    if n_words is None:
+        peq = myers.build_peq(t[0], t[1], 4)
+        got = myers.myers_hw_counts_kernel(peq, *t[1:], max_e)
+        want = myers.myers_hw_counts_plain(peq, *t[1:], max_e)
+    else:
+        peq = myers.build_peq_multiword(t[0], t[1], 4, n_words)
+        got = myers.myers_hw_counts_multiword_kernel(peq, *t[1:], max_e,
+                                                     n_words)
+        want = myers.myers_hw_counts_multiword_plain(peq, *t[1:], max_e,
+                                                     n_words)
+    assert torch.equal(got, want) and int(got.sum()) > 1000
+    if max_e > 1:
+        assert bool((got >= 1).all())
+
+
+def test_myers_kernel_refuses_mixed_devices(dev):
+    """A CUDA tensor beside CPU ones goes to the kernel, which refuses it:
+    no plain fallback from the card."""
+    from kmer_tpu_torch.kernels import myers
+    from torch_myers_cases import myers_case
+
+    pc, plen, codes, lens, n_alpha, _, max_e = myers_case("n_alpha_20")
+    t = [torch.from_numpy(x) for x in (pc, plen, codes, lens)]
+    peq = myers.build_peq(t[0], t[1], n_alpha)
+    with pytest.raises(ValueError, match="CUDA tensors on one device"):
+        myers.myers_hw_counts(peq.to(dev), *t[1:], max_e)
 
 
 @pytest.mark.parametrize("args", [["-k31", "-b19", "-K65536"],
@@ -628,6 +731,7 @@ def test_yak_two_files_on_card_matches_cpu(dev, args, capsys, monkeypatch):
 
 
 def test_ed_vaf_on_card_matches_cpu(tmp_path, dev, monkeypatch):
+    from kmer_tpu_torch.kernels import _build
     from kmer_tpu_torch.tools import get_tool
 
     fq = os.path.join(FIXTURES, "sampleA1.fq.gz")
@@ -640,8 +744,11 @@ def test_ed_vaf_on_card_matches_cpu(tmp_path, dev, monkeypatch):
     for plat in ("cuda", "cpu"):
         monkeypatch.setenv("KMER_TPU_PLATFORM", plat)
         vaf = str(tmp_path / f"{plat}.vaf")
+        n0 = _build.LAUNCHES["myers"]
         assert get_tool("ed-vaf-counter")(["-e1", "-p", pat, "-o", vaf,
                                            fq]) == 0
+        # one launch a batch of reads on the card, none on the CPU
+        assert (_build.LAUNCHES["myers"] > n0) == (plat == "cuda")
         with open(vaf, "rb") as f:
             files.append(f.read())
     assert files[0] == files[1]
@@ -744,6 +851,9 @@ def test_kernels_launch_on_the_tensors_card(dev):
         _check_merge3(_runs3(card, 4097, 12345, 4))
         t = _table_case(card, 12, 0.3, "fresh", 9)
         _check_resolve(t, True)
+        for name in ("n_alpha_20", "multiword_w9"):
+            assert torch.equal(_myers_on(card, name).cpu(),
+                               _myers_on("cpu", name))
         assert torch.cuda.current_device() == 0
 
 

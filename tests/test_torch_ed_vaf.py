@@ -1,8 +1,9 @@
 """ed-vaf-counter of the port (kmer_tpu_torch.kernels.myers and
 kmer_tpu_torch.tools.ed_vaf_counter) against the JAX package on the CPU:
-the Myers scans lane for lane on tests/test_myers.py's random cases, the
-VAF files byte for byte on the fixture patterns, and the host helpers
-the tool copies against their originals.
+the Myers scans lane for lane on tests/test_myers.py's random cases and
+on csrc/myers.cu's edge cases (tests/torch_myers_cases.py), the kernel
+wrappers' refusals, the VAF files byte for byte on the fixture patterns,
+and the host helpers the tool copies against their originals.
 
 Inputs are made with numpy from a seed; the same inputs go to both
 packages.  Every output is an integer or a file: every comparison is
@@ -25,6 +26,7 @@ from kmer_tpu.tools import ed_vaf_counter as JT
 from kmer_tpu_torch.kernels import myers as T
 from kmer_tpu_torch.tools import ed_vaf_counter as TT
 from tests.test_myers import _random_case
+from torch_myers_cases import EVERY_LANE, MYERS_CASES, myers_case
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(REPO, "tests", "fixtures")
@@ -113,6 +115,142 @@ def test_empty_batch_and_alphabet():
 def test_long_pattern_oracle_is_a_verbatim_copy():
     src = inspect.getsource(T.hw_counts_long_pattern)
     assert src == inspect.getsource(J.hw_counts_long_pattern)
+
+
+# -- the kernels' plain twins on csrc/myers.cu's edge cases ---------------
+
+@pytest.mark.parametrize("name", sorted(MYERS_CASES))
+def test_plain_matches_jax_on_kernel_edge_cases(name):
+    """The plain versions (which tests/test_torch_cuda.py holds the
+    kernels to on the same cases) against JAX, lane for lane: pattern
+    lengths 0, 1 and 32 in one batch; n_alpha 1 and 20 with read codes
+    past the alphabet; reads of 1,025-1,500 bases in the 4,096 bucket;
+    zero-length reads only; W = 9 words (patterns of up to 288 bases).
+    Each at the case's max_e and at EVERY_LANE, where every lane's count
+    shows."""
+    pc, plen, codes, lens, n_alpha, n_words, max_e = myers_case(name)
+    args = [jnp.asarray(x) for x in (plen, codes, lens)]
+    targs = [_t(x) for x in (plen, codes, lens)]
+    if n_words is None:
+        peq = J.build_peq(jnp.asarray(pc), args[0], n_alpha)
+        tpeq = T.build_peq(_t(pc), targs[0], n_alpha)
+    else:
+        peq = J.build_peq_multiword(jnp.asarray(pc), args[0], n_alpha,
+                                    n_words)
+        tpeq = T.build_peq_multiword(_t(pc), targs[0], n_alpha, n_words)
+    assert np.array_equal(tpeq.numpy().view(np.uint32), np.asarray(peq))
+    for e in (max_e, EVERY_LANE):
+        if n_words is None:
+            want = np.asarray(J.myers_hw_counts(peq, *args, e))
+            got = T.myers_hw_counts_plain(tpeq, *targs, e)
+            public = T.myers_hw_counts(tpeq, *targs, e)
+        else:
+            want = np.asarray(J.myers_hw_counts_multiword(peq, *args, e,
+                                                          n_words))
+            got = T.myers_hw_counts_multiword_plain(tpeq, *targs, e,
+                                                    n_words)
+            public = T.myers_hw_counts_multiword(tpeq, *targs, e, n_words)
+        assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+        assert torch.equal(public, got)
+        if name == "zero_length_reads":
+            assert not want.any()
+        elif e == EVERY_LANE:  # every lane of a non-empty read counts
+            assert (want[lens > 0] >= 1).all()
+        else:
+            assert want.sum() > 0
+
+
+def _wrapper_args(multiword):
+    pc, plen, codes, lens, n_alpha, n_words, max_e = myers_case(
+        "multiword_w9" if multiword else "m_0_1_21_32")
+    build = ((lambda c, m: T.build_peq_multiword(c, m, n_alpha, n_words))
+             if multiword else (lambda c, m: T.build_peq(c, m, n_alpha)))
+    args = {"peq": build(_t(pc), _t(plen)), "pat_len": _t(plen),
+            "reads_codes": _t(codes), "read_len": _t(lens), "max_e": max_e}
+    if multiword:
+        args["n_words"] = n_words
+    return args
+
+
+_BAD_INPUTS = {
+    "cpu_tensors": ({}, "CUDA tensors"),
+    "int64_peq": ({"peq": lambda a: a["peq"].long()}, "int32 peq"),
+    "int64_pat_len": ({"pat_len": lambda a: a["pat_len"].long()}, "int32"),
+    "int32_codes": ({"reads_codes": lambda a: a["reads_codes"].int()},
+                    "uint8 read codes"),
+    "short_pat_len": ({"pat_len": lambda a: a["pat_len"][1:]}, "pat_len"),
+    "short_read_len": ({"read_len": lambda a: a["read_len"][1:]},
+                       "read_len"),
+    "flat_codes": ({"reads_codes": lambda a: a["reads_codes"].reshape(-1)},
+                   "read codes"),
+    # one word: a (P, 1, n_alpha) plane; W words: n_words not the plane's
+    "other_words": ({"peq": lambda a: a["peq"] if "n_words" in a
+                     else a["peq"][:, None],
+                     "n_words": lambda a: 8}, "need peq"),
+    "alphabet_257": ({"peq": lambda a: torch.zeros(
+        (*a["peq"].shape[:-1], 257), dtype=torch.int32)}, "256 alphabet"),
+    "max_e_2_31": ({"max_e": lambda a: 1 << 31}, "int32"),
+}
+
+
+@pytest.mark.parametrize("multiword", [False, True])
+@pytest.mark.parametrize("bad", sorted(_BAD_INPUTS))
+def test_kernel_wrappers_refuse_what_the_kernel_does_not_take(bad,
+                                                              multiword):
+    """myers_hw_counts{,_multiword}_kernel raise ValueError on CPU
+    tensors, a wrong dtype, mismatched shapes or word counts, an alphabet
+    past 256 codes and a max_e past int32, before any launch (no card
+    here)."""
+    args = _wrapper_args(multiword)
+    change, match = _BAD_INPUTS[bad]
+    for key, fn in change.items():
+        if key in args:
+            args[key] = fn(args)
+    fn = (T.myers_hw_counts_multiword_kernel if multiword
+          else T.myers_hw_counts_kernel)
+    with pytest.raises(ValueError, match=match):
+        fn(**args)
+
+
+def test_public_names_never_load_the_kernel_library_on_cpu(monkeypatch):
+    """On CPU tensors the public names run the plain versions and never
+    build or load csrc/myers.cu's library."""
+    from kmer_tpu_torch.kernels import _build
+
+    def no_library():
+        raise AssertionError("the kernel library was loaded")
+
+    monkeypatch.setattr(_build, "library", no_library)
+    for multiword in (False, True):
+        args = _wrapper_args(multiword)
+        public = (T.myers_hw_counts_multiword if multiword
+                  else T.myers_hw_counts)
+        plain = (T.myers_hw_counts_multiword_plain if multiword
+                 else T.myers_hw_counts_plain)
+        assert torch.equal(public(**args), plain(**args))
+    assert not any(_build.LAUNCHES[k] for k in ("myers", "myers_multiword"))
+
+
+def test_myers_cu_defines_every_bound_entry_point():
+    """Every ktt_myers* entry that kernels/_build.py binds is defined in
+    csrc/myers.cu with as many parameters as its ctypes signature, and
+    the register-form word limit is the wrapper's REG_WORDS."""
+    import re
+
+    from kmer_tpu_torch.kernels import _build
+
+    with open(os.path.join(_build.CSRC, "myers.cu")) as f:
+        src = f.read()
+    entries = {n: a for n, a in _build._SIGNATURES.items()
+               if n.startswith("ktt_myers")}
+    assert set(entries) == {"ktt_myers", "ktt_myers_multiword"}
+    for name, argtypes in entries.items():
+        m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src)
+        assert m, name
+        params = [p for p in m.group(1).split(",") if p.strip()]
+        assert len(params) == len(argtypes), name
+    assert f"constexpr int kRegWords = {T.REG_WORDS};" in src
+    assert {"myers", "myers_multiword"} <= set(_build.LAUNCHES)
 
 
 # -- the tool -------------------------------------------------------------
