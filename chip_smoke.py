@@ -152,18 +152,21 @@ Phases, each printing its own lines:
               table; a table near GROW_LOAD holding tombstones, and
               insert_gated's planes there; lookups with create_new off),
               with rounds, probe-lanes, both times (CUDA events), the
-              byte bound (random 32-byte sectors) and the launch floor
-              of a round, and the plain-torch count delta, first lane
-              and hist beside their bounds; `KMER_TPU_TABLE_YAK=1
-              yak-count -k31 -b30 A B` through the tool (YakEngine):
-              stdout and `[M` lines == phase 10's, extract and resolve
-              launch and no merge or seghist kernel; wall, Mbases/s,
+              byte bound (random 32-byte sectors), one host
+              synchronization a call and a round's floor in the
+              one-block tail and on the grid; the kernel's cooperative
+              grid and its registers (`-Xptxas -v`); the plain-torch
+              count delta, first lane and hist beside their bounds;
+              `KMER_TPU_TABLE_YAK=1 yak-count -k31 -b30 A B` through
+              the tool (YakEngine): stdout and `[M` lines == phase 10's,
+              extract and resolve launch, resolve once a call, and no
+              merge or seghist kernel; wall, Mbases/s,
               peak memory, final capacity, rebuilds, rounds; a
               checkpoint saved after pass 1 and resumed on the card ==
               phase 10's stdout; MeshYakEngine on phase 14's 4 shards
               (== phase 10's stdout, phase 14's `[M` lines) and in phase
               15's two processes (== phase 10's stdout, phase 15's `[M`
-              lines)
+              lines; its wall beside phase 15's sort engine's)
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; the kernels line takes the counts of extract, seghist and the
@@ -3321,7 +3324,10 @@ def resolve_case(label, table, keys, create_new, floor_ms):
     st0, k0 = table.state, table.key
     a = (st0.clone(), k0.clone())
     b = (st0.clone(), k0.clone())
-    got = kt.resolve_slots_kernel(*a, keys, valid, create_new)
+    got, syncs = host_syncs(
+        lambda: kt.resolve_slots_kernel(*a, keys, valid, create_new))
+    need(syncs == 1, f"[table] resolve {label}: {syncs} host "
+         f"synchronizations in one call, not 1")
     want = kt.resolve_slots_plain(*b, keys, valid, create_new)
     err = max(max_abs_err(x, y) for x, y in (
         (a[0], b[0]), (a[1], b[1]), (got.slot, want.slot),
@@ -3351,17 +3357,37 @@ def resolve_case(label, table, keys, create_new, floor_ms):
         f"probe-lanes ({got.probes / max(int(valid.sum()), 1):.3f} a lane); "
         f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms; bound "
         f"{nbytes / 1e6:.1f} MB = {bound:.4f} ms ({100 * bound / ms:.1f}%); "
-        f"launch floor {got.rounds} rounds x {floor_ms:.4f} ms = "
-        f"{got.rounds * floor_ms:.4f} ms")
+        f"one launch and one host synchronization; {got.rounds} rounds x "
+        f"the tail's floor {floor_ms:.4f} ms = {got.rounds * floor_ms:.4f} "
+        f"ms")
     return err, ms, plain_ms, nbytes, got
 
 
-def round_floor_ms(dev, chain=256):
-    """One round's floor (two launches, the count's memset and its
-    4-byte read back, over one lane): a lookup whose probe chain is
-    `chain` slots long (FULL with another key, then EMPTY) takes chain + 1
-    rounds, a lookup at an EMPTY slot one; the floor is the difference
-    over chain, each timed as a run of 20 calls."""
+def host_syncs(fn):
+    """(fn(), the host synchronizations it made), counted by
+    torch.cuda.set_sync_debug_mode("warn")."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("called a synchronizing" in str(w.message) for w in seen)
+
+
+def round_floor_ms(dev, lanes, chain=256):
+    """One in-kernel round's floor over `lanes` lanes of one key (1: the
+    one-block tail; more than the tail's lanes: the grid, two grid
+    barriers a round): a lookup whose probe chain is `chain` slots long
+    (FULL with another key, then EMPTY) takes chain + 1 rounds, a lookup
+    at an EMPTY slot one; the floor is the difference over chain, each
+    timed as a run of 20 calls."""
     import torch
 
     from kmer_tpu_torch.kernels import table as kt
@@ -3369,18 +3395,39 @@ def round_floor_ms(dev, chain=256):
     from kmer_tpu_torch.table import count_table as ct
 
     cap = 1 << 16
-    one = torch.tensor([12345], dtype=torch.int64, device=dev)
-    ok = torch.ones(1, dtype=torch.bool, device=dev)
+    keys = torch.full((lanes,), 12345, dtype=torch.int64, device=dev)
+    ok = torch.ones(lanes, dtype=torch.bool, device=dev)
     empty, walk = ct.make(cap, dev), ct.make(cap, dev)
-    base = int(slot_mix32(one)) & (cap - 1)
+    base = int(slot_mix32(keys[:1])) & (cap - 1)
     run = (base + torch.arange(chain, device=dev)) & (cap - 1)
     walk.state[run] = ct.FULL
     walk.key[run] = 54321
     ms = [time_run_ms(lambda t=t: kt.resolve_slots_kernel(
-        t.state, t.key, one, ok, False), reps=20) for t in (empty, walk)]
-    r = kt.resolve_slots_kernel(walk.state, walk.key, one, ok, False)
+        t.state, t.key, keys, ok, False), reps=20) for t in (empty, walk)]
+    r = kt.resolve_slots_kernel(walk.state, walk.key, keys, ok, False)
     need(r.rounds == chain + 1, f"the floor's chain took {r.rounds} rounds")
     return (ms[1] - ms[0]) / chain
+
+
+def ptxas_lines(src, symbol):
+    """nvcc's `-Xptxas -v` report (registers, spills, shared memory) of
+    the kernels of `src` whose mangled name holds `symbol`, compiled
+    with the library's flags."""
+    from kmer_tpu_torch.kernels import _build
+
+    obj = os.path.join(_build.BUILD_DIR, "ptxas_report.o")
+    r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
+                        "-c", "-o", obj, src], capture_output=True,
+                       text=True, timeout=300)
+    need(r.returncode == 0, f"nvcc -Xptxas -v {src} failed: {r.stderr}")
+    os.remove(obj)
+    out, mine = [], False
+    for line in r.stderr.splitlines():
+        if "Compiling entry function" in line or "Function properties" in line:
+            mine = symbol in line
+        elif mine and ("Used" in line or "spill" in line):
+            out.append(line.strip())
+    return out
 
 
 def plain_parts(table, slot, contrib, keys):
@@ -3438,6 +3485,7 @@ def phase_table(seed, out):
     import torch
 
     from kmer_tpu_torch.kernels import _build, bloom
+    from kmer_tpu_torch.kernels import table as kt
     from kmer_tpu_torch.kernels.keys import SENT
     from kmer_tpu_torch.pipeline import yak
     from kmer_tpu_torch.pipeline.counter import GROW_LOAD
@@ -3448,9 +3496,19 @@ def phase_table(seed, out):
     path_b = snp_inputs(seed)[2]["B"]
     args = [*YAK2_ARGS, path_a, path_b]
     blocks = first_blocks(path_a, 3)
-    floor = round_floor_ms(dev)
-    say("table", f"one round's floor (one lane: 2 launches, a memset, the "
-        f"4-byte read back): {floor:.4f} ms")
+    shape = kt.kernel_shape(dev)
+    regs = ptxas_lines(os.path.join(_build.CSRC, "table.cu"), "resolve")
+    need(regs, "no -Xptxas -v report of the resolve kernel")
+    say("table", f"resolve: a cooperative grid of {shape['blocks']} blocks "
+        f"({shape['blocks_per_sm']} a SM x {shape['sms']} SMs) of "
+        f"{shape['threads']} threads, {shape['registers']} registers a "
+        f"thread, the one-block tail from {shape['tail_lanes']} lanes; "
+        f"-Xptxas -v: {'; '.join(regs)}")
+    floor = round_floor_ms(dev, 1)
+    grid_floor = round_floor_ms(dev, 4 * shape["tail_lanes"])
+    say("table", f"one in-kernel round's floor: {floor:.5f} ms in the "
+        f"one-block tail (one lane), {grid_floor:.5f} ms on the grid "
+        f"({4 * shape['tail_lanes']} lanes of one key)")
 
     # 1. a fresh table sized for block 1, as YakEngine._maybe_grow sizes it
     n1 = int((blocks[0] != SENT).sum())
@@ -3528,6 +3586,9 @@ def phase_table(seed, out):
          f"the table path never launched extract or resolve: {launches}")
     need(not any(v for n, v in launches.items() if n not in TABLE_KERNELS),
          f"the table path launched a merge or seghist kernel: {launches}")
+    need(launches["resolve"] == len(calls),
+         f"{launches['resolve']} resolve launches for {len(calls)} calls: "
+         f"not one a call")
     mb_b = dict((n, mb) for n, _, mb, _ in SNP_SAMPLES)["B"]
     bases = (MBASES + mb_b) * 1_000_000 // READ_LEN * READ_LEN
     rounds = [c[0] for c in calls]
@@ -3537,8 +3598,8 @@ def phase_table(seed, out):
         f"{len(got[1])} [M lines == phase 10's; peak device memory "
         f"{peak:.2f} GiB; final capacity {eng.table.capacity} slots, "
         f"{eng.rebuilds} rebuilds, {int(eng.table.n_full)} keys kept")
-    say("table", f"resolve calls {len(calls)}: {sum(rounds)} rounds "
-        f"(at most {max(rounds)} a call), "
+    say("table", f"resolve calls {len(calls)}, one launch each: "
+        f"{sum(rounds)} rounds (at most {max(rounds)} a call), "
         f"{sum(c[1] for c in calls)} probe-lanes over "
         f"{sum(c[2] for c in calls)} lanes")
     for i, st in enumerate(eng.stats, 1):
@@ -3617,8 +3678,11 @@ def phase_table(seed, out):
             f"the table path on process {pid}: launches {la}")
         say("table", f"  process {pid}: {mp_line(q, bases)}; launches "
             f"{json.dumps(la)}")
+    sort_wall = out["multiproc"]["yak2"]["wall"]
     say("table", f"on {MP_PROCS} processes x {MP_SHARDS} shards: stdout == "
-        f"phase 10's, {len(p[0]['lines'])} [M lines == phase 15's")
+        f"phase 10's, {len(p[0]['lines'])} [M lines == phase 15's; wall "
+        f"{p[0]['wall']:.3f} s against the sort engine's {sort_wall:.3f} s "
+        f"in phase 15 ({p[0]['wall'] / sort_wall:.2f}x)")
     return {"row": row, "launches": launches, "parts": parts}
 
 

@@ -9,7 +9,10 @@ all started together, with
 and linked (`nvcc -shared`) into one shared library under
 build/kmer_tpu_torch/ at the repository root, named by a hash of the
 sources and flags (a changed source builds anew; an unchanged one loads
-the library already built).  The library
+the library already built).  Whole-program objects are enough for the
+grid barrier of csrc/table.cu's cooperative kernel
+(cooperative_groups::this_grid().sync() needs no -rdc since CUDA 11).
+The library
 has a plain C interface and is bound with ctypes: every pointer and the
 CUDA stream pass as c_void_p.  Each entry point returns
 cudaGetLastError() after its launches; `check` raises when that is not
@@ -72,8 +75,9 @@ _SIGNATURES = {
     "ktt_merge_tile_lanes3": [],
     "ktt_merge_partition3": [_P, _P, _I64, _P, _P, _I64, _P, _P],
     "ktt_merge_path3": [_P, _P, _I64, _P, _P, _I64, _P, _P, _P, _P],
-    "ktt_resolve_round": [_P, _I64, _I64, _P, _P, _P, _P, _P, _I64, _P, _P,
-                          _P, _P, _P, _P, _P, _I64, _I32, _P],
+    "ktt_resolve": [_P, _P, _I64, _I64, _I64, _P, _P, _P, _P, _P, _P, _P,
+                    _P, _P, _I32, _P],
+    "ktt_resolve_info": [_P],
     "ktt_myers": [_P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32, _P, _P],
     "ktt_myers_multiword": [_P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32,
                             _I32, _P, _P, _P],

@@ -17,11 +17,13 @@ outputs exactly.
   resolve_slots_plain   the loop in plain PyTorch, over the compacted
                         list of active lanes (a round's result does not
                         depend on the order of its lanes)
-  resolve_slots_kernel  csrc/table.cu: two launches a round (probe and
-                        claim, then decide and append the survivors), the
-                        survivor count read by the host once a round
+  resolve_slots_kernel  csrc/table.cu: every round in one cooperative
+                        launch (the grid while many lanes are active, one
+                        block for the tail), one host read a call; a
+                        refused launch raises (no fallback)
   resolve_slots         the kernel for CUDA tensors, the plain version
                         for CPU tensors
+  kernel_shape          the kernel's cooperative grid on a card
 
 In place: the winners' keys and FULL are written into `state` and `tkey`
 (the JAX package returns new planes).  Each returns Resolved(slot int64
@@ -138,37 +140,41 @@ def resolve_slots_kernel(state: torch.Tensor, tkey: torch.Tensor,
     if not keys.is_cuda:
         raise ValueError("resolve_slots: the kernel takes CUDA tensors "
                          "(resolve_slots takes CPU tensors too)")
-    if not all(t.is_contiguous() for t in (state, tkey, keys)):
+    if not all(t.is_contiguous() for t in (state, tkey, keys, valid)):
         raise ValueError("resolve_slots: need contiguous planes")
     cap, m, dev = state.shape[0], keys.shape[0], keys.device
-    lanes = torch.nonzero(valid).flatten().to(torch.int32)
-    n = lanes.shape[0]
-    nxt = torch.empty_like(lanes)
-    count = torch.empty(1, dtype=torch.int32, device=dev)
-    pos_slot = torch.empty(n, dtype=torch.int32, device=dev)
-    pos_case = torch.empty(n, dtype=torch.uint8, device=dev)
-    off = torch.zeros(m, dtype=torch.int32, device=dev)
-    slot = torch.full((m,), cap, dtype=torch.int64, device=dev)
-    found = torch.zeros(m, dtype=torch.bool, device=dev)
+    slot = torch.empty(m, dtype=torch.int64, device=dev)
+    found = torch.empty(m, dtype=torch.bool, device=dev)
     created = torch.zeros(cap, dtype=torch.bool, device=dev)
     ticket = torch.zeros(cap if create_new else 1, dtype=torch.int32,
                          device=dev)
-    rnd = probes = 0
-    while n:
-        if rnd >= _round_limit(cap):
-            raise _spin(cap)
-        probes += n
-        _build.launch(
-            "ktt_resolve_round", "resolve", keys, keys.data_ptr(), m, cap,
-            state.data_ptr(), tkey.data_ptr(), ticket.data_ptr(),
-            off.data_ptr(), lanes.data_ptr(), n, nxt.data_ptr(),
-            count.data_ptr(), pos_slot.data_ptr(), pos_case.data_ptr(),
-            slot.data_ptr(), found.data_ptr(), created.data_ptr(), rnd,
-            int(create_new))
-        n = int(count.item())
-        lanes, nxt = nxt, lanes
-        rnd += 1
-    return Resolved(slot, found, created, rnd, probes)
+    # two lists of active lanes, 16 bytes an entry (key, lane, offset)
+    lists = torch.empty(4 * m, dtype=torch.int64, device=dev)
+    pos_case = torch.empty(m, dtype=torch.uint8, device=dev)
+    # survivor counts, valid lanes, then rounds, probes, the limit's flag
+    ctl = torch.zeros(6, dtype=torch.int64, device=dev)
+    _build.launch(
+        "ktt_resolve", "resolve", keys, keys.data_ptr(), valid.data_ptr(),
+        m, cap, _round_limit(cap), state.data_ptr(), tkey.data_ptr(),
+        ticket.data_ptr(), lists.data_ptr(), pos_case.data_ptr(),
+        slot.data_ptr(), found.data_ptr(), created.data_ptr(),
+        ctl.data_ptr(), int(create_new))
+    rounds, probes, over = ctl[3:].tolist()  # the call's one host read
+    if over:
+        raise _spin(cap)
+    return Resolved(slot, found, created, rounds, probes)
+
+
+def kernel_shape(device: torch.device) -> dict:
+    """The resolve kernel's cooperative grid on a card: blocks a SM, SMs,
+    the grid's most blocks, registers a thread, the lanes of the
+    one-block tail and threads a block."""
+    out = torch.zeros(6, dtype=torch.int64)
+    with torch.cuda.device(device):
+        _build.check(_build.library().ktt_resolve_info(out.data_ptr()),
+                     "resolve")
+    return dict(zip(("blocks_per_sm", "sms", "blocks", "registers",
+                     "tail_lanes", "threads"), out.tolist()))
 
 
 def resolve_slots(state: torch.Tensor, tkey: torch.Tensor,

@@ -306,3 +306,26 @@ def test_resolve_raises_instead_of_spinning():
     with pytest.raises(ValueError, match="CUDA"):
         kt.resolve_slots_kernel(t.state, t.key, k,
                                 torch.ones(20, dtype=torch.bool), True)
+
+
+def test_resolve_entry_points_match_their_signatures():
+    """csrc/table.cu's C entry points, ktt_resolve (one cooperative
+    launch a call) and ktt_resolve_info, have as many parameters as
+    their ctypes signatures; the per-round entry is gone."""
+    import os
+    import re
+
+    from kmer_tpu_torch.kernels import _build
+
+    with open(os.path.join(_build.CSRC, "table.cu")) as f:
+        src = f.read()
+    entries = {n: a for n, a in _build._SIGNATURES.items()
+               if n.startswith("ktt_resolve")}
+    assert set(entries) == {"ktt_resolve", "ktt_resolve_info"}
+    for name, argtypes in entries.items():
+        m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src)
+        assert m, name
+        params = [p for p in m.group(1).split(",") if p.strip()]
+        assert len(params) == len(argtypes), name
+    assert "cudaLaunchCooperativeKernel" in src
+    assert "ktt_resolve_round" not in src

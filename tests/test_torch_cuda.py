@@ -851,6 +851,12 @@ def test_kernels_launch_on_the_tensors_card(dev):
         _check_merge3(_runs3(card, 4097, 12345, 4))
         t = _table_case(card, 12, 0.3, "fresh", 9)
         _check_resolve(t, True)
+        _check_resolve(_table_case(card, 14, 0.6, "dup", 10), False)
+        from kmer_tpu_torch.kernels import table as kt
+        tail = kt.kernel_shape(card)["tail_lanes"]
+        keys, valid = _lanes(card, 4 * tail, [(0xA11, tail + 1)], 3)
+        _check_resolve((_chained(card, 1 << 16, [(0xA11, 40)]), keys,
+                        valid), True)
         for name in ("n_alpha_20", "multiword_w9"):
             assert torch.equal(_myers_on(card, name).cpu(),
                                _myers_on("cpu", name))
@@ -916,15 +922,149 @@ def _check_resolve(case, create_new):
 @pytest.mark.parametrize("log2m", [20, 22, 24])
 def test_resolve_kernel_matches_plain(dev, log2m, load, kind, create_new):
     """csrc/table.cu against the plain round loop on the same table and
-    batch: planes, slot, found, created, rounds and probes all equal; a
-    fresh table and one near GROW_LOAD with tombstones, lookups
-    (create_new off) included."""
+    batch: planes, slot, found, created, rounds and probes all equal, in
+    one launch; a fresh table and one near GROW_LOAD with tombstones,
+    lookups (create_new off) included."""
     from kmer_tpu_torch.kernels import _build
 
     case = _table_case(dev, log2m, load, kind, log2m * 7 + int(10 * load))
     n0 = _build.LAUNCHES["resolve"]
     got = _check_resolve(case, create_new)
-    assert _build.LAUNCHES["resolve"] - n0 == got.rounds > 0
+    assert _build.LAUNCHES["resolve"] - n0 == 1 and got.rounds > 0
+
+
+def _chained(dev, cap, chains):
+    """A table of cap slots where each (key, length) of `chains` finds
+    `length` slots FULL with other keys from its home slot on, then its
+    first EMPTY one (chains that meet run on together)."""
+    from kmer_tpu_torch.kernels.hash64 import slot_mix32
+    from kmer_tpu_torch.table import count_table as ct
+
+    table = ct.make(cap, dev)
+    filler = 1 << 40
+    for key, length in chains:
+        home = int(slot_mix32(torch.tensor([key]))[0]) & (cap - 1)
+        run = (home + torch.arange(length, device=dev)) & (cap - 1)
+        table.state[run] = ct.FULL
+        table.key[run] = filler + torch.arange(length, device=dev)
+        filler += length
+    return table
+
+
+def _lanes(dev, m, groups, seed):
+    """m lanes, invalid but for each (key, count) of `groups`: count lanes
+    of that key at random places."""
+    rng = np.random.default_rng(seed)
+    keys = np.full(m, int(SENT), np.int64)
+    at = rng.permutation(m)
+    i = 0
+    for key, count in groups:
+        keys[at[i:i + count]] = key
+        i += count
+    keys = torch.from_numpy(keys).to(dev)
+    return keys, keys != SENT
+
+
+@pytest.mark.parametrize("create_new", [True, False])
+def test_resolve_kernel_no_valid_lane(dev, create_new):
+    """No valid lane: no round, no probe, the planes untouched, every
+    lane absent."""
+    table = _chained(dev, 1 << 10, [(7, 20)])
+    keys = torch.full((5000,), SENT, dtype=torch.int64, device=dev)
+    st, tk = table.state.clone(), table.key.clone()
+    got = _check_resolve((table, keys, keys != SENT), create_new)
+    assert (got.rounds, got.probes) == (0, 0)
+    assert torch.equal(table.state, st) and torch.equal(table.key, tk)
+    assert bool((got.slot == 1 << 10).all()) and not bool(got.found.any())
+    assert not bool(got.created.any())
+
+
+@pytest.mark.parametrize("create_new", [True, False])
+def test_resolve_kernel_long_chain_into_the_tail(dev, create_new):
+    """A batch of 2^20 lanes over a table near GROW_LOAD, with a few lanes
+    of one key whose chain holds 300 FULL slots: the grid's rounds, then
+    more than 256 rounds of the one-block tail."""
+    table, keys, valid = _table_case(dev, 20, 0.6, "fresh", 77)
+    key = 0x5EED
+    chained = _chained(dev, table.capacity, [(key, 300)])
+    run = chained.state == 1
+    table.state[run], table.key[run] = 1, chained.key[run]
+    keys[torch.tensor([3, 4, 100_000, (1 << 20) - 1], device=dev)] = key
+    valid = keys != SENT
+    got = _check_resolve((table, keys, valid), create_new)
+    assert got.rounds > 300
+
+
+@pytest.mark.parametrize("create_new", [True, False])
+@pytest.mark.parametrize("over", [-1, 0, 1])
+def test_resolve_kernel_straddles_the_tail(dev, over, create_new):
+    """Round 1's survivors one under, at and one over the one-block tail's
+    lanes: a group of duplicates walks 3 slots (then claims, or is
+    absent), 5 lanes of another key walk 20."""
+    from kmer_tpu_torch.kernels import table as kt
+
+    tail = kt.kernel_shape(dev)["tail_lanes"]
+    a, b = 0xA11, 0xB22
+    table = _chained(dev, 1 << 16, [(a, 3), (b, 20)])
+    keys, valid = _lanes(dev, 4 * tail, [(a, tail + over - 5), (b, 5)],
+                         over + 2)
+    got = _check_resolve((table, keys, valid), create_new)
+    assert got.rounds == 20 + 1 + create_new
+    assert got.probes > 3 * (tail + over)
+
+
+@pytest.mark.parametrize("chain", [255, 300])
+def test_resolve_kernel_tag_wraps(dev, chain):
+    """2^24 lanes, six of them valid: four of one key that claim its
+    slot after `chain` rounds, where round * m has reached 2^32 (at 255
+    the last lane's tag wraps to 0 and loses), two of a fresh key."""
+    m = 1 << 24
+    key = 0x7A6
+    table = _chained(dev, 1 << 12, [(key, chain)])
+    keys = torch.full((m,), SENT, dtype=torch.int64, device=dev)
+    keys[torch.tensor([0, 7, m // 2, m - 1], device=dev)] = key
+    keys[torch.tensor([11, m - 2], device=dev)] = 0x123
+    got = _check_resolve((table, keys, keys != SENT), True)
+    assert got.rounds == chain + 2
+
+
+def test_resolve_kernel_raises_at_the_round_limit(dev):
+    """20 distinct keys into 8 slots: the kernel stops at the round limit
+    and the wrapper raises, as the plain version does."""
+    from kmer_tpu_torch.kernels import table as kt
+    from kmer_tpu_torch.table import count_table as ct
+
+    keys = torch.arange(1, 21, dtype=torch.int64, device=dev)
+    valid = torch.ones(20, dtype=torch.bool, device=dev)
+    for fn in (kt.resolve_slots_kernel, kt.resolve_slots_plain):
+        t = ct.make(8, dev)
+        with pytest.raises(RuntimeError, match="more distinct keys"):
+            fn(t.state, t.key, keys, valid, True)
+    with pytest.raises(RuntimeError, match="more distinct keys"):
+        ct.insert(ct.make(8, dev), keys, valid, None)
+
+
+def test_resolve_kernel_reads_the_host_once(dev):
+    """One call synchronizes the host once (the read of rounds, probes
+    and the limit's flag) and launches once."""
+    import warnings
+
+    from kmer_tpu_torch.kernels import _build
+    from kmer_tpu_torch.kernels import table as kt
+
+    table, keys, valid = _table_case(dev, 16, 0.6, "fresh", 5)
+    torch.cuda.synchronize()
+    n0 = _build.LAUNCHES["resolve"]
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            got = kt.resolve_slots(table.state, table.key, keys, valid, True)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in seen if "called a synchronizing" in str(w.message)]
+    assert len(syncs) == 1 and _build.LAUNCHES["resolve"] - n0 == 1
+    assert got.rounds > 1
 
 
 @pytest.mark.parametrize("mesh", [False, True])
