@@ -29,15 +29,20 @@ Phases, each printing its own lines:
               old bitonic merge (with the concatenation it needs), whose
               six kernels are still checked and timed one by one
               (printed, not in the kernels line: no path launches them);
-              both Myers kernels (csrc/myers.cu) at ed-vaf-counter's
-              batch (2,048 reads x 2,000 21-base patterns, n_alpha 4),
-              pattern lengths 0, 1, 21, 32, W = 2, 4, 9 (n_alpha 40) and
-              reads of 0-4,096 bases, and phase 11's long-pattern batch,
-              each at its max_e and past every lane's best (all counts
-              compared), each main-path shape timed in turns with its
-              plain version,
-              with the operation bound and the issue side from the SASS
-              of the kernel's loop
+              both Myers kernels (csrc/myers.cu), their (R, P) counts
+              and their sums a pattern, on every case of
+              tests/torch_myers_cases.py, at ed-vaf-counter's batch
+              (2,048 reads x 2,000 21-base patterns, n_alpha 4) and at
+              the 21,000-site panel's (x 42,000), pattern lengths 0, 1,
+              21, 32, W = 2, 4, 9 (n_alpha 40) and reads of 0-4,096
+              bases, and phase 11's long-pattern batch, each at its
+              max_e and past every lane's best (all counts compared);
+              the tool's shapes timed in turns with the plain version
+              and the one-lane baseline kernel (scripts/myers_baseline.cu,
+              built beside the library in phase 2), with the operation
+              bound and the
+              issue and ALU-pipe bounds from the SASS of each kernel's
+              loop
   4. e2e      `kc-c4 -k31` through kmer_tpu_torch.tools on a synthetic
               gzipped FASTQ (24 MiB genome, 150 bp reads, 0.5% errors,
               256 Mbases, made from --seed and cached under
@@ -85,15 +90,22 @@ Phases, each printing its own lines:
               both passes' IngestStats, insert_sequential's device time
               over pass 1, the shrink join's time and the peak device
               memory (the 1 GiB bits array and both compactors)
- 11. edvaf    ed-vaf-counter -e1 with the first 1,000 sites of phase 9's
-              panel (2,000 patterns at k = 21) on sample B (64 Mbases):
-              wall, Mbases/s and the Myers kernel's share of the wall;
-              `myers` must launch once a batch and no other kernel; on
-              B's first 2,048 reads (one batch) the card's VAF file must
-              equal the CPU's, and so must it with a panel of LONG_SITES
-              sites at k = 45 and 97 cut from phase 9's genome (the
-              sites found in those reads first), where `myers_multiword`
-              must launch once
+ 11. edvaf    ed-vaf-counter -e1 on sample B (64 Mbases) with the first
+              1,000 sites of phase 9's panel (2,000 patterns at k = 21),
+              then with the whole panel (~21,000 sites, 42,000
+              patterns): wall, Mbases/s, the Myers kernel's device time
+              (CUDA events around each call) and its share of the wall,
+              peak device memory; `myers` must launch once a batch
+              through the sum entry and no other kernel, and the batch
+              loop must make no synchronizing call (it runs under
+              torch.cuda.set_sync_debug_mode("error")); the whole
+              panel's rows for the first 1,000 sites must equal the
+              1,000-site run's, and on its first batch the kernel's sums
+              the plain version's on the card; on B's first 2,048 reads
+              (one batch) the card's VAF file must equal the CPU's, and
+              so must it with a panel of LONG_SITES sites at k = 45 and
+              97 cut from phase 9's genome (the sites found in those
+              reads first), where `myers_multiword` must launch once
  12. fixture  kc-c4 on tests/fixtures at k=15, 21 and 31, yak-count on the
               reads fixture, two-file yak-count on sampleA1 + sampleB
               (-k31 -b19 -K65536, -k15 -b19, -b0), the SNP chain on the
@@ -172,8 +184,8 @@ Each path's launch counts are set to 0 just before it runs and read just
 after; the kernels line takes the counts of extract, seghist and the
 int64 merge path from phase 4, the int32 merge path's from phase 8, the
 (key, index) merge path's from phase 6, resolve's from phase 16's
-tool run, myers's from phase 11's run on B and myers_multiword's from
-its long-pattern run (phases 7, 10, 14 and 15 print their own).  No path may launch
+tool run, myers's from phase 11's whole-panel run on B and
+myers_multiword's from its long-pattern run (phases 7, 10, 14 and 15 print their own).  No path may launch
 a bitonic kernel, and after every phase neither jax nor any module of
 the JAX package (kmer_tpu) may be loaded.
 
@@ -362,10 +374,16 @@ def phase_card():
     return card
 
 
+MYERS_BASELINE_BUILD = None  # phase 3's baseline, its build started in phase 2
+
+
 def phase_build():
+    global MYERS_BASELINE_BUILD
     from kmer_tpu_torch.kernels import _build
 
     t0 = time.perf_counter()
+    # the one-lane Myers kernel builds beside the library, for phase 3
+    MYERS_BASELINE_BUILD = start_myers_baseline()
     _build.library()
     took = time.perf_counter() - t0
     how = ("built" if _build.build_seconds is not None else "loaded")
@@ -731,10 +749,10 @@ def reads_block(rng, dev):
     return torch.from_numpy(buf).to(dev)
 
 
-def sass_lines(symbol):
+def sass_lines(symbol, library=None):
     """The SASS instructions (address, text) of the one kernel whose
-    mangled name holds `symbol`, from cuobjdump of the built library
-    (None when the toolkit has no cuobjdump)."""
+    mangled name holds `symbol`, from cuobjdump of the built library (or
+    of `library`; None when the toolkit has no cuobjdump)."""
     import re
     import shutil
 
@@ -746,7 +764,7 @@ def sass_lines(symbol):
                  if c and os.path.exists(c)), None)
     if tool is None:
         return None
-    r = subprocess.run([tool, "-sass", _build._library_path()],
+    r = subprocess.run([tool, "-sass", library or _build._library_path()],
                        capture_output=True, text=True, timeout=120)
     if r.returncode != 0:
         return None
@@ -768,24 +786,49 @@ def sass_per_thread(symbol):
     return len(lines) if lines else None
 
 
-def sass_per_step(symbol):
-    """(SASS instructions of a kernel's loop over text positions, steps
-    in it): of the bodies of the backward branches, the one with the most
-    one-byte global loads (`LDG` with a U8 operand: one read code a step,
-    so the compiler's unroll factor), the longest on a tie.  None where
-    cuobjdump is missing or prints no branch address."""
+# the opcodes that issue to an SM sub-partition's ALU pipe (16 lanes a
+# clock): logic, 3-input adds, shifts, compares, selects, min/max, byte
+# permutes, LEA and MOV; IMAD and its aliases (IMAD.SHL, IMAD.MOV,
+# IMAD.IADD) issue to the FMA pipe, loads and stores to the memory pipe
+ALU_OPCODES = {"LOP3", "LOP", "PLOP3", "IADD3", "IADD", "SHF", "ISETP",
+               "SEL", "FSEL", "IMNMX", "VIMNMX", "PRMT", "LEA", "MOV",
+               "BMSK", "SGXT", "IABS", "P2R", "R2P", "FLO", "POPC", "BREV"}
+
+
+def opcode(text):
+    """The opcode of one SASS instruction, its predicate guard dropped."""
+    words = text.split()
+    if words and words[0].startswith("@"):
+        words = words[1:]
+    return words[0].split(".")[0] if words else ""
+
+
+def sass_per_step(symbol, library=None):
+    """(SASS instructions of a kernel's loop over text positions, steps in
+    it, ALU-pipe instructions of them): of the bodies of the innermost
+    backward branches, the one with the most read codes (a one-byte
+    global load `LDG...U8` is one step, a 16-byte `LDG...128` sixteen),
+    the longest on a tie.  None where cuobjdump is missing or prints no
+    such loop."""
     import re
 
-    lines = sass_lines(symbol)
-    best = None
+    lines = sass_lines(symbol, library)
+    loops = []
     for addr, text in lines or ():
         m = re.search(r"\bBRA\s+(?:`\()?0x([0-9a-f]+)", text)
         if m and int(m.group(1), 16) < addr:
-            body = [t for a, t in lines if int(m.group(1), 16) <= a <= addr]
-            steps = sum(1 for t in body if "LDG" in t and ".U8" in t)
-            if steps and (best is None or (steps, len(body)) > best):
-                best = (steps, len(body))
-    return None if best is None else (best[1], best[0])
+            loops.append((int(m.group(1), 16), addr))
+    best = None
+    for lo, hi in loops:
+        if any(lo < a and b < hi for a, b in loops):
+            continue  # an outer loop (over reads, or a chunk's groups)
+        body = [t for a, t in lines if lo <= a <= hi]
+        steps = sum(16 if ".128" in t else 1 for t in body
+                    if "LDG" in t and (".U8" in t or ".128" in t))
+        if steps and (best is None or (steps, len(body)) > best[1::-1]):
+            best = (len(body), steps,
+                    sum(opcode(t) in ALU_OPCODES for t in body))
+    return best
 
 
 def sm_clock_mhz():
@@ -945,30 +988,36 @@ def seghist_rows(rows, g, dev):
         torch.cuda.empty_cache()
 
 
-# the 32-bit operations of one (read, pattern, text position) step of
-# kernels/myers.py myers_hw_counts, unmasked: the Peq gather, xv, the sum
-# (eq & pv) + pv (2), xh (2), ph (3), mh, the top-bit tests of ph and mh
-# (4), the score's two adds, the shifts (2), new pv (4), new mv, and the
-# best/count update (6).  Each further word that a pattern spans in
-# myers_hw_counts_multiword adds its Peq gather, xv, the sum with the
-# ripple carry in and out (6), xh (2), ph (3), mh, the shifts across
-# words (6), new pv (4) and new mv; its top-bit tests are the lane's one
-# pair, already counted.  A word past the pattern's last (pv = mv = 0,
-# no carry in) needs nothing.
-MYERS_OPS_PER_STEP = 29
-MYERS_OPS_PER_WORD = 25
-PEAK_32BIT_OPS_PER_S = 67e12  # one H100 SXM, float32 outside the tensor cores
+# The 32-bit integer operations one (read, pattern, text position) step
+# of csrc/myers.cu's mask-free recurrence needs: xv, eq & pv, the sum, xh,
+# ph, mh, the two left shifts, new pv, new mv (10), the score's two bits
+# (2), score + 1, the two compares and the three predicated updates of
+# best and count (6).  9 of them can only issue to the ALU pipe (the
+# seven logic ops and the two compares); the adds, shifts and moves may
+# go to the FMA pipe.  Each further word that a pattern spans adds its
+# xv, eq & pv, the add with carry, xh, ph, mh, two funnel shifts, new pv
+# and new mv: 10, 9 of them ALU-only.
+MYERS_OPS_PER_STEP = 18
+MYERS_ALU_OPS_PER_STEP = 9
+MYERS_OPS_PER_WORD = 10
+MYERS_ALU_OPS_PER_WORD = 9
+# one H100 SM: 4 sub-partitions, each issuing one warp instruction a
+# clock and running 16 lanes a clock on its ALU pipe (NVIDIA's Hopper
+# white paper: 64 INT32 units an SM)
+ISSUE_LANES_PER_SM_CLOCK = 4 * 32
+ALU_LANES_PER_SM_CLOCK = 64
 EDVAF_READS = 2048  # one batch of 150 bp reads (the 1024-base bucket)
 LONG_SITES = 128  # the long-pattern panel of phase 11
 LONG_K = (45, 97)  # its k-mer lengths: 2 and 4 words
+MYERS_BASELINE = os.path.join(HERE, "scripts", "myers_baseline.cu")
 
 
 def myers_work(pat_len, lens, width, n_words, n_alpha):
-    """(lane-steps, operations, bytes) a Myers scan needs on these inputs:
-    each lane steps its read's length (up to the width), and a pattern of
-    m bases spans ceil(m / 32) of the n_words words (one word where
-    n_words is None); the bytes are the codes it reads, Peq, both length
-    planes and the counts."""
+    """(lane-steps, operations, ALU-only operations, bytes) a Myers scan
+    needs on these inputs: each lane steps its read's length (up to the
+    width), and a pattern of m bases spans ceil(m / 32) of the n_words
+    words (one word where n_words is None); the bytes are the codes it
+    reads, Peq, both length planes and the counts."""
     n_pat = pat_len.shape[0]
     read_steps = int(lens.clamp(0, width).sum())
     steps = n_pat * read_steps
@@ -976,48 +1025,198 @@ def myers_work(pat_len, lens, width, n_words, n_alpha):
         ((pat_len + 31) // 32).clamp(1, n_words).sum() - n_pat)
     ops = read_steps * (MYERS_OPS_PER_STEP * n_pat
                         + MYERS_OPS_PER_WORD * further)
+    alu = read_steps * (MYERS_ALU_OPS_PER_STEP * n_pat
+                        + MYERS_ALU_OPS_PER_WORD * further)
     nbytes = (read_steps + 4 * n_pat * (n_words or 1) * n_alpha
               + 4 * n_pat + 4 * lens.shape[0] + 4 * lens.shape[0] * n_pat)
-    return steps, ops, nbytes
+    return steps, ops, alu, nbytes
 
 
-def myers_batch(rng, dev, *shape):
-    """tests/torch_myers_cases.py planted_batch(rng, *shape) on dev."""
-    import importlib.util
-
+def int_rates(mhz):
+    """(issue, ALU-pipe) lane-operations a second of the whole card at
+    the SM clock mhz."""
     import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return (sms * ISSUE_LANES_PER_SM_CLOCK * mhz * 1e6,
+            sms * ALU_LANES_PER_SM_CLOCK * mhz * 1e6)
+
+
+def myers_bound_s(ops, alu, nbytes, mhz):
+    """(seconds, "operations" or "bytes"): the least time of a Myers scan,
+    the larger of its operations over the issue rate, its ALU-only
+    operations over the ALU pipe's rate, and its bytes over 3.35 TB/s."""
+    issue, pipe = int_rates(mhz)
+    t_ops = max(ops / issue, alu / pipe)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def myers_cases_module():
+    import importlib.util
 
     spec = importlib.util.spec_from_file_location(
         "torch_myers_cases", os.path.join(HERE, "tests",
                                           "torch_myers_cases.py"))
     cases = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cases)
+    return cases
+
+
+def myers_batch(rng, dev, *shape):
+    """tests/torch_myers_cases.py planted_batch(rng, *shape) on dev."""
+    import torch
+
+    cases = myers_cases_module()
     return [torch.from_numpy(x).to(dev)
             for x in cases.planted_batch(rng, *shape)], cases.EVERY_LANE
 
 
-def myers_rows(rows, rng, dev):
-    """Both Myers kernels (csrc/myers.cu) against their plain versions on
-    the card, lane for lane: ed-vaf-counter's batch (2,048 reads of 150
-    bases in the 1,024 bucket x 2,000 patterns of 21 bases, n_alpha 4 and
-    a catch-all code); pattern lengths 0, 1, 21 and 32 on reads of
+def start_myers_baseline():
+    """Start nvcc on the one-lane Myers kernel (scripts/myers_baseline.cu,
+    csrc/myers.cu's earlier form, kept for timing) beside common.cu, into
+    its own library under build/kmer_tpu_torch/; (path, process)."""
+    from kmer_tpu_torch.kernels import _build
+
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    so = os.path.join(_build.BUILD_DIR,
+                      f"libmyers_baseline.{os.getpid()}.so")
+    return so, subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", so,
+         MYERS_BASELINE, os.path.join(_build.CSRC, "common.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def myers_baseline_library(started):
+    import ctypes
+
+    so, proc = started
+    _out, err = proc.communicate(timeout=600)
+    need(proc.returncode == 0, f"nvcc of {MYERS_BASELINE} failed: {err}")
+    return ctypes.CDLL(so)
+
+
+def baseline_counts(lib, peq, plen, codes, lens, max_e, n_words=None):
+    """The one-lane baseline kernel (a thread a lane, the masked step) on
+    the same inputs: the (R, P) int32 counts."""
+    import ctypes
+
+    import torch
+
+    P_, I64, I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    (R, L), P, n_alpha = codes.shape, plen.shape[0], peq.shape[-1]
+    out = torch.empty((R, P), dtype=torch.int32, device=codes.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = (peq.data_ptr(), plen.data_ptr(), codes.data_ptr(),
+            lens.data_ptr())
+    if n_words is None:
+        fn = lib.ktt_myers
+        fn.argtypes = [P_] * 4 + [I64] * 3 + [I32, I32, P_, P_]
+        rc = fn(*ptrs, R, P, L, n_alpha, max_e, out.data_ptr(), stream)
+    else:
+        fn = lib.ktt_myers_multiword
+        fn.argtypes = [P_] * 4 + [I64] * 3 + [I32] * 3 + [P_] * 3
+        rc = fn(*ptrs, R, P, L, n_alpha, n_words, max_e, 0, out.data_ptr(),
+                stream)
+    need(rc == 0, f"the baseline myers kernel failed: CUDA error {rc}")
+    return out
+
+
+def myers_sass(symbol, steps, patterns, mhz, library=None):
+    """(text, loop SASS a lane-step, ALU SASS a lane-step, issue bound s,
+    ALU-pipe bound s) of a Myers kernel's loop over `steps` lane-steps,
+    `patterns` lanes a thread; None where not measurable."""
+    loop = sass_per_step(symbol, library)
+    if loop is None or mhz is None:
+        return None
+    body, per_iter, alu = loop
+    per = body / (per_iter * patterns)
+    alu_per = alu / (per_iter * patterns)
+    issue, pipe = int_rates(mhz)
+    return (f"its loop is {body} SASS instructions ({alu} ALU-pipe) for "
+            f"{per_iter} text step(s) x {patterns} pattern(s) = {per:.2f} a "
+            f"lane-step ({alu_per:.2f} ALU)",
+            per, alu_per, steps * per / issue, steps * alu_per / pipe)
+
+
+def myers_rows(rows, rng, dev, baseline):
+    """Both Myers kernels (csrc/myers.cu), in both forms (the (R, P)
+    counts and the sum a pattern into an int64 total), against their
+    plain versions on the card, lane for lane: every case of
+    tests/torch_myers_cases.py; ed-vaf-counter's batch at 1,000 sites
+    (2,048 reads of 150 bases in the 1,024 bucket x 2,000 patterns of 21
+    bases, n_alpha 4 and a catch-all code) and at the 21,000-site panel
+    (x 42,000 patterns); pattern lengths 0, 1, 21 and 32 on reads of
     0-4,096 bases; W = 2 on reads of 0-4,096 bases, W = 4 and W = 9 (the
-    scratch form) with n_alpha 40; and phase 11's long-pattern batch
-    (2,048 reads x 2 x LONG_SITES patterns of 45 and 97 bases, W = 4);
-    each at its max_e and at EVERY_LANE (tests/torch_myers_cases.py), so
-    that every lane's count is compared.  Each main-path shape is timed
-    in turns with its plain version (CUDA events, a run of 5, twice).
-    Bound: operations (MYERS_OPS_PER_STEP a lane-step, MYERS_OPS_PER_WORD
-    a further word its pattern spans) at the float32 rate, beside the
-    issue side from the loop's SASS."""
+    scratch form) with n_alpha 40; phase 11's long-pattern batch (2,048
+    reads x 2 x LONG_SITES patterns of 45 and 97 bases, W = 4); each at
+    its max_e and at EVERY_LANE, so that every lane's count is compared.
+    The tool's shapes are timed in turns (CUDA events, a run of 5; the
+    plain version at 42,000 patterns a run of 1) with the plain version
+    and the one-lane kernel (`baseline`, scripts/myers_baseline.cu).
+    Bound: the
+    operations (myers_work) over the issue and ALU-pipe rates, beside
+    the issue and ALU-pipe bounds of the compiled loop's SASS."""
     import torch
 
     from kmer_tpu_torch.kernels import myers
 
-    cases = (
+    def forms(n_words):
+        if n_words is None:
+            return (myers.build_peq, myers.myers_hw_counts_kernel,
+                    myers.myers_hw_counts_plain, myers.myers_hw_sums_kernel,
+                    myers.myers_hw_sums_plain, ())
+        return ((lambda c, m, a: myers.build_peq_multiword(c, m, a,
+                                                           n_words)),
+                myers.myers_hw_counts_multiword_kernel,
+                myers.myers_hw_counts_multiword_plain,
+                myers.myers_hw_sums_multiword_kernel,
+                myers.myers_hw_sums_multiword_plain, (n_words,))
+
+    def check(label, pc, plen, codes, lens, n_alpha, n_words, max_e,
+              every_lane, counts=True):
+        """Both forms == plain at max_e and EVERY_LANE; the plain sums."""
+        build, kern, plain, ksum, psum, more = forms(n_words)
+        peq = build(pc, plen, n_alpha)
+        found, e_max = [], 0.0
+        for e in (max_e, every_lane):
+            want = plain(peq, plen, codes, lens, e, *more)
+            if counts:
+                got = kern(peq, plen, codes, lens, e, *more)
+                e_max = max(e_max, max_abs_err(got, want))
+                del got
+            P = plen.shape[0]
+            total = ksum(peq, plen, codes, lens, e, *more,
+                         torch.zeros(P, dtype=torch.int64, device=dev))
+            e_max = max(e_max, max_abs_err(
+                total, want.sum(0, dtype=torch.int64)))
+            found.append(int(want.sum()))
+            del want
+        need(e_max == ERR_FREE, f"myers {label}: kernel != plain (max err "
+             f"{e_max})")
+        say("kernels", f"myers {label} ({codes.shape[0]} reads x "
+            f"{plen.shape[0]} patterns, n_alpha {n_alpha}, W "
+            f"{n_words or 1}): counts{' and' if counts else ''} sums equal "
+            f"to plain, {found[0]} end locations at max_e {max_e}, "
+            f"{found[1]} at max_e {every_lane}")
+        return peq, e_max
+
+    cases = myers_cases_module()
+    err = {"myers": 0.0, "myers_multiword": 0.0}
+    for name in sorted(cases.MYERS_CASES):
+        pc, plen, codes, lens, n_alpha, n_words, max_e = cases.myers_case(
+            name)
+        t = [torch.from_numpy(x).to(dev) for x in (pc, plen, codes, lens)]
+        _peq, e = check(name, *t, n_alpha, n_words, max_e, cases.EVERY_LANE)
+        key = "myers" if n_words is None else "myers_multiword"
+        err[key] = max(err[key], e)
+    shapes = (
         # label, reads, pattern lengths, patterns, n_alpha, width, read
         # lengths, highest read code, words (None: one), max_e
         ("tool", 2048, [21], 2000, 4, 1024, (150, 150), 4, None, 1),
+        ("panel", 2048, [21], 2 * SNP_SITES, 4, 1024, (150, 150), 4, None,
+         1),
         ("m 0 1 21 32", 512, [0, 1, 21, 32], 96, 4, 4096, (0, 4096), 4,
          None, 2),
         ("W 2", 256, [5, 33, 64], 64, 40, 4096, (0, 4096), 45, 2, 2),
@@ -1026,83 +1225,100 @@ def myers_rows(rows, rng, dev):
         ("long", 2048, list(LONG_K), 2 * LONG_SITES, 4, 1024, (150, 150), 4,
          4, 1),
     )
-    err = {"myers": 0.0, "myers_multiword": 0.0}
+    mhz = sm_clock_mhz()
     timed = {}
     for (label, n_reads, pat_lens, n_pat, n_alpha, width, read_lens,
-         code_max, n_words, max_e) in cases:
+         code_max, n_words, max_e) in shapes:
         (pc, plen, codes, lens), every_lane = myers_batch(
             rng, dev, n_reads, pat_lens, n_pat, n_alpha, width, read_lens,
             code_max)
-        if n_words is None:
-            name = "myers"
-            peq = myers.build_peq(pc, plen, n_alpha)
-            kern, plain, more = (myers.myers_hw_counts_kernel,
-                                 myers.myers_hw_counts_plain, ())
-        else:
-            name = "myers_multiword"
-            peq = myers.build_peq_multiword(pc, plen, n_alpha, n_words)
-            kern, plain, more = (myers.myers_hw_counts_multiword_kernel,
-                                 myers.myers_hw_counts_multiword_plain,
-                                 (n_words,))
-        # at the case's max_e, then past every lane's best, where each
-        # lane's count (of end positions at its exact best) shows
-        found = []
-        for e_max in (max_e, every_lane):
-            got = kern(peq, plen, codes, lens, e_max, *more)
-            want = plain(peq, plen, codes, lens, e_max, *more)
-            e = max_abs_err(got, want)
-            need(e == ERR_FREE, f"{name} {label} max_e {e_max}: kernel != "
-                 f"plain (max err {e})")
-            err[name] = max(err[name], e)
-            found.append(int(got.sum()))
-        say("kernels", f"{name} {label} ({n_reads} reads of {read_lens[0]}-"
-            f"{read_lens[1]} bases x {n_pat} patterns of {pat_lens} bases, "
-            f"n_alpha {n_alpha}, W {n_words or 1}): equal to plain, "
-            f"{found[0]} end locations at max_e {max_e}, {found[1]} at "
-            f"max_e {every_lane}")
-        if label in ("tool", "long"):
-            kern = functools.partial(kern, peq, plen, codes, lens, max_e,
-                                     *more)
-            plain = functools.partial(plain, peq, plen, codes, lens, max_e,
-                                      *more)
-            ms = [time_run_ms(f) for f in (kern, plain, kern, plain)]
-            timed[name] = (ms, myers_work(plen, lens, width, n_words,
-                                          n_alpha), n_words)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    mhz = sm_clock_mhz()
-    for name, sym in (("myers", "myers_regsILi1E"),
-                      ("myers_multiword", "myers_regsILi4E")):
-        ms, (steps, ops, nbytes), n_words = timed[name]
-        row = {"max_abs_err": err[name], "ms": (ms[0] + ms[2]) / 2,
-               "plain_ms": (ms[1] + ms[3]) / 2,
-               "bound_ms": max(ops / PEAK_32BIT_OPS_PER_S,
-                               nbytes / HBM_BYTES_PER_S) * 1e3,
-               "bound_by": ("operations" if ops / PEAK_32BIT_OPS_PER_S
-                            >= nbytes / HBM_BYTES_PER_S else "bytes"),
-               "library_ms": None}
-        rows[name] = row
-        say("kernels", f"{name} at the main path's shape ({steps} "
-            f"lane-steps, W {n_words or 1}): kernel {ms[0]:.4f} / "
-            f"{ms[2]:.4f} ms, plain {ms[1]:.3f} / {ms[3]:.3f} ms; bound "
-            f"{row['bound_ms']:.4f} ms ({ops} operations at "
-            f"{PEAK_32BIT_OPS_PER_S:.3g}/s, the float32 rate: the table "
-            f"gives no integer rate, and counts an FMA as two; bytes "
-            f"{nbytes / 1e6:.1f} MB = "
-            f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms); no one PyTorch call "
-            "computes it")
-        loop = sass_per_step(sym)
-        if loop is None or mhz is None:
-            say("kernels", f"{name}: issue bound not measured (no "
-                "cuobjdump, no branch address or no SM clock)")
+        key = "myers" if n_words is None else "myers_multiword"
+        # at 42,000 patterns the sums only: the (R, P) form is the tool
+        # batch's, and the plain counts' plane is 344 MB a pass
+        peq, e = check(label, pc, plen, codes, lens, n_alpha, n_words,
+                       max_e, every_lane, counts=label != "panel")
+        err[key] = max(err[key], e)
+        if label not in ("tool", "panel", "long"):
             continue
-        body, per_iter = loop
-        per_step = body / per_iter
-        issue_ms = steps * per_step / 32 / (sms * 4 * mhz * 1e6) * 1e3
-        say("kernels", f"{name}: its loop is {body} SASS instructions for "
-            f"{per_iter} text step(s) = {per_step:.1f} a lane-step; issue "
-            f"bound at {sms} SMs x 4 warp-issues x {mhz:.0f} MHz: "
-            f"{issue_ms:.4f} ms ({100 * issue_ms / row['ms']:.1f}% of the "
-            "kernel's time)")
+        build, kern, plain, ksum, psum, more = forms(n_words)
+        total = torch.zeros(n_pat, dtype=torch.int64, device=dev)
+        args = (peq, plen, codes, lens, max_e)
+        runs = {
+            "sums": (lambda: ksum(*args, *more, total), 5),
+            "baseline": (lambda: baseline_counts(baseline, *args, n_words),
+                         5),
+            "plain": ((lambda: psum(*args, *more, total)) if label == "panel"
+                      else (lambda: plain(*args, *more)),
+                      1 if label == "panel" else 5)}
+        if label != "panel":
+            runs["counts"] = (lambda: kern(*args, *more), 5)
+        names = list(runs)
+        ms = {n: [] for n in names}
+        for n in names + names[::-1]:
+            fn, reps = runs[n]
+            ms[n].append(time_run_ms(fn, reps))
+        work = myers_work(plen, lens, width, n_words, n_alpha)
+        shape = myers.kernel_shape(n_reads, n_pat, n_alpha, n_words or 1,
+                                   True, dev)
+        timed[label] = (ms, work, n_words, shape)
+        mean = {n: sum(v) / len(v) for n, v in ms.items()}
+        bound_s, _by = myers_bound_s(*work[1:], mhz or 1980.0)
+        say("kernels", f"myers {label} at the tool's shape ({work[0]} "
+            f"lane-steps, W {n_words or 1}; {shape['patterns']} patterns a "
+            f"thread, {shape['reads_a_warp']} reads a warp, grid "
+            f"{shape['grid_x']} x {shape['grid_y']}, {shape['registers']} "
+            "registers): " + "; ".join(
+                f"{n} {' / '.join(f'{x:.4f}' for x in ms[n])} ms"
+                for n in names)
+            + f"; operation bound {bound_s * 1e3:.4f} ms")
+        for n in ("sums", "counts"):
+            if n in mean:
+                say("kernels", f"myers {label}: {n} {mean[n]:.4f} ms against "
+                    f"the baseline's {mean['baseline']:.4f} ms in the same "
+                    f"turns ({mean['baseline'] / mean[n]:.2f}x)")
+    for name, label, sym in (("myers", "panel", "myers_regsILi1E"),
+                             ("myers_multiword", "long", "myers_regsILi4E")):
+        ms, (steps, ops, alu, nbytes), n_words, shape = timed[label]
+        mean = {n: sum(v) / len(v) for n, v in ms.items()}
+        bound_s, by = myers_bound_s(ops, alu, nbytes, mhz or 1980.0)
+        row = {"max_abs_err": err[name], "ms": mean["sums"],
+               "plain_ms": mean["plain"], "bound_ms": bound_s * 1e3,
+               "bound_by": by, "library_ms": None}
+        rows[name] = row
+        issue, pipe = int_rates(mhz or 1980.0)
+        say("kernels", f"{name} (the sum form at phase 11's {label} shape, "
+            f"{steps} lane-steps): {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.3f} ms; bound {row['bound_ms']:.4f} ms by "
+            f"{by} ({ops} operations at {issue:.4g}/s issue, {alu} ALU-only "
+            f"at {pipe:.4g}/s, the SM clock {mhz} MHz; bytes "
+            f"{nbytes / 1e6:.1f} MB = {nbytes / HBM_BYTES_PER_S * 1e3:.4f} "
+            f"ms); no one PyTorch call computes it")
+        for who, lib, k in (("this kernel", None, shape["patterns"]),
+                            ("the baseline kernel", baseline._name, 1)):
+            mean_ms = mean["sums" if lib is None else "baseline"]
+            got = myers_sass(sym, steps, k, mhz, lib)
+            if got is None:
+                say("kernels", f"{name}, {who}: SASS bounds not measured (no "
+                    "cuobjdump, no loop over the read's codes or no SM "
+                    "clock)")
+                continue
+            text, per, alu_per, issue_s, pipe_s = got
+            top = max(issue_s, pipe_s) * 1e3
+            say("kernels", f"{name}, {who}: {text}; issue bound "
+                f"{issue_s * 1e3:.4f} ms, ALU-pipe bound {pipe_s * 1e3:.4f} "
+                f"ms; {mean_ms:.4f} ms is {100 * top / mean_ms:.1f}% of the "
+                f"larger")
+        # the (R, P) form at the 1,000-site batch beside the baseline
+        if label == "panel":
+            tms, (tsteps, *_rest), _w, tshape = timed["tool"]
+            tmean = {n: sum(v) / len(v) for n, v in tms.items()}
+            got = myers_sass(sym, tsteps, tshape["patterns"], mhz)
+            if got is not None:
+                say("kernels", "myers tool batch: counts "
+                    f"{tmean['counts']:.4f} ms, sums {tmean['sums']:.4f} ms, the baseline "
+                    f"{tmean['baseline']:.4f} ms; issue bound "
+                    f"{got[3] * 1e3:.4f} ms, ALU-pipe bound "
+                    f"{got[4] * 1e3:.4f} ms")
 
 
 def phase_kernels(seed):
@@ -1119,7 +1335,7 @@ def phase_kernels(seed):
 
     extract_rows(rows, rng, dev)
     seghist_rows(rows, g, dev)
-    myers_rows(rows, rng, dev)
+    myers_rows(rows, rng, dev, myers_baseline_library(MYERS_BASELINE_BUILD))
 
     # the merge path for the three lane types (kernels 3-8 redesigned)
     merge_path_lane_types(rows, g, dev)
@@ -2165,30 +2381,91 @@ EDVAF_SITES = 1000  # a small panel, as ed-vaf-counter's usage intends
 
 @contextlib.contextmanager
 def timing_myers():
-    """(host seconds synchronized on both sides, lane-steps, operations,
-    bytes) of every myers_hw_counts call of ed-vaf-counter, from
-    myers_work: each lane steps its read's length."""
+    """Every myers_hw_sums{,_multiword} call of ed-vaf-counter, with a
+    pair of CUDA events around it (no host synchronization): yields a
+    list of (start event, end event, lane-step args); sums() after the
+    run gives (device seconds, lane-steps, operations, ALU-only
+    operations, bytes) of the calls, from myers_work."""
     import torch
 
     from kmer_tpu_torch.tools import ed_vaf_counter
 
-    calls, real = [], ed_vaf_counter.myers_hw_counts
+    calls = []
+    real = (ed_vaf_counter.myers_hw_sums,
+            ed_vaf_counter.myers_hw_sums_multiword)
 
-    def myers_hw_counts(peq, pat_len, codes, lens, max_e):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = real(peq, pat_len, codes, lens, max_e)
-        torch.cuda.synchronize()
-        calls.append((time.perf_counter() - t0,
-                      *myers_work(pat_len, lens, codes.shape[1], None,
-                                  peq.shape[1])))
-        return out
+    def timed(fn, n_words_at):
+        def call(peq, pat_len, codes, lens, max_e, *more):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(peq, pat_len, codes, lens, max_e, *more)
+            b.record()
+            n_words = more[0] if n_words_at else None
+            calls.append((a, b, (pat_len, lens, codes.shape[1], n_words,
+                                 peq.shape[-1])))
+            return out
+        return call
 
-    ed_vaf_counter.myers_hw_counts = myers_hw_counts
+    ed_vaf_counter.myers_hw_sums = timed(real[0], False)
+    ed_vaf_counter.myers_hw_sums_multiword = timed(real[1], True)
     try:
         yield calls
     finally:
-        ed_vaf_counter.myers_hw_counts = real
+        (ed_vaf_counter.myers_hw_sums,
+         ed_vaf_counter.myers_hw_sums_multiword) = real
+
+
+def myers_totals(calls):
+    """(device s, lane-steps, operations, ALU-only operations, bytes) of
+    timing_myers' calls, read after the run."""
+    import torch
+
+    torch.cuda.synchronize()
+    secs = sum(a.elapsed_time(b) for a, b, _ in calls) / 1e3
+    work = [myers_work(*w) for _a, _b, w in calls]
+    return (secs, *(sum(w[i] for w in work) for i in range(4)))
+
+
+@contextlib.contextmanager
+def no_sync_in_batch_loop():
+    """ed-vaf-counter's batch loop (tools/ed_vaf_counter.py _feed) under
+    torch.cuda.set_sync_debug_mode("error"): a synchronizing call inside
+    it (a .cpu(), .item(), a pageable copy, a stream or device
+    synchronize) raises.  The staging buffers' event waits are
+    cudaEventSynchronize, which the mode does not watch: _Staging.waits
+    counts the ones that found the copy not done."""
+    import torch
+
+    from kmer_tpu_torch.tools import ed_vaf_counter
+
+    real = ed_vaf_counter._feed
+    stats = {"batches": 0}
+
+    def feed(reads, lut, flush):
+        def counted(*a):
+            stats["batches"] += 1
+            return flush(*a)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real(reads, lut, counted)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    waits, real_upload = [], ed_vaf_counter._Staging.upload
+
+    def upload(self, *a):
+        out = real_upload(self, *a)
+        waits.append(self.waits)
+        return out
+
+    ed_vaf_counter._feed = feed
+    ed_vaf_counter._Staging.upload = upload
+    try:
+        yield stats, waits
+    finally:
+        ed_vaf_counter._feed = real
+        ed_vaf_counter._Staging.upload = real_upload
 
 
 def read_file(path):
@@ -2302,40 +2579,142 @@ def only(launches, want):
     return all(launches[k] == want.get(k, 0) for k in launches)
 
 
-def phase_edvaf(seed):
-    from kmer_tpu_torch.kernels import _build
+def edvaf_run(pat, fq, out):
+    """ed-vaf-counter -e1 on fq with pattern file pat on the card, its
+    batch loop under no_sync_in_batch_loop and its Myers calls timed:
+    a dict of the VAF lines, wall, launches, batches, event waits that
+    blocked, Myers device seconds and work, and peak device memory: the
+    process's, and the run's own (above what was allocated when it
+    started; earlier phases may still hold tensors)."""
+    import torch
 
+    from kmer_tpu_torch.kernels import _build, myers
+
+    counts_calls = []
+    reals = (myers.myers_hw_counts_kernel,
+             myers.myers_hw_counts_multiword_kernel)
+    myers.myers_hw_counts_kernel = lambda *a: counts_calls.append(a)
+    myers.myers_hw_counts_multiword_kernel = lambda *a: counts_calls.append(a)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    _build.reset_launches()
+    try:
+        with timing_myers() as calls, no_sync_in_batch_loop() as (stats,
+                                                                    waits):
+            t0 = time.perf_counter()
+            run_tool_err("ed-vaf-counter", ["-e1", "-p", pat, "-o", out, fq])
+            wall = time.perf_counter() - t0
+    finally:
+        (myers.myers_hw_counts_kernel,
+         myers.myers_hw_counts_multiword_kernel) = reals
+    launches = dict(_build.LAUNCHES)
+    need(not counts_calls, "ed-vaf-counter called an (R, P) counts entry")
+    myers_s, lane_steps, ops, alu, nbytes = myers_totals(calls)
+    lines = read_file(out).decode().splitlines()
+    return {"lines": lines, "wall": wall, "launches": launches,
+            "batches": stats["batches"], "waits": waits[-1] if waits else 0,
+            "myers_s": myers_s, "work": (lane_steps, ops, alu, nbytes),
+            "calls": len(calls),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "own_gib": (torch.cuda.max_memory_allocated() - held) / 2**30}
+
+
+def first_batch_sums(pat, head):
+    """ed-vaf-counter's one-word sum call on head (B's first 2,048 reads,
+    one batch) with pattern file pat: the kernel's totals and the plain
+    version's on the same tensors on the card."""
+    import torch
+
+    from kmer_tpu_torch.kernels import myers
+    from kmer_tpu_torch.tools import ed_vaf_counter
+
+    got = []
+    real = ed_vaf_counter.myers_hw_sums
+
+    def grab(peq, pat_len, codes, lens, max_e, total):
+        fresh = torch.zeros_like(total)
+        got.append((real(peq, pat_len, codes, lens, max_e, fresh),
+                    myers.myers_hw_sums_plain(peq, pat_len, codes, lens,
+                                              max_e, torch.zeros_like(total)),
+                    codes.shape))
+        return real(peq, pat_len, codes, lens, max_e, total)
+
+    ed_vaf_counter.myers_hw_sums = grab
+    try:
+        run_tool_err("ed-vaf-counter", ["-e1", "-p", pat, "-o",
+                                        head + ".sums.vaf", head])
+    finally:
+        ed_vaf_counter.myers_hw_sums = real
+    need(len(got) == 1, f"{len(got)} batches in B's first {EDVAF_READS} "
+         "reads")
+    return got[0]
+
+
+def phase_edvaf(seed):
     pat, head, fq, bases = edvaf_inputs(seed)
     d = os.path.dirname(pat)
-    vaf = os.path.join(d, "B.vaf")
-    _build.reset_launches()
-    with timing_myers() as calls:
-        t0 = time.perf_counter()
-        run_tool_err("ed-vaf-counter", ["-e1", "-p", pat, "-o", vaf, fq])
-        wall = time.perf_counter() - t0
-    launches = dict(_build.LAUNCHES)
-    need(len(calls) > 0 and only(launches, {"myers": len(calls)}),
-         f"ed-vaf-counter: not one myers launch a batch ({len(calls)} "
-         f"batches) and no other kernel: {launches}")
-    lines = read_file(vaf).decode().splitlines()
-    need(len(lines) == EDVAF_SITES + 2, f"{len(lines)} VAF lines")
-    depth = sum(int(ln.split("\t")[7]) for ln in lines[2:])
-    need(depth > 0, "ed-vaf-counter found no pattern in sample B")
-    myers_s = sum(c[0] for c in calls)
-    lane_steps, ops, nbytes = (sum(c[i] for c in calls) for i in (1, 2, 3))
-    say("edvaf", f"ed-vaf-counter -e1, {EDVAF_SITES} sites ("
-        f"{2 * EDVAF_SITES} patterns, k={SNP_K}), sample B "
-        f"{bases / 1e6:.0f} Mbases: "
-        f"{wall:.3f} s = {bases / 1e6 / wall:.2f} Mbases/s; the Myers "
-        f"kernel {myers_s:.3f} s (host wall, synchronized) in {len(calls)} "
-        f"batches, {launches['myers']} launches "
-        f"({100 * myers_s / wall:.1f}% of the wall); {lines[0]}, "
-        f"total depth {depth}")
-    say("edvaf", f"Myers bounds: {lane_steps} lane-steps, {ops} 32-bit "
-        f"operations = {ops / PEAK_32BIT_OPS_PER_S:.4f} s "
-        f"at {PEAK_32BIT_OPS_PER_S:.3g}/s (the float32 rate: the table "
-        f"gives no integer rate); bytes {nbytes / 1e6:.0f} MB = "
-        f"{nbytes / HBM_BYTES_PER_S:.5f} s")
+    # 1. the 1,000-site panel, the run the whole panel is held to
+    small = edvaf_run(pat, fq, os.path.join(d, "B.vaf"))
+    for run, sites in ((small, EDVAF_SITES),):
+        need(run["batches"] > 0 and run["calls"] == run["batches"]
+             and only(run["launches"], {"myers": run["batches"]}),
+             f"ed-vaf-counter: not one myers launch a batch "
+             f"({run['batches']} batches) and no other kernel: "
+             f"{run['launches']}")
+        need(len(run["lines"]) == sites + 2, f"{len(run['lines'])} VAF lines")
+    # 2. the whole 21,000-site panel (phase 9's pattern file)
+    full_pat = os.path.join(os.path.dirname(d), "snp_card", "snps.pat")
+    if not os.path.exists(full_pat):
+        full_pat = os.path.join(d, "snps.pat")
+    with open(full_pat) as f:
+        n_full = sum(1 for _ in f)
+    full = edvaf_run(full_pat, fq, os.path.join(d, "B_full.vaf"))
+    need(full["batches"] == small["batches"] and full["calls"] ==
+         full["batches"] and only(full["launches"],
+                                  {"myers": full["batches"]}),
+         f"ed-vaf-counter at {SNP_SITES} sites: not one myers launch a "
+         f"batch ({full['batches']} batches): {full['launches']}")
+    need(len(full["lines"]) == n_full + 2,
+         f"{len(full['lines'])} VAF lines for {n_full} sites")
+    need(full["lines"][1:EDVAF_SITES + 2] == small["lines"][1:],
+         f"the {SNP_SITES}-site run's first {EDVAF_SITES} rows != the "
+         f"{EDVAF_SITES}-site run's")
+    for run, sites in ((small, EDVAF_SITES), (full, n_full)):
+        depth = sum(int(ln.split("\t")[7]) for ln in run["lines"][2:])
+        need(depth > 0, "ed-vaf-counter found no pattern in sample B")
+        lane_steps, ops, alu, nbytes = run["work"]
+        bound_s, by = myers_bound_s(ops, alu, nbytes,
+                                    sm_clock_mhz() or 1980.0)
+        say("edvaf", f"ed-vaf-counter -e1, {sites} sites ({2 * sites} "
+            f"patterns, k={SNP_K}), sample B {bases / 1e6:.0f} Mbases: "
+            f"{run['wall']:.3f} s = {bases / 1e6 / run['wall']:.2f} "
+            f"Mbases/s; Myers {run['myers_s']:.3f} s of device time (CUDA "
+            f"events around each call) in {run['batches']} batches "
+            f"({100 * run['myers_s'] / run['wall']:.1f}% of the wall), "
+            f"{run['launches']['myers']} myers launches (the sum entry) and "
+            f"no other kernel; the batch loop made no synchronizing call, "
+            f"{run['waits']} staging waits found a copy not done; peak "
+            f"device memory {run['peak_gib']:.3f} GiB, the run's own "
+            f"{run['own_gib']:.4f} GiB; {run['lines'][0]}, "
+            f"total depth {depth}")
+        say("edvaf", f"  Myers bound: {lane_steps} lane-steps, {ops} "
+            f"operations ({alu} ALU-only): {bound_s:.4f} s by {by}")
+    say("edvaf", f"the {SNP_SITES}-site run's first {EDVAF_SITES} rows "
+        f"== the {EDVAF_SITES}-site run's")
+    # 3. one batch of the full panel: kernel == plain on the card
+    import torch
+
+    ksum, psum, shape = first_batch_sums(full_pat, head)
+    e = max_abs_err(ksum, psum)
+    need(e == ERR_FREE, f"the first batch at {SNP_SITES} sites: kernel "
+         f"sums != plain (max err {e})")
+    say("edvaf", f"first batch at {SNP_SITES} sites ({shape[0]} reads x "
+        f"{shape[1]} bases x {ksum.shape[0]} patterns): kernel sums == "
+        f"plain sums, {int(ksum.sum())} end locations")
+    del ksum, psum
+    torch.cuda.empty_cache()
+    # 4. card == CPU on B's first reads, 1,000 sites and the long panel
     res = edvaf_card_cpu(pat, head, os.path.join(d, f"B_first_{EDVAF_READS}"))
     need(res["cuda"][0] == res["cpu"][0],
          f"ed-vaf-counter on {EDVAF_READS} reads: card VAF != CPU VAF")
@@ -2359,8 +2738,9 @@ def phase_edvaf(seed):
         f"VAF == CPU VAF, total depth {ldepth}; myers_multiword launched "
         f"once ({lres['cuda'][1]:.3f} s on the card, {lres['cpu'][1]:.3f} s "
         "on the CPU)")
-    return {"launches": launches, "long_launches": lres["cuda"][2],
-            "wall": wall, "myers_s": myers_s}
+    return {"launches": full["launches"], "long_launches": lres["cuda"][2],
+            "wall": full["wall"], "myers_s": full["myers_s"],
+            "small_wall": small["wall"], "small_myers_s": small["myers_s"]}
 
 
 # -- the host-only tools ---------------------------------------------------

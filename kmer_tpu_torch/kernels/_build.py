@@ -21,7 +21,10 @@ report it.
 
 LAUNCHES holds one plain-int launch count per kernel.  Each wrapper adds
 one to its count where it launches its kernel and nowhere else, so a run
-can show that the main path went through the kernels.
+can show that the main path went through the kernels.  A kernel with two
+entry points counts both: `myers` is csrc/myers.cu's one-word kernel,
+launched by ktt_myers (the (R, P) counts) and ktt_myers_sums (their sum
+a pattern), `myers_multiword` its W-word kernel.
 """
 
 from __future__ import annotations
@@ -81,6 +84,10 @@ _SIGNATURES = {
     "ktt_myers": [_P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32, _P, _P],
     "ktt_myers_multiword": [_P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32,
                             _I32, _P, _P, _P],
+    "ktt_myers_sums": [_P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32, _P, _P],
+    "ktt_myers_multiword_sums": [_P, _P, _P, _P, _I64, _I64, _I64, _I32,
+                                 _I32, _I32, _P, _P, _P],
+    "ktt_myers_shape": [_I64, _I64, _I32, _I32, _I32, _P],
 }
 
 _lock = threading.Lock()

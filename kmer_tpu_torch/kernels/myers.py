@@ -7,15 +7,20 @@ for every (read, pattern) pair, the best distance over all end positions
 and the number of end positions reaching it (edlib's numLocations).
 `myers_hw_counts` takes patterns of up to 32 bases, one 32-bit word a
 pattern; `myers_hw_counts_multiword` takes longer ones, W words with
-ripple carries between them.  Each comes in three forms, as
-kernels/table.py's resolve_slots does:
+ripple carries between them.  `myers_hw_sums{,_multiword}` give the same
+counts summed over the reads, int64 a pattern, added into a total the
+caller keeps (ed-vaf-counter's per-file accumulator).  Each comes in
+three forms, as kernels/table.py's resolve_slots does:
 
   *_plain    the JAX `lax.scan` over text positions as a Python loop of
              elementwise torch operations on the (reads x patterns)
-             state, on the device of its inputs
-  *_kernel   csrc/myers.cu on the card: one thread a (read, pattern)
-             lane, its state in registers for the whole read (W words
-             for W <= 8; a wider W keeps its words in a scratch plane)
+             state, on the device of its inputs (the sums: the counts'
+             `.sum(0, dtype=torch.int64)`)
+  *_kernel   csrc/myers.cu on the card: each thread several patterns of
+             one read, left-aligned and mask-free, state in registers for
+             the whole read (W words for W <= 8; a wider W keeps its
+             words in a scratch plane); the sum form adds the counts on
+             the card, one atomic per (block, pattern)
   public     the kernel when a tensor lies on a CUDA device, the plain
              version for CPU tensors
 
@@ -252,9 +257,9 @@ def _check(name, peq, pat_len, reads_codes, read_len, n_words, max_e):
     n_alpha <= 256; pat_len int32 (P,); reads uint8 (R, L); read_len
     int32 (R,); max_e an int32 (the plain version compares on int32
     lanes); every tensor on one CUDA device, contiguous.  The grid's
-    limits (65,535 blocks on the smaller axis) and L < 2^31 are
-    launch()'s there: it refuses them with cudaErrorInvalidValue, on
-    which the launch raises."""
+    limits (2^31 - 1 pattern tiles, 65,535 read blocks) and L < 2^31
+    are the launcher's there: it refuses them with
+    cudaErrorInvalidValue, on which the launch raises."""
     if (peq.dtype != torch.int32 or pat_len.dtype != torch.int32
             or reads_codes.dtype != torch.uint8
             or read_len.dtype != torch.int32):
@@ -283,6 +288,35 @@ def _check(name, peq, pat_len, reads_codes, read_len, n_words, max_e):
         raise ValueError(f"{name}: need contiguous tensors")
 
 
+def kernel_shape(R: int, P: int, n_alpha: int, n_words: int = 1,
+                 sums: bool = False, device=None) -> dict:
+    """The launch csrc/myers.cu makes for R reads x P patterns of n_words
+    words on `device` (ktt_myers_shape): regs (1: myers_regs, 0:
+    myers_scratch), scratch_bytes (the plane the caller allocates),
+    patterns (a thread; a block for myers_scratch), reads_a_warp, grid_x,
+    grid_y, smem (dynamic shared memory a block), blocks_per_sm,
+    registers (a thread).  Launches nothing."""
+    out = torch.zeros(9, dtype=torch.int64)
+    with torch.cuda.device(device if device is not None else "cuda"):
+        _build.check(_build.library().ktt_myers_shape(
+            R, P, n_alpha, n_words, int(sums), out.data_ptr()), "myers")
+    return dict(zip(("regs", "scratch_bytes", "patterns", "reads_a_warp",
+                     "grid_x", "grid_y", "smem", "blocks_per_sm",
+                     "registers"), out.tolist()))
+
+
+def _scratch(R, P, n_alpha, n_words, sums, device):
+    """The scratch plane the launch needs (None for the register form)."""
+    nbytes = kernel_shape(R, P, n_alpha, n_words, sums,
+                          device)["scratch_bytes"]
+    return (torch.empty(nbytes // 4, dtype=torch.int32, device=device)
+            if nbytes else None)
+
+
+def _ptr(t):
+    return 0 if t is None else t.data_ptr()
+
+
 def myers_hw_counts_kernel(peq: torch.Tensor, pat_len: torch.Tensor,
                            reads_codes: torch.Tensor, read_len: torch.Tensor,
                            max_e: int) -> torch.Tensor:
@@ -308,22 +342,82 @@ def myers_hw_counts_multiword_kernel(peq: torch.Tensor,
                                      n_words: int) -> torch.Tensor:
     """myers_hw_counts_multiword_plain on the card (csrc/myers.cu
     ktt_myers_multiword): W = n_words words in registers up to REG_WORDS,
-    above it in a scratch plane of 2 x W x R x P uint32 allocated here."""
+    above it (or past the block's shared memory) in a scratch plane of
+    2 x W x R x P uint32 allocated here."""
     _check("myers_hw_counts_multiword_kernel", peq, pat_len, reads_codes,
            read_len, n_words, max_e)
     (R, L), (P, _, n_alpha) = reads_codes.shape, peq.shape
     out = torch.empty((R, P), dtype=torch.int32, device=peq.device)
     if out.numel():
-        scratch = (torch.empty(2 * n_words * R * P, dtype=torch.int32,
-                               device=peq.device)
-                   if n_words > REG_WORDS else None)
+        scratch = _scratch(R, P, n_alpha, n_words, False, peq.device)
         _build.launch("ktt_myers_multiword", "myers_multiword", peq,
                       peq.data_ptr(), pat_len.data_ptr(),
                       reads_codes.data_ptr(), read_len.data_ptr(), R, P, L,
-                      n_alpha, n_words, max_e,
-                      0 if scratch is None else scratch.data_ptr(),
+                      n_alpha, n_words, max_e, _ptr(scratch),
                       out.data_ptr())
     return out
+
+
+def _check_total(name, total, P, device):
+    if (total.dtype != torch.int64 or total.shape != (P,)
+            or total.device != device or not total.is_contiguous()):
+        raise ValueError(f"{name}: need an int64 total of shape ({P},) on "
+                         f"{device}, contiguous")
+
+
+def myers_hw_sums_kernel(peq: torch.Tensor, pat_len: torch.Tensor,
+                         reads_codes: torch.Tensor, read_len: torch.Tensor,
+                         max_e: int, total: torch.Tensor) -> torch.Tensor:
+    """myers_hw_counts_kernel summed over the reads and added into
+    `total` (int64 (P,), on the card; returned): csrc/myers.cu
+    ktt_myers_sums, one launch, no (R, P) plane and no host read."""
+    _check("myers_hw_sums_kernel", peq, pat_len, reads_codes, read_len,
+           None, max_e)
+    (R, L), (P, n_alpha) = reads_codes.shape, peq.shape
+    _check_total("myers_hw_sums_kernel", total, P, peq.device)
+    if R and P:
+        _build.launch("ktt_myers_sums", "myers", peq, peq.data_ptr(),
+                      pat_len.data_ptr(), reads_codes.data_ptr(),
+                      read_len.data_ptr(), R, P, L, n_alpha, max_e,
+                      total.data_ptr())
+    return total
+
+
+def myers_hw_sums_multiword_kernel(peq: torch.Tensor, pat_len: torch.Tensor,
+                                   reads_codes: torch.Tensor,
+                                   read_len: torch.Tensor, max_e: int,
+                                   n_words: int,
+                                   total: torch.Tensor) -> torch.Tensor:
+    """myers_hw_counts_multiword_kernel summed over the reads into
+    `total` (csrc/myers.cu ktt_myers_multiword_sums)."""
+    _check("myers_hw_sums_multiword_kernel", peq, pat_len, reads_codes,
+           read_len, n_words, max_e)
+    (R, L), (P, _, n_alpha) = reads_codes.shape, peq.shape
+    _check_total("myers_hw_sums_multiword_kernel", total, P, peq.device)
+    if R and P:
+        scratch = _scratch(R, P, n_alpha, n_words, True, peq.device)
+        _build.launch("ktt_myers_multiword_sums", "myers_multiword", peq,
+                      peq.data_ptr(), pat_len.data_ptr(),
+                      reads_codes.data_ptr(), read_len.data_ptr(), R, P, L,
+                      n_alpha, n_words, max_e, _ptr(scratch),
+                      total.data_ptr())
+    return total
+
+
+def myers_hw_sums_plain(peq, pat_len, reads_codes, read_len, max_e, total):
+    """The plain twin of myers_hw_sums_kernel: the counts' int64 sum over
+    the reads, added into total."""
+    return total.add_(myers_hw_counts_plain(
+        peq, pat_len, reads_codes, read_len, max_e).sum(0,
+                                                        dtype=torch.int64))
+
+
+def myers_hw_sums_multiword_plain(peq, pat_len, reads_codes, read_len,
+                                  max_e, n_words, total):
+    """The plain twin of myers_hw_sums_multiword_kernel."""
+    return total.add_(myers_hw_counts_multiword_plain(
+        peq, pat_len, reads_codes, read_len, max_e, n_words).sum(
+            0, dtype=torch.int64))
 
 
 def _on_card(*ts) -> bool:
@@ -363,6 +457,34 @@ def myers_hw_counts_multiword(peq: torch.Tensor, pat_len: torch.Tensor,
                                                 read_len, max_e, n_words)
     return myers_hw_counts_multiword_plain(peq, pat_len, reads_codes,
                                            read_len, max_e, n_words)
+
+
+def myers_hw_sums(peq: torch.Tensor, pat_len: torch.Tensor,
+                  reads_codes: torch.Tensor, read_len: torch.Tensor,
+                  max_e: int, total: torch.Tensor) -> torch.Tensor:
+    """myers_hw_counts summed over the reads (int64 a pattern) and added
+    into total, which is returned: the kernel when a tensor lies on a
+    CUDA device, the plain version for CPU tensors."""
+    if _on_card(peq, pat_len, reads_codes, read_len, total):
+        return myers_hw_sums_kernel(peq, pat_len, reads_codes, read_len,
+                                    max_e, total)
+    return myers_hw_sums_plain(peq, pat_len, reads_codes, read_len, max_e,
+                               total)
+
+
+def myers_hw_sums_multiword(peq: torch.Tensor, pat_len: torch.Tensor,
+                            reads_codes: torch.Tensor,
+                            read_len: torch.Tensor, max_e: int,
+                            n_words: int,
+                            total: torch.Tensor) -> torch.Tensor:
+    """myers_hw_counts_multiword summed over the reads into total: the
+    kernel for CUDA tensors, the plain version for CPU tensors."""
+    if _on_card(peq, pat_len, reads_codes, read_len, total):
+        return myers_hw_sums_multiword_kernel(peq, pat_len, reads_codes,
+                                              read_len, max_e, n_words,
+                                              total)
+    return myers_hw_sums_multiword_plain(peq, pat_len, reads_codes,
+                                         read_len, max_e, n_words, total)
 
 
 def hw_counts_long_pattern(pat_codes, reads_codes, read_len, max_e: int,

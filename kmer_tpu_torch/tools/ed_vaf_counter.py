@@ -5,19 +5,26 @@ For every read and every pattern, count the optimal end locations of
 the ref and alt k-mers within edit distance -e (edlib's HW/LOC
 semantics), then write the standard VAF file.  The search is the Myers
 bit-vector scan (kernels/myers.py) on the default device, in batches of
-reads by length bucket: on the card (default_device(): CUDA) the
-kernels of csrc/myers.cu, one launch a batch (and one more a batch for
-patterns longer than 32 bases); with KMER_TPU_PLATFORM=cpu their plain
-torch versions.
+reads by length bucket: on the card (default_device(): CUDA) the sum
+entries of csrc/myers.cu, one launch a batch (and one more a batch for
+patterns longer than 32 bases), each adding its batch's counts into
+per-pattern int64 totals that stay on the card until the file ends;
+with KMER_TPU_PLATFORM=cpu their plain torch versions.  A batch goes up
+from one of two pinned staging buffers that take turns (each reused
+after an event says its copy is done), and only its used width: its
+longest read rounded up to 16 bases, the kernel's row stride.  The
+batch loop makes no host synchronization, so the card scans one batch
+while the host parses the next.
 
 As in the JAX tool: the alphabet is the raw bytes of the patterns (no
 case folding, N == N, every other read byte one never-match code); an
 alt k-mer is truncated or NUL-padded to its ref k-mer's length; patterns
 longer than 32 bases go through one multiword batch; an input that
-cannot be opened is skipped with a warning.  Two differences of form,
-which change no count: a batch runs only its filled rows (JAX runs the
-bucket's static shape with the rest zero-length), and the pattern axis
-is not padded to a multiple of 128 lanes.
+cannot be opened is skipped with a warning.  Differences of form, which
+change no count: a batch runs only its filled rows and used width (JAX
+runs the bucket's static shape with the rest zero-length), the pattern
+axis is not padded to a multiple of 128 lanes, and the totals are summed
+on the device in int64 (see count_fastq).
 """
 
 from __future__ import annotations
@@ -30,8 +37,8 @@ import torch
 from .. import default_device
 from ..io.fastx import FastxReader
 from ..io.formats import read_patterns, write_vaf_file
-from ..kernels.myers import (build_peq, build_peq_multiword,
-                             myers_hw_counts, myers_hw_counts_multiword)
+from ..kernels.myers import (build_peq, build_peq_multiword, myers_hw_sums,
+                             myers_hw_sums_multiword)
 from ..utils.cli import c_atoi, ketopt
 from ..utils.log import minfo
 
@@ -108,52 +115,64 @@ def _code_matrix(kmers, lut, width: int):
     return pc, plen
 
 
-def count_fastq(fn, patterns, max_e, totals, device):
-    """Accumulate per-pattern (ref, alt) counts over all reads in fn."""
-    if not _openable(fn):
-        # ed-vaf-counter.c:130
-        sys.stderr.write(f"Warning: failed to open {fn}\n")
-        return
-    kmers = _pattern_kmers(patterns)
-    lut, n_alpha = _alphabet_lut(kmers)
-    long_idx = [i for i, x in enumerate(kmers) if len(x) > _KERNEL_MAX_PAT]
-    if long_idx:
-        # one multi-word batch covers every long pattern
-        lp_long = max(len(kmers[i]) for i in long_idx)
-        n_words = (lp_long + 31) // 32
-        pcl, plenl = _code_matrix([kmers[i] for i in long_idx], lut, lp_long)
-        plenl = torch.from_numpy(plenl).to(device)
-        peq_long = build_peq_multiword(torch.from_numpy(pcl).to(device),
-                                       plenl, n_alpha, n_words)
-    lp = max((len(x) for x in kmers if len(x) <= _KERNEL_MAX_PAT),
-             default=1)
-    # a long pattern's one-word lane is a dummy (the multiword batch
-    # counts it): empty codes over lp bases
-    pc, plen = _code_matrix(
-        [b"" if len(x) > _KERNEL_MAX_PAT else x for x in kmers], lut, lp)
-    plen[long_idx] = lp
-    plen = torch.from_numpy(plen).to(device)
-    peq = build_peq(torch.from_numpy(pc).to(device), plen, n_alpha)
+def _width(lens, nb: int) -> int:
+    """A batch's used width: its longest read rounded up to 16 (at least
+    16), the kernel's row stride (its 16-byte code loads)."""
+    longest = int(lens[:nb].max()) if nb else 0
+    return max(16, -(-longest // 16) * 16)
 
-    acc = np.zeros(len(kmers), np.int64)
+
+class _Staging:
+    """Host -> device upload of a batch's used width.  On the card: two
+    pinned buffers (codes, lengths) that take turns; before a buffer is
+    refilled, the event recorded after its last copy is waited on (a
+    copy two batches old, normally long done; `waits` counts the times it
+    was not).  On the CPU: the arrays themselves."""
+
+    def __init__(self, device):
+        self.device = device
+        self.pinned = device.type == "cuda"
+        self.slots = [None, None]
+        self.turn = 0
+        self.waits = 0
+
+    def upload(self, codes, lens, nb: int):
+        width = _width(lens, nb)
+        if not self.pinned:
+            return (torch.from_numpy(np.ascontiguousarray(codes[:nb, :width])),
+                    torch.from_numpy(lens[:nb].copy()))
+        slot = self.slots[self.turn]
+        if slot is not None:
+            if not slot[2].query():
+                self.waits += 1
+            slot[2].synchronize()
+        if slot is None or slot[0].numel() < nb * width or \
+                slot[1].numel() < nb:
+            slot = (torch.empty(max(nb * width, codes.size), dtype=torch.uint8,
+                                pin_memory=True),
+                    torch.empty(codes.shape[0], dtype=torch.int32,
+                                pin_memory=True),
+                    torch.cuda.Event())
+            self.slots[self.turn] = slot
+        hc = slot[0][:nb * width].view(nb, width)
+        hc.numpy()[:] = codes[:nb, :width]
+        hl = slot[1][:nb]
+        hl.numpy()[:] = lens[:nb]
+        out = (hc.to(self.device, non_blocking=True),
+               hl.to(self.device, non_blocking=True))
+        slot[2].record()
+        self.turn ^= 1
+        return out
+
+
+def _feed(reads, lut, flush):
+    """Batch the reads by length bucket and flush every full batch, then
+    every partial one: flush(codes, lens, nb) with the bucket's buffer
+    (255 past each read's end) and its fill.  On the card this loop
+    makes no host synchronization (chip_smoke.py phase 11 runs it under
+    torch.cuda.set_sync_debug_mode("error"))."""
     batches = {}  # bucket -> [codes2d, lens, fill]
-
-    def flush(bucket):
-        codes, lens, nb = batches.pop(bucket)
-        if nb == 0:
-            return
-        codes = torch.from_numpy(codes[:nb]).to(device)
-        lens = torch.from_numpy(lens[:nb]).to(device)
-        ksum = myers_hw_counts(peq, plen, codes, lens, max_e).sum(0)
-        ksum = ksum.cpu().numpy()
-        ksum[long_idx] = 0  # dummy lanes; the multi-word batch owns them
-        acc[:] += ksum
-        if long_idx:
-            lsum = myers_hw_counts_multiword(peq_long, plenl, codes, lens,
-                                             max_e, n_words).sum(0)
-            acc[long_idx] += lsum.cpu().numpy()
-
-    for _name, seq in FastxReader(fn):
+    for _name, seq in reads:
         L = len(seq)
         bucket = _bucket_for(max(L, 1))
         if bucket not in batches:
@@ -169,9 +188,66 @@ def count_fastq(fn, patterns, max_e, totals, device):
         lens[nb] = L
         batches[bucket][2] = nb + 1
         if batches[bucket][2] == codes.shape[0]:
-            flush(bucket)
+            flush(*batches.pop(bucket))
     for bucket in list(batches):
-        flush(bucket)
+        flush(*batches.pop(bucket))
+
+
+def count_fastq(fn, patterns, max_e, totals, device):
+    """Accumulate per-pattern (ref, alt) counts over all reads in fn.
+
+    The totals stay on the device, int64, for the whole file, and are
+    read once after its last batch.  JAX sums a batch's counts in int32
+    and accumulates those sums in int64 (kmer_tpu/tools/
+    ed_vaf_counter.py:153); here every count goes straight into int64.
+    The two agree whenever JAX's int32 batch sum does not wrap: a count
+    is at most its read's length, which is at most the bucket, and a
+    batch holds max(4, 2^21 // bucket) rows, so a batch's sum a pattern
+    is at most max(2^21, 4 x bucket) < 2^31 for every read shorter than
+    2^29 bases."""
+    if not _openable(fn):
+        # ed-vaf-counter.c:130
+        sys.stderr.write(f"Warning: failed to open {fn}\n")
+        return
+    kmers = _pattern_kmers(patterns)
+    lut, n_alpha = _alphabet_lut(kmers)
+    long_idx = [i for i, x in enumerate(kmers) if len(x) > _KERNEL_MAX_PAT]
+    if long_idx:
+        # one multi-word batch covers every long pattern
+        lp_long = max(len(kmers[i]) for i in long_idx)
+        n_words = (lp_long + 31) // 32
+        pcl, plenl = _code_matrix([kmers[i] for i in long_idx], lut, lp_long)
+        plenl = torch.from_numpy(plenl).to(device)
+        peq_long = build_peq_multiword(torch.from_numpy(pcl).to(device),
+                                       plenl, n_alpha, n_words)
+        acc_long = torch.zeros(len(long_idx), dtype=torch.int64,
+                               device=device)
+    lp = max((len(x) for x in kmers if len(x) <= _KERNEL_MAX_PAT),
+             default=1)
+    # a long pattern's one-word lane is a dummy (the multiword batch
+    # counts it): empty codes over lp bases
+    pc, plen = _code_matrix(
+        [b"" if len(x) > _KERNEL_MAX_PAT else x for x in kmers], lut, lp)
+    plen[long_idx] = lp
+    plen = torch.from_numpy(plen).to(device)
+    peq = build_peq(torch.from_numpy(pc).to(device), plen, n_alpha)
+    acc = torch.zeros(len(kmers), dtype=torch.int64, device=device)
+    staging = _Staging(device)
+
+    def flush(codes, lens, nb):
+        if nb == 0:
+            return
+        codes, lens = staging.upload(codes, lens, nb)
+        myers_hw_sums(peq, plen, codes, lens, max_e, acc)
+        if long_idx:
+            myers_hw_sums_multiword(peq_long, plenl, codes, lens, max_e,
+                                    n_words, acc_long)
+
+    _feed(FastxReader(fn), lut, flush)
+    acc = acc.cpu().numpy()
+    if long_idx:
+        # the dummy lanes' sums give way to the multi-word batch's
+        acc[long_idx] = acc_long.cpu().numpy()
     for i in range(len(patterns)):
         totals[i][0] += int(acc[2 * i])
         totals[i][1] += int(acc[2 * i + 1])

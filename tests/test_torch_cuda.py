@@ -713,6 +713,169 @@ def test_myers_kernel_refuses_mixed_devices(dev):
         myers.myers_hw_counts(peq.to(dev), *t[1:], max_e)
 
 
+_EDGE_LENS = [0, 1, 31, 32, 33, 64, 97]
+
+
+def _edge_batch(n_words, width, seed):
+    """267 patterns (lengths cycling through _EDGE_LENS, some past the 32 W
+    bits of their words: the plain version never moves their score) x
+    141 reads of 0-300 bases in rows of `width`, codes 0-5 against an
+    alphabet of 4, a pattern planted in every third read."""
+    rng = np.random.default_rng(seed)
+    P, R = 267, 141
+    plen = np.array([_EDGE_LENS[i % len(_EDGE_LENS)] for i in range(P)],
+                    np.int32)
+    pc = np.full((P, max(_EDGE_LENS)), 255, np.uint8)
+    for i, m in enumerate(plen):
+        pc[i, :m] = rng.integers(0, 4, m)
+    lens = rng.integers(0, 301, R).astype(np.int32)
+    lens[:3] = (0, 16, 300)
+    codes = rng.integers(0, 6, (R, width)).astype(np.uint8)
+    codes[np.arange(width)[None, :] >= lens[:, None]] = 255
+    for r in range(0, R, 3):
+        i = int(rng.integers(0, P))
+        m = min(int(plen[i]), int(lens[r]))
+        codes[r, :m] = pc[i, :m]
+    return pc, plen, codes, lens
+
+
+@pytest.mark.parametrize("width", [320, 301])
+@pytest.mark.parametrize("n_words", [None, 2, 4, 8, 9])
+def test_myers_kernels_match_plain_at_the_edges(dev, n_words, width):
+    """Both forms of csrc/myers.cu (the (R, P) counts and the sums into
+    an int64 total) against the plain versions on the card: P = 267, not
+    a multiple of a thread's patterns nor of a block's tile; 141 reads,
+    not a multiple of a block's 8 warps; m = 0, 1, 31, 32, 33, 64, 97
+    with W = 1, 2, 4, 8 (registers) and 9 (the scratch plane); rows of
+    320 bases (16-byte code loads) and of 301 (a byte a step); at max_e
+    1 and past every lane's best.  One launch a call."""
+    from kmer_tpu_torch.kernels import _build, myers
+
+    pc, plen, codes, lens = _edge_batch(n_words, width, 3 + width)
+    t = [torch.from_numpy(x).to(dev) for x in (pc, plen, codes, lens)]
+    counter = "myers" if n_words is None else "myers_multiword"
+    if n_words is None:
+        peq = myers.build_peq(t[0], t[1], 4)
+        more = ()
+        kern, plain = myers.myers_hw_counts_kernel, myers.myers_hw_counts_plain
+        ksum = myers.myers_hw_sums_kernel
+    else:
+        peq = myers.build_peq_multiword(t[0], t[1], 4, n_words)
+        more = (n_words,)
+        kern = myers.myers_hw_counts_multiword_kernel
+        plain = myers.myers_hw_counts_multiword_plain
+        ksum = myers.myers_hw_sums_multiword_kernel
+    for e in (1, 1 << 29):
+        want = plain(peq, *t[1:], e, *more)
+        n0 = _build.LAUNCHES[counter]
+        got = kern(peq, *t[1:], e, *more)
+        assert _build.LAUNCHES[counter] - n0 == 1
+        assert torch.equal(got, want) and int(want.sum()) > 0
+        base = torch.arange(267, dtype=torch.int64, device=dev) << 33
+        total = ksum(peq, *t[1:], e, *more, base.clone())
+        assert _build.LAUNCHES[counter] - n0 == 2
+        assert torch.equal(total - base, want.sum(0, dtype=torch.int64))
+
+
+def test_myers_kernel_shapes(dev):
+    """The launch plan: the register form with 4 patterns a thread for
+    one word and 2 for 2-4 words, the scratch plane past 8 words (and
+    past the block's shared memory: 4 words of 256 codes); a plan of
+    several reads a warp at the tool's 21,000-site batch; no register
+    count past 255."""
+    from kmer_tpu_torch.kernels import myers
+
+    one = myers.kernel_shape(2048, 42000, 4, 1, True, dev)
+    assert one["regs"] == 1 and one["patterns"] == 4
+    assert one["scratch_bytes"] == 0 and one["grid_x"] == 42000 // 128 + 1
+    assert one["reads_a_warp"] > 1 and 0 < one["registers"] <= 255
+    four = myers.kernel_shape(2048, 256, 4, 4, False, dev)
+    assert four["regs"] == 1 and four["patterns"] == 2
+    nine = myers.kernel_shape(100, 10, 4, 9, False, dev)
+    assert nine["regs"] == 0 and nine["scratch_bytes"] == 2 * 9 * 100 * 10 * 4
+    wide = myers.kernel_shape(100, 10, 256, 4, False, dev)
+    assert wide["regs"] == 0 and wide["scratch_bytes"] > 0
+
+
+def test_myers_sum_kernels_refuse_bad_totals(dev):
+    """The sum entries refuse a total that is not int64 (P,) contiguous
+    on the inputs' card, and inputs off the card, before any launch."""
+    from kmer_tpu_torch.kernels import _build, myers
+    from torch_myers_cases import myers_case
+
+    pc, plen, codes, lens, n_alpha, _, max_e = myers_case("n_alpha_20")
+    t = [torch.from_numpy(x).to(dev) for x in (pc, plen, codes, lens)]
+    peq = myers.build_peq(t[0], t[1], n_alpha)
+    P = plen.shape[0]
+    n0 = _build.LAUNCHES["myers"]
+    for total in (torch.zeros(P, dtype=torch.int32, device=dev),
+                  torch.zeros(P + 1, dtype=torch.int64, device=dev),
+                  torch.zeros(2 * P, dtype=torch.int64, device=dev)[::2],
+                  torch.zeros(P, dtype=torch.int64)):
+        with pytest.raises(ValueError, match="int64 total"):
+            myers.myers_hw_sums(peq, *t[1:], max_e, total)
+    with pytest.raises(ValueError, match="CUDA tensors on one device"):
+        myers.myers_hw_sums(peq, t[1], t[2].cpu(), t[3], max_e,
+                            torch.zeros(P, dtype=torch.int64, device=dev))
+    assert _build.LAUNCHES["myers"] == n0
+
+
+def test_ed_vaf_one_sum_launch_a_batch(tmp_path, dev, monkeypatch):
+    """ed-vaf-counter on the card over many small batches (_BATCH_BYTES
+    24 KiB) with patterns of 21 and 41 bases: one `myers` launch and one
+    `myers_multiword` launch a batch, both through the sum entries (the
+    (R, P) entries are never called), no other kernel, and the VAF file
+    equals the CPU's."""
+    from kmer_tpu_torch.kernels import _build, myers
+    from kmer_tpu_torch.tools import ed_vaf_counter as tool, get_tool
+
+    rng = np.random.default_rng(41)
+    g = "".join("ACGT"[i] for i in rng.integers(0, 4, 20000))
+    rows = []
+    for i, k in enumerate([21, 41, 21, 41]):
+        pos = 2000 + 4000 * i
+        ref = g[pos - k // 2:pos + k // 2 + 1]
+        alt = ref[:k // 2] + ("A" if g[pos] != "A" else "C") + ref[k // 2 + 1:]
+        rows.append(f"chr1\t{pos}\t{pos + 1}\trs{i}\t{g[pos]}\t"
+                    f"{alt[k // 2]}\t{ref}\t{alt}")
+    pat = str(tmp_path / "p.pat")
+    with open(pat, "w") as f:
+        f.write("\n".join(rows) + "\n")
+    fq = str(tmp_path / "r.fq")
+    with open(fq, "w") as f:
+        for r in range(300):
+            st = int(rng.integers(0, len(g) - 150))
+            f.write(f"@r{r}\n{g[st:st + 150]}\n+\n{'I' * 150}\n")
+    monkeypatch.setattr(tool, "_BATCH_BYTES", 24 << 10)
+    calls = []
+    for name in ("myers_hw_counts_kernel",
+                 "myers_hw_counts_multiword_kernel"):
+        monkeypatch.setattr(myers, name,
+                            lambda *a, n=name: calls.append(n))
+    files = []
+    for plat in ("cuda", "cpu"):
+        monkeypatch.setenv("KMER_TPU_PLATFORM", plat)
+        batches = []
+        real = tool._Staging.upload
+        monkeypatch.setattr(tool._Staging, "upload",
+                            lambda self, *a: batches.append(a[2]) or
+                            real(self, *a))
+        _build.reset_launches()
+        vaf = str(tmp_path / f"{plat}.vaf")
+        assert get_tool("ed-vaf-counter")(["-e1", "-p", pat, "-o", vaf,
+                                           fq]) == 0
+        monkeypatch.setattr(tool._Staging, "upload", real)
+        want = ({"myers": len(batches), "myers_multiword": len(batches)}
+                if plat == "cuda" else {})
+        assert len(batches) == 13
+        assert {k: v for k, v in _build.LAUNCHES.items() if v} == want
+        with open(vaf, "rb") as f:
+            files.append(f.read())
+    assert files[0] == files[1] and not calls
+    rows = files[0].decode().splitlines()[2:]
+    assert sum(int(ln.split("\t")[7]) for ln in rows) > 0
+
+
 @pytest.mark.parametrize("args", [["-k31", "-b19", "-K65536"],
                                   ["-k15", "-b19"], ["-b0"]])
 def test_yak_two_files_on_card_matches_cpu(dev, args, capsys, monkeypatch):

@@ -1,9 +1,11 @@
 """ed-vaf-counter of the port (kmer_tpu_torch.kernels.myers and
 kmer_tpu_torch.tools.ed_vaf_counter) against the JAX package on the CPU:
 the Myers scans lane for lane on tests/test_myers.py's random cases and
-on csrc/myers.cu's edge cases (tests/torch_myers_cases.py), the kernel
-wrappers' refusals, the VAF files byte for byte on the fixture patterns,
-and the host helpers the tool copies against their originals.
+on csrc/myers.cu's edge cases (tests/torch_myers_cases.py), a plain
+model of the kernel's left-aligned, mask-free recurrence on those cases,
+the per-pattern sums, the kernel wrappers' refusals, the VAF files byte
+for byte on the fixture patterns (also over many small batches), and the
+host helpers the tool copies against their originals.
 
 Inputs are made with numpy from a seed; the same inputs go to both
 packages.  Every output is an integer or a file: every comparison is
@@ -160,6 +162,118 @@ def test_plain_matches_jax_on_kernel_edge_cases(name):
             assert want.sum() > 0
 
 
+_M32 = (1 << 32) - 1
+
+
+def _left_aligned_model(peq, plen, codes, lens, max_e, n_words):
+    """csrc/myers.cu myers_regs' recurrence as plain torch, on int64
+    lanes holding uint32 words: each pattern's W-word Peq shifted left by
+    32 W - m bits, so its last base sits at bit 31 of word W - 1 (Peq 0
+    for m = 0 and m > 32 W), pv all ones and mv 0 at the start, the
+    carry rippling from word 0 up, no mask anywhere, and the score moved
+    by bit 31 of the top word's ph and mh."""
+    W = 1 if n_words is None else n_words
+    peq = peq.to(torch.int64) & _M32
+    if n_words is None:
+        peq = peq[:, None, :]
+    P, _, n_alpha = peq.shape
+    m = plen.to(torch.int64)
+    tab = torch.zeros((W, n_alpha + 1, P), dtype=torch.int64)
+    for p in range(P):
+        mp = int(m[p])
+        if not 1 <= mp <= 32 * W:
+            continue
+        for c in range(n_alpha):
+            v = sum(int(peq[p, w, c]) << (32 * w) for w in range(W))
+            v <<= 32 * W - mp
+            for w in range(W):
+                tab[w, c, p] = (v >> (32 * w)) & _M32
+    R = codes.shape[0]
+    pv = [torch.full((R, P), _M32, dtype=torch.int64) for _ in range(W)]
+    mv = [torch.zeros((R, P), dtype=torch.int64) for _ in range(W)]
+    score = m[None, :].expand(R, P).clone()
+    best = torch.full((R, P), 0x3FFFFFFF, dtype=torch.int64)
+    cnt = torch.zeros((R, P), dtype=torch.int64)
+    lens = lens.to(torch.int64).clamp(0, codes.shape[1])
+    for t in range(int(lens.max()) if R else 0):
+        c = codes[:, t].to(torch.int64).clamp(max=n_alpha)
+        v = (t < lens)[:, None]
+        carry = 0
+        x, ph, mh = [], [], []
+        for w in range(W):
+            eq = tab[w][c]
+            x.append(eq | mv[w])
+            s = (eq & pv[w]) + pv[w] + carry
+            carry = s >> 32
+            xh = ((s & _M32) ^ pv[w]) | x[w]
+            ph.append(mv[w] | (~(xh | pv[w]) & _M32))
+            mh.append(pv[w] & xh)
+        new_score = score + (ph[-1] >> 31) - (mh[-1] >> 31)
+        for w in range(W):
+            ph2 = ((ph[w] << 1) | (ph[w - 1] >> 31 if w else 0)) & _M32
+            mh2 = ((mh[w] << 1) | (mh[w - 1] >> 31 if w else 0)) & _M32
+            pv[w] = torch.where(v, mh2 | (~(x[w] | ph2) & _M32), pv[w])
+            mv[w] = torch.where(v, ph2 & x[w], mv[w])
+        score = torch.where(v, new_score, score)
+        lt = v & (score < best)
+        same = v & (score == best)
+        cnt = torch.where(lt, 1, torch.where(same, cnt + 1, cnt))
+        best = torch.where(lt, score, best)
+    return torch.where(best <= max_e, cnt, 0).to(torch.int32)
+
+
+def _jax_counts(name, e):
+    """JAX myers_hw_counts{,_multiword} on a tests/torch_myers_cases.py
+    case at max_e e, with the port's inputs for it."""
+    pc, plen, codes, lens, n_alpha, n_words, max_e = myers_case(name)
+    args = [jnp.asarray(x) for x in (plen, codes, lens)]
+    if n_words is None:
+        peq = J.build_peq(jnp.asarray(pc), args[0], n_alpha)
+        want = J.myers_hw_counts(peq, *args, e)
+        tpeq = T.build_peq(_t(pc), _t(plen), n_alpha)
+    else:
+        peq = J.build_peq_multiword(jnp.asarray(pc), args[0], n_alpha,
+                                    n_words)
+        want = J.myers_hw_counts_multiword(peq, *args, e, n_words)
+        tpeq = T.build_peq_multiword(_t(pc), _t(plen), n_alpha, n_words)
+    return want, (tpeq, _t(plen), _t(codes), _t(lens)), n_words, max_e
+
+
+@pytest.mark.parametrize("name", sorted(MYERS_CASES))
+def test_left_aligned_model_matches_jax(name):
+    """The kernel's mask-free recurrence on left-aligned patterns gives
+    JAX's counts lane for lane on every edge case (m = 0, 1 and 32 in one
+    word; W = 9 with patterns of 33 to 288 bases, most spanning fewer
+    words than W; alphabets of 1 and 20 codes with read codes past them;
+    empty reads), at the case's max_e and at EVERY_LANE."""
+    max_e = MYERS_CASES[name][-1]
+    for e in (max_e, EVERY_LANE):
+        want, targs, n_words, _ = _jax_counts(name, e)
+        got = _left_aligned_model(*targs, e, n_words)
+        assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("name", sorted(MYERS_CASES))
+def test_sums_match_jax(name):
+    """myers_hw_sums{,_multiword} on CPU tensors: JAX's int32 sum over the
+    reads (kmer_tpu/tools/ed_vaf_counter.py:153), as int64, added into
+    the total they are given, at max_e and at EVERY_LANE."""
+    max_e = MYERS_CASES[name][-1]
+    for e in (max_e, EVERY_LANE):
+        want, (peq, plen, codes, lens), n_words, _ = _jax_counts(name, e)
+        want = np.asarray(jnp.sum(want, axis=0, dtype=jnp.int32)).astype(
+            np.int64)
+        base = torch.arange(plen.shape[0], dtype=torch.int64) * 1000
+        total = base.clone()
+        if n_words is None:
+            got = T.myers_hw_sums(peq, plen, codes, lens, e, total)
+        else:
+            got = T.myers_hw_sums_multiword(peq, plen, codes, lens, e,
+                                            n_words, total)
+        assert got is total and got.dtype == torch.int64
+        assert np.array_equal((got - base).numpy(), want)
+
+
 def _wrapper_args(multiword):
     pc, plen, codes, lens, n_alpha, n_words, max_e = myers_case(
         "multiword_w9" if multiword else "m_0_1_21_32")
@@ -212,6 +326,43 @@ def test_kernel_wrappers_refuse_what_the_kernel_does_not_take(bad,
         fn(**args)
 
 
+_BAD_TOTALS = {
+    "int32_total": (lambda P: torch.zeros(P, dtype=torch.int32), "int64"),
+    "short_total": (lambda P: torch.zeros(P - 1, dtype=torch.int64),
+                    "int64 total"),
+    "strided_total": (lambda P: torch.zeros(2 * P, dtype=torch.int64)[::2],
+                      "contiguous"),
+}
+
+
+@pytest.mark.parametrize("multiword", [False, True])
+@pytest.mark.parametrize("bad", sorted(_BAD_INPUTS) + sorted(_BAD_TOTALS))
+def test_sum_wrappers_refuse_what_the_kernel_does_not_take(bad, multiword):
+    """myers_hw_sums{,_multiword}_kernel refuse what the counts' wrappers
+    refuse, and a total that is not int64 (P,) contiguous on the inputs'
+    device, before any launch (no card here)."""
+    args = _wrapper_args(multiword)
+    P = args["pat_len"].shape[0]
+    args["total"] = torch.zeros(P, dtype=torch.int64)
+    if bad in _BAD_TOTALS:
+        make, match = _BAD_TOTALS[bad]
+        args["total"] = make(P)
+        # a total on the CPU beside inputs on it: the device check first
+        # refuses the CPU inputs, so state the total's own refusal alone
+        fn = T._check_total
+        with pytest.raises(ValueError, match=match):
+            fn("myers_hw_sums_kernel", args["total"], P, torch.device("cpu"))
+        return
+    change, match = _BAD_INPUTS[bad]
+    for key, fn in change.items():
+        if key in args:
+            args[key] = fn(args)
+    fn = (T.myers_hw_sums_multiword_kernel if multiword
+          else T.myers_hw_sums_kernel)
+    with pytest.raises(ValueError, match=match):
+        fn(**args)
+
+
 def test_public_names_never_load_the_kernel_library_on_cpu(monkeypatch):
     """On CPU tensors the public names run the plain versions and never
     build or load csrc/myers.cu's library."""
@@ -228,6 +379,11 @@ def test_public_names_never_load_the_kernel_library_on_cpu(monkeypatch):
         plain = (T.myers_hw_counts_multiword_plain if multiword
                  else T.myers_hw_counts_plain)
         assert torch.equal(public(**args), plain(**args))
+        P = args["pat_len"].shape[0]
+        total = torch.zeros(P, dtype=torch.int64)
+        sums = (T.myers_hw_sums_multiword if multiword else T.myers_hw_sums)
+        assert torch.equal(sums(**args, total=total),
+                           plain(**args).sum(0, dtype=torch.int64))
     assert not any(_build.LAUNCHES[k] for k in ("myers", "myers_multiword"))
 
 
@@ -243,7 +399,9 @@ def test_myers_cu_defines_every_bound_entry_point():
         src = f.read()
     entries = {n: a for n, a in _build._SIGNATURES.items()
                if n.startswith("ktt_myers")}
-    assert set(entries) == {"ktt_myers", "ktt_myers_multiword"}
+    assert set(entries) == {"ktt_myers", "ktt_myers_multiword",
+                            "ktt_myers_sums", "ktt_myers_multiword_sums",
+                            "ktt_myers_shape"}
     for name, argtypes in entries.items():
         m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src)
         assert m, name
@@ -392,6 +550,60 @@ def test_long_patterns_and_reads_match_jax(max_e, crafted, tmp_path,
     assert "Warning: failed to open /nonexistent.fq" in want[1]
     rows = [ln.split("\t") for ln in want[2]["c.vaf"].decode().splitlines()]
     assert int(rows[3][7]) > 0  # rs1, the 41-base pattern, is found
+
+
+@pytest.fixture(scope="module")
+def a1_256(tmp_path_factory):
+    """sampleA1's first 256 reads, gzipped."""
+    fq = str(tmp_path_factory.mktemp("ed_reads_256") / "a1_256.fq.gz")
+    with gzip.open(A1, "rb") as f, gzip.open(fq, "wb") as g:
+        g.writelines(f.readline() for _ in range(4 * 256))
+    return fq
+
+
+@pytest.mark.parametrize("case", ["fixture", "crafted"])
+def test_many_small_batches_match_jax(case, patterns, a1_256, crafted,
+                                      tmp_path, monkeypatch):
+    """_BATCH_BYTES cut to 24 KiB (24 rows of the 1,024 bucket, 6 of the
+    4,096) in both tools: the fixture patterns over sampleA1's first 256
+    reads go through 11 batches, the crafted file (patterns of 21-41
+    bases, reads of 1-3,000 bases) through several batches of two
+    buckets and of the multiword batch, with partial last batches:
+    the port's totals, summed batch after batch on the device, give
+    JAX's VAF file and stderr."""
+    if case == "fixture":
+        args = ["-e1", "-p", patterns, "-o", "s.vaf", a1_256]
+    else:
+        args = ["-e2", "-p", crafted[0], "-o", "s.vaf", crafted[1]]
+    monkeypatch.setattr(JT, "_BATCH_BYTES", 24 << 10)
+    monkeypatch.setattr(TT, "_BATCH_BYTES", 24 << 10)
+    batches = []
+    real = TT._Staging.upload
+
+    def upload(self, codes, lens, nb):
+        batches.append((codes.shape, nb, TT._width(lens, nb)))
+        return real(self, codes, lens, nb)
+
+    monkeypatch.setattr(TT._Staging, "upload", upload)
+    want = _run("kmer_tpu", args, str(tmp_path / "jax"), monkeypatch)
+    monkeypatch.setenv("KMER_TPU_PLATFORM", "cpu")
+    got = _run("kmer_tpu_torch", args, str(tmp_path / "port"), monkeypatch)
+    assert want[0] == 0 and got == want
+    rows = [ln.split("\t") for ln in want[2]["s.vaf"].decode().splitlines()]
+    assert sum(int(r[7]) for r in rows[2:]) > 0
+    # full batches and a partial last one; the used width a multiple of 16
+    assert len(batches) >= 4
+    assert any(nb == shape[0] for shape, nb, _ in batches)
+    assert any(nb < shape[0] for shape, nb, _ in batches)
+    assert all(w % 16 == 0 and w <= shape[1] for shape, _, w in batches)
+
+
+def test_batch_width_is_the_longest_read_rounded_to_16():
+    lens = np.array([0, 150, 17, 0], np.int32)
+    assert TT._width(lens, 4) == 160 and TT._width(lens, 3) == 160
+    assert TT._width(lens[2:], 1) == 32
+    assert TT._width(lens[3:], 1) == 16 and TT._width(lens, 0) == 16
+    assert TT._width(np.array([1024], np.int32), 1) == 1024
 
 
 @pytest.mark.parametrize("args", [[], ["-p", "x.pat"], ["-o", "a.vaf", "r"],
