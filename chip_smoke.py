@@ -2,8 +2,8 @@
 """chip_smoke.py — run the port's kc-c4, yak-count (one file and two),
 SNP-fingerprint and ed-vaf-counter paths on one GPU, with ASCII and
 packed 2-bit ingest, its host-only tools, the mesh on logical shards
-of the card, runs of several processes, and the open-addressing table
-engines.
+of the card, runs of several processes, the open-addressing table
+engines, and the KMER_TPU_DEBUG cross-checks.
 
 Usage: python3 chip_smoke.py [--seed N]
 
@@ -179,13 +179,31 @@ Phases, each printing its own lines:
               (== phase 10's stdout, phase 14's `[M` lines) and in phase
               15's two processes (== phase 10's stdout, phase 15's `[M`
               lines; its wall beside phase 15's sort engine's)
+ 17. debug    KMER_TPU_DEBUG=1, the JAX package's runtime cross-check of
+              hist and counts_for (scripts/tpu_smoke.py on the TPU):
+              its CASES on the reads fixture (kc-c1 -k21, kc-c2 -k31
+              -p10, kc-c4 -k31 and -k15, yak-count -k21 -b14), the
+              fixture snp-pattern-gen -> vaf-counter chain and kc-c4 -k31
+              on MESH_SHARDS logical shards, with 2^15-lane stream chunks
+              so the ladders merge: each output == its run with the
+              switch unset (which makes no check), each hist (each
+              counts_for) checked once a compactor, on a plane that the
+              merge path (int32 at -k15) built and seghist read; kc-c4
+              -k31 on phase 4's file (stdout == phase 4's; wall beside
+              phase 4's, the check's device time (CUDA events) and the
+              memory it allocates, the run's peak beside phase 4's) and
+              vaf-counter on phase 9's sample A2 (VAF file == phase 9's);
+              the CUDA wrappers seghist.segment_hist_sorted and
+              merge.merge_runs made to corrupt one lane: kc-c4 -k31 on
+              the fixture exits 0 with the switch unset and raises the
+              debug AssertionError under it
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; the kernels line takes the counts of extract, seghist and the
 int64 merge path from phase 4, the int32 merge path's from phase 8, the
 (key, index) merge path's from phase 6, resolve's from phase 16's
 tool run, myers's from phase 11's whole-panel run on B and
-myers_multiword's from its long-pattern run (phases 7, 10, 14 and 15 print their own).  No path may launch
+myers_multiword's from its long-pattern run (phases 7, 10, 14, 15 and 17 print their own).  No path may launch
 a bitonic kernel, and after every phase neither jax nor any module of
 the JAX package (kmer_tpu) may be loaded.
 
@@ -1541,7 +1559,7 @@ def phase_e2e(seed):
     say("e2e", f"plain versions on the card: same output, {pwall:.3f} s = "
         f"{bases / 1e6 / pwall:.2f} Mbases/s ({plain.stats.report()})")
     return {"launches": launches, "out": out, "wall": wall,
-            "stats": eng.stats}
+            "stats": eng.stats, "peak": peak}
 
 
 def phase_budget(seed):
@@ -4066,6 +4084,294 @@ def phase_table(seed, out):
     return {"row": row, "launches": launches, "parts": parts}
 
 
+# -- KMER_TPU_DEBUG on the card ------------------------------------------
+
+# scripts/tpu_smoke.py's CASES, on tests/fixtures/reads_small.fq.gz
+DEBUG_CASES = (("kc-c1", ["-k21"]), ("kc-c2", ["-k31", "-p10"]),
+               ("kc-c4", ["-k31"]), ("kc-c4", ["-k15"]),
+               ("yak-count", ["-k21", "-b14"]))
+DEBUG_CHUNK = 1 << 15  # stream chunk of the fixture runs, so ladders merge
+
+
+def debug_switch():
+    return setenv("KMER_TPU_DEBUG", "1")
+
+
+@contextlib.contextmanager
+def small_stream_chunks():
+    """Stream ladders that merge at fixture sizes (one engine and mesh
+    shards alike)."""
+    from kmer_tpu_torch.dist import sharded
+    from kmer_tpu_torch.table import compactor
+
+    saved = compactor._STREAM_CHUNK, sharded._MESH_STREAM_CHUNK
+    compactor._STREAM_CHUNK = sharded._MESH_STREAM_CHUNK = DEBUG_CHUNK
+    try:
+        yield
+    finally:
+        compactor._STREAM_CHUNK, sharded._MESH_STREAM_CHUNK = saved
+
+
+def checked_run(fn, method):
+    """fn() with the switch unset, then under it: (unset result, checked
+    result, the checked run's launches, checks it made).  The unset run
+    may make no check."""
+    from kmer_tpu_torch.kernels import _build
+    from kmer_tpu_torch.table import compactor
+
+    before = dict(compactor.DEBUG_CHECKS)
+    plain = fn()
+    need(compactor.DEBUG_CHECKS == before,
+         f"a cross-check ran with KMER_TPU_DEBUG unset: "
+         f"{compactor.DEBUG_CHECKS} after {before}")
+    _build.reset_launches()
+    with debug_switch():
+        checked = fn()
+    return (plain, checked, dict(_build.LAUNCHES),
+            compactor.DEBUG_CHECKS[method] - before[method])
+
+
+@contextlib.contextmanager
+def timing_debug_checks():
+    """Record each cross-check of the compactor: (method, device ms
+    between two CUDA events around it, GiB it allocated beyond what was
+    held as it began, the run's peak GiB before it, its plane)."""
+    import torch
+
+    from kmer_tpu_torch.table import compactor
+
+    calls = []
+
+    def timed(method, real):
+        def check(plane, *a):
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            peak_before = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            a0 = torch.cuda.Event(enable_timing=True)
+            b0 = torch.cuda.Event(enable_timing=True)
+            a0.record()
+            real(plane, *a)
+            b0.record()
+            torch.cuda.synchronize()
+            calls.append((method, a0.elapsed_time(b0),
+                          (torch.cuda.max_memory_allocated() - held) / 2**30,
+                          peak_before / 2**30, plane))
+        return check
+
+    saved = compactor._check_hist, compactor._check_counts_for
+    compactor._check_hist = timed("hist", saved[0])
+    compactor._check_counts_for = timed("counts_for", saved[1])
+    try:
+        yield calls
+    finally:
+        compactor._check_hist, compactor._check_counts_for = saved
+
+
+def seghist_fault(real):
+    """The CUDA seghist wrapper with one count moved from its first filled
+    bin to the next one."""
+    def faulty(keys, weights, bins_cfg):
+        hist, n_distinct = real(keys, weights, bins_cfg)
+        hist = hist.clone()
+        b = int(hist[1:-1].nonzero()[0]) + 1
+        hist[b] -= 1
+        hist[b + 1] += 1
+        return hist, n_distinct
+    return faulty
+
+
+def merge_fault(real):
+    """The CUDA merge wrapper with two adjacent lanes swapped where the
+    first ends a run of two or more keys (in every merge that has one).
+    The kernels only ever read sorted runs: an input that an earlier
+    call left swapped is sorted again first."""
+    import torch
+
+    def faulty(a, b):
+        a, b = (torch.sort(r).values if bool((r[1:] < r[:-1]).any()) else r
+                for r in (a, b))
+        out = real(a, b)
+        at = ((out[1:-1] != out[2:]) & (out[1:-1] == out[:-2])).nonzero()
+        if at.shape[0]:
+            i = int(at[0]) + 1
+            out[i:i + 2] = out[i:i + 2].flip(0)
+        return out
+    return faulty
+
+
+def fault_runs(path):
+    """kc-c4 -k31 on path with each CUDA wrapper of the checked plane
+    corrupting one lane: under the switch the run raises the debug
+    AssertionError, with the switch unset it exits 0.  Returns
+    {fault: (its kernel's launches in the checked run, the message)}."""
+    from kmer_tpu_torch.kernels import _build, merge, seghist
+
+    seen = {}
+    for mod, name, wrap, kernel in (
+            (seghist, "segment_hist_sorted", seghist_fault, "seghist"),
+            (merge, "merge_runs", merge_fault, "merge_path")):
+        real = getattr(mod, name)
+        setattr(mod, name, wrap(real))
+        try:
+            check_hist_text(run_kc_c4(["-k31", path]))
+            _build.reset_launches()
+            try:
+                with debug_switch():
+                    run_kc_c4(["-k31", path])
+                msg = None
+            except AssertionError as e:
+                msg = str(e)
+        finally:
+            setattr(mod, name, real)
+        need(msg is not None and msg.startswith("KMER_TPU_DEBUG: "),
+             f"a corrupted {name} passed the debug check: {msg}")
+        seen[name] = (_build.LAUNCHES[kernel], msg)
+        need(seen[name][0] > 0, f"{kernel} never launched in the faulty run")
+    return seen
+
+
+def phase_debug(seed, out):
+    """KMER_TPU_DEBUG=1 on the card: scripts/tpu_smoke.py's cases, the
+    fixture SNP chain and a 4-shard mesh on tests/fixtures, kc-c4 -k31 on
+    phase 4's file and vaf-counter on phase 9's sample A2, each equal to
+    its run with the switch unset; the check's device time and memory;
+    faults injected into the CUDA seghist and merge wrappers raise."""
+    import torch
+
+    from kmer_tpu_torch.table import compactor
+
+    t_phase = time.perf_counter()
+    fix = os.path.join(HERE, "tests", "fixtures")
+    reads = os.path.join(fix, "reads_small.fq.gz")
+    say("debug", f"on {out['card']}")
+    with small_stream_chunks():
+        for tool, args in DEBUG_CASES:
+            plain, checked, launches, n = checked_run(
+                lambda: run_tool(tool, [*args, reads]), "hist")
+            merges = (ONE_PLANE_KERNELS if "-k15" in args
+                      else ("merge_partition", "merge_path"))
+            need(checked == plain, f"{tool} {' '.join(args)}: stdout under "
+                 "KMER_TPU_DEBUG=1 != with it unset")
+            need(n == 1 and launches["seghist"] > 0
+                 and all(launches[m] > 0 for m in merges),
+                 f"{tool} {' '.join(args)}: {n} hist checks, launches "
+                 f"{launches}")
+            say("debug", f"{tool} {' '.join(args)} reads_small: same stdout, "
+                f"hist checked once on the plane of {launches[merges[1]]} "
+                f"{merges[1]} and {launches['seghist']} seghist launches")
+
+        d = os.path.join(DATA_DIR, "debug_snp")
+        fqs = {"sampleA1": os.path.join(fix, "sampleA1.fq.gz")}
+        chain = snp_chain(d, os.path.join(fix, "genome_small.fa.gz"),
+                          os.path.join(fix, "snps_small.bed"), fqs)
+        plain, checked, launches, n = checked_run(
+            lambda: run_snp_chain(d, chain[:2])[1], "counts_for")
+        need(checked == plain and len(plain) == 2,
+             f"fixture snp-pattern-gen -> vaf-counter under KMER_TPU_DEBUG=1:"
+             f" files {sorted(checked)} differ from {sorted(plain)}")
+        need(n == 2 and launches["merge_path"] > 0,
+             f"the SNP chain made {n} counts_for checks, launches {launches}")
+        say("debug", f"snp-pattern-gen -> vaf-counter sampleA1: same files, "
+            f"counts_for checked twice on merge-path planes "
+            f"({launches['merge_path']} merge_path launches)")
+
+        with on_mesh(mesh_card()):
+            plain, checked, launches, n = checked_run(
+                lambda: run_kc_c4([f"-k{K}", reads]), "hist")
+        need(checked == plain and n == MESH_SHARDS
+             and launches["seghist"] >= MESH_SHARDS
+             and launches["merge_path"] > 0,
+             f"kc-c4 on {MESH_SHARDS} shards: same={checked == plain}, {n} "
+             f"hist checks, launches {launches}")
+        say("debug", f"kc-c4 -k{K} reads_small on {MESH_SHARDS} shards of the "
+            f"card: same stdout, hist checked on each shard")
+
+        faults = fault_runs(reads)
+    for name, (n, msg) in faults.items():
+        say("debug", f"{name} corrupting one lane: exit 0 with the switch "
+            f"unset, under it ({n} launches) AssertionError: {msg}")
+
+    # kc-c4 -k31 on phase 4's 256 Mbase file, in turns: unset, under
+    # the switch twice, unset
+    path = reads_file(MBASES, seed)
+    runs, general_ms = [], None
+    for debug in (False, True, True, False):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = dict(compactor.DEBUG_CHECKS)
+        with (debug_switch() if debug else contextlib.nullcontext()), \
+                timing_debug_checks() as calls:
+            t0 = time.perf_counter()
+            got = run_kc_c4([f"-k{K}", path])
+            wall = time.perf_counter() - t0
+            peak = max([torch.cuda.max_memory_allocated() / 2**30]
+                       + [c[3] for c in calls])
+        need(got == out["e2e"]["out"], f"kc-c4 (KMER_TPU_DEBUG "
+             f"{'1' if debug else 'unset'}) != phase 4's stdout")
+        need(compactor.DEBUG_CHECKS["hist"] - before["hist"] == debug
+             and [c[0] for c in calls] == ["hist"] * debug,
+             f"kc-c4 on {MBASES} Mbases made checks {calls}")
+        runs.append((debug, wall, peak, calls[0][1:4] if debug else None))
+        if debug and general_ms is None:
+            plane = calls[0][4]
+            n_lanes = int(plane[0].shape[0])
+            general_ms = time_ms(
+                lambda p: compactor._hist_general(*p, 256, None, 1),
+                setup=lambda: plane, reps=3)
+            del plane
+        del calls
+    bases = MBASES * 1_000_000 // READ_LEN * READ_LEN
+    walls = ", ".join(f"{'debug' if d else 'unset'} {w:.3f} s"
+                      for d, w, _, _ in runs)
+    say("debug", f"kc-c4 -k{K} {MBASES} Mbases in turns: stdout == phase "
+        f"4's in every run; walls {walls} (phase 4: "
+        f"{out['e2e']['wall']:.3f} s); Mbases/s unset "
+        + " / ".join(f"{bases / 1e6 / w:.2f}" for d, w, _, _ in runs
+                     if not d) + ", debug "
+        + " / ".join(f"{bases / 1e6 / w:.2f}" for d, w, _, _ in runs if d))
+    for d, w, peak, check in runs:
+        if d:
+            ms, extra, _ = check
+            say("debug", f"under KMER_TPU_DEBUG=1: the hist check {ms:.3f} ms "
+                f"of device time on the plane of {n_lanes} lanes, "
+                f"{extra:.3f} GiB allocated beyond what the run held; run "
+                f"peak {peak:.2f} GiB")
+        else:
+            say("debug", f"unset: run peak {peak:.2f} GiB (phase 4: "
+                f"{out['e2e']['peak']:.2f} GiB)")
+    say("debug", f"_hist_general alone on that plane: {general_ms:.3f} ms "
+        "(CUDA events, a mean of 3)")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # vaf-counter on phase 9's sample A2, phase 9's patterns
+    fqs = snp_inputs(seed)[2]
+    pat = os.path.join(DATA_DIR, "snp_card", "snps.pat")
+    vaf = os.path.join(DATA_DIR, "debug_A2.vaf")
+    with debug_switch(), timing_debug_checks() as calls:
+        t0 = time.perf_counter()
+        run_tool_err("vaf-counter", [f"-k{SNP_K}", "-v", "-p", pat, "-o",
+                                     vaf, fqs["A2"]])
+        wall = time.perf_counter() - t0
+    need(read_file(vaf) == read_file(os.path.join(DATA_DIR, "snp_card",
+                                                  "A2.vaf")),
+         "vaf-counter A2 under KMER_TPU_DEBUG=1 != phase 9's VAF file")
+    need([c[0] for c in calls] == ["counts_for"],
+         f"vaf-counter A2 made checks {[c[0] for c in calls]}")
+    _, check_ms, extra, _, plane = calls[0]
+    say("debug", f"vaf-counter A2 (64 Mbases, phase 9's panel) under "
+        f"KMER_TPU_DEBUG=1: VAF file == phase 9's; wall {wall:.3f} s; the "
+        f"counts_for check {check_ms:.3f} ms of device time on the plane "
+        f"of {int(plane[0].shape[0])} lanes, {extra:.3f} GiB allocated "
+        "beyond what the run held")
+    del calls, plane
+    say("debug", f"checks made in this process: {compactor.DEBUG_CHECKS}; "
+        f"the phase took {time.perf_counter() - t_phase:.1f} s")
+    return {"checks": dict(compactor.DEBUG_CHECKS)}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4099,7 +4405,8 @@ def main(argv=None):
               ("hosttools", phase_hosttools),
               ("mesh", lambda: phase_mesh(args.seed, out)),
               ("multiproc", lambda: phase_multiproc(args.seed, out)),
-              ("table", lambda: phase_table(args.seed, out)))
+              ("table", lambda: phase_table(args.seed, out)),
+              ("debug", lambda: phase_debug(args.seed, out)))
     out = {}
     try:
         for phase, fn in phases:

@@ -36,6 +36,16 @@ stays the int64 kernel.  Classic mode keeps int64 lanes.
 versions on any device, so the same engine can be held against itself
 on the card; by default every kernel wrapper picks by the tensor's
 device (CUDA kernel on the card, plain version on the CPU).
+
+KMER_TPU_DEBUG (any non-empty value, read on every call) cross-checks
+`hist` and `counts_for` as the JAX package does (compactor.py:595-607,
+:635-652): each answer is computed a second time, from the same sorted
+plane, by a plain-torch derivation that shares no kernel with the
+normal path (`_hist_general`: a fresh sort and `bincount`;
+`_counts_for_sortjoin` / `_counts_for_join`: a sort of data and query
+lanes together), and any difference raises AssertionError.  The
+answer returned is always the normal path's.  `DEBUG_CHECKS` counts
+the cross-checks made.
 """
 
 from __future__ import annotations
@@ -49,7 +59,7 @@ import numpy as np
 import torch
 
 from ..kernels import merge, seghist
-from ..kernels.keys import SENT, SENT32, from_hi_lo, narrow, widen
+from ..kernels.keys import SENT, SENT32, from_hi_lo, narrow, to_u64, widen
 from ..kernels.segops import segment_starts
 
 # stream-sorted mode: raw keys fold into sorted runs of this many lanes
@@ -59,6 +69,8 @@ _STREAM_MIN = 1 << 16
 # pushed chunks the host may run ahead of the device in stream mode,
 # unless KMER_TPU_THROTTLE_WINDOW says otherwise
 _THROTTLE_WINDOW = 4
+# KMER_TPU_DEBUG cross-checks made in this process, by method
+DEBUG_CHECKS = {"hist": 0, "counts_for": 0}
 
 Run = Tuple[torch.Tensor, Optional[torch.Tensor]]  # (keys, counts or None)
 
@@ -81,6 +93,11 @@ def throttle_window() -> int:
         return max(1, int(os.environ.get("KMER_TPU_THROTTLE_WINDOW", "")))
     except ValueError:
         return _THROTTLE_WINDOW
+
+
+def debug_enabled() -> bool:
+    """KMER_TPU_DEBUG is set to a non-empty value (compactor.py:595)."""
+    return bool(os.environ.get("KMER_TPU_DEBUG"))
 
 
 def _concat_runs(runs: List[Run]) -> Run:
@@ -120,6 +137,144 @@ def _compact(keys: torch.Tensor, counts: Optional[torch.Tensor],
                                    0)[ends]
     seg = torch.diff(csum_at_end, prepend=csum_at_end.new_zeros(1))
     return keys[ends], seg.to(torch.int32)
+
+
+# -- the KMER_TPU_DEBUG derivations (plain torch, any device) ------------
+
+def _hist_general(keys: torch.Tensor, counts: Optional[torch.Tensor],
+                  n_bins: int, max_count: Optional[int], min_keep: int):
+    """(hist int64[n_bins], n_distinct) of any (keys, counts) plane, the
+    counterpart of _hist_xla_core (compactor.py:237-292): a one-plane
+    plane widened to biased int64, sorted from scratch, each key's total
+    the uint32 ends-diff (`_compact`), the sentinel's segment dropped,
+    totals below min_keep dropped, the rest clamped to max_count and
+    n_bins - 1 and counted with bincount.  It never reaches the segment
+    histogram (kernels/seghist.py), kernel or plain twin."""
+    if keys.dtype == torch.int32:
+        keys = widen(keys)
+    total = _compact(keys, counts)[1].to(torch.int64) & 0xFFFFFFFF
+    total = total[total >= min_keep]
+    if max_count is not None:
+        total = total.clamp(max=max_count)
+    # every kept total is >= min_keep >= 1, so bin 0 stays 0, as JAX sets it
+    hist = torch.bincount(total.clamp(max=n_bins - 1), minlength=n_bins)
+    return hist, int(total.shape[0])
+
+
+def _join_lanes(keys: torch.Tensor, q: torch.Tensor):
+    """The sort-joins' shared start: the data lanes (sentinel lanes
+    dropped: they hold no key, so the all-ones query counts 0 as on the
+    binary search) followed by the distinct queries, sorted stably by
+    key.  The concatenation lists data before queries and queries by
+    index, so the stable sort orders the lanes by (key, tag) as the JAX
+    package's two-key sort does.  Returns (data mask, order, sorted
+    keys, distinct queries, inverse)."""
+    data = keys != SENT
+    uq, inverse = torch.unique(q, return_inverse=True)
+    merged = torch.cat([keys[data], uq])
+    s_key, order = torch.sort(merged, stable=True)
+    return data, order, s_key, uq, inverse
+
+
+def _counts_for_sortjoin(keys: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Unweighted counts of the biased int64 queries q (duplicates
+    allowed) in the data lanes keys (any order), int64 in query order:
+    the tag sort-join of _counts_for_sortjoin_impl (compactor.py:790-822).
+    Tag 0 marks data, 1 + i the i-th distinct query; at a query lane
+    every earlier lane of its segment is data, so its count is
+    pos - segment start.  A lane's segment start is the start whose
+    number the running count of starts gives: the positions JAX's cummax
+    of start positions gives, without torch.cummax (on an H100, the
+    check at 2^26 lanes took 204 ms with a cummax, 16 ms without)."""
+    data, order, s_key, uq, inverse = _join_lanes(keys, q)
+    n = int(data.sum())
+    tag = torch.cat([torch.zeros(n, dtype=torch.int64, device=q.device),
+                     torch.arange(1, uq.shape[0] + 1, device=q.device)])
+    s_tag = tag[order]
+    starts = segment_starts(s_key)
+    at = torch.nonzero(s_tag > 0).squeeze(1)
+    start = torch.nonzero(starts).squeeze(1)[torch.cumsum(starts, 0)[at] - 1]
+    out = torch.empty_like(uq)
+    out[s_tag[at] - 1] = at - start
+    return out[inverse]
+
+
+def _counts_for_join(keys: torch.Tensor, counts: torch.Tensor,
+                     q: torch.Tensor) -> torch.Tensor:
+    """Weighted counts of the queries q in the (keys, int32 counts) lanes,
+    int64 in query order: the origin / count / query-index sort-join of
+    _counts_for_impl (compactor.py:824-862).  A query lane ends its
+    segment, so its key's total is the running sum there minus the one
+    at the previous segment's end, kept to its low 32 bits (the JAX
+    package's modular uint32 arithmetic)."""
+    data, order, s_key, uq, inverse = _join_lanes(keys, q)
+    nq = uq.shape[0]
+    c = torch.cat([counts[data].to(torch.int64) & 0xFFFFFFFF,
+                   torch.zeros(nq, dtype=torch.int64, device=q.device)])
+    qidx = torch.cat([torch.full((c.shape[0] - nq,), -1, device=q.device),
+                      torch.arange(nq, device=q.device)])
+    is_end = torch.ones_like(s_key, dtype=torch.bool)
+    is_end[:-1] = segment_starts(s_key)[1:]
+    ends = torch.nonzero(is_end).squeeze(1)
+    e_csum = torch.cumsum(c[order], 0)[ends]
+    seg = torch.diff(e_csum, prepend=e_csum.new_zeros(1)) & 0xFFFFFFFF
+    e_q = qidx[order][ends]
+    out = torch.empty_like(uq)
+    out[e_q[e_q >= 0]] = seg[e_q >= 0]
+    return out[inverse]
+
+
+def _counts_for_bs(keys: torch.Tensor, counts: Optional[torch.Tensor],
+                   q: torch.Tensor) -> torch.Tensor:
+    """`counts_for`'s join on the sorted plane: each query's segment is
+    [searchsorted left, searchsorted right); weighted runs sum their
+    uint32 counts with the JAX package's modular arithmetic; the
+    all-ones key counts 0 (the JAX package's `_key_succ` wraps there)."""
+    lb = torch.searchsorted(keys, q)
+    ub = torch.searchsorted(keys, q, right=True)
+    if counts is None:
+        out = ub - lb
+    else:
+        csum = torch.cumsum(counts.to(torch.int64) & 0xFFFFFFFF, 0)
+        csum = torch.cat([csum.new_zeros(1), csum])
+        out = (csum[ub] - csum[lb]) & 0xFFFFFFFF
+    return torch.where(q == SENT, 0, out)
+
+
+def _check_hist(plane: Run, hist: np.ndarray, n_distinct: int,
+                bins_cfg) -> None:
+    """KMER_TPU_DEBUG: hold hist's answer against `_hist_general` on the
+    same plane; raise on any difference (compactor.py:595-607)."""
+    DEBUG_CHECKS["hist"] += 1
+    want, want_nd = _hist_general(*plane, *bins_cfg)
+    want = want.cpu().numpy()
+    if np.array_equal(hist, want) and n_distinct == want_nd:
+        return
+    bad = np.flatnonzero(hist != want)
+    where = (f"bin {bad[0]} holds {hist[bad[0]]} against {want[bad[0]]} "
+             f"({bad.size} bins differ)" if bad.size else "every bin agrees")
+    raise AssertionError(
+        f"KMER_TPU_DEBUG: Pallas/XLA histogram mismatch: {where}; "
+        f"n_distinct {n_distinct} against {want_nd} (segment histogram "
+        "against a fresh sort)")
+
+
+def _check_counts_for(plane: Run, q: torch.Tensor, got: np.ndarray) -> None:
+    """KMER_TPU_DEBUG: hold counts_for's answer against the sort-join on
+    the same plane; raise on any difference (compactor.py:635-652)."""
+    DEBUG_CHECKS["counts_for"] += 1
+    keys, counts = plane
+    want = (_counts_for_sortjoin(keys, q) if counts is None
+            else _counts_for_join(keys, counts, q)).cpu().numpy()
+    bad = np.flatnonzero(got != want)
+    if not bad.size:
+        return
+    i = bad[0]
+    key = int(to_u64(q[i:i + 1].cpu().numpy())[0])
+    raise AssertionError(
+        f"KMER_TPU_DEBUG: counts_for binary-search/sort-join mismatch: "
+        f"query {i} (key {key:#018x}) counts {got[i]} against {want[i]} "
+        f"({bad.size} of {got.size} queries differ)")
 
 
 class KmerCompactor:
@@ -280,7 +435,12 @@ class KmerCompactor:
         plane = self._sorted_plane()
         if plane is None:
             return np.zeros(n_bins, np.int64), 0
-        return self._hist_sorted(*plane, n_bins, max_count, min_keep)
+        hist, n_distinct = self._hist_sorted(*plane, n_bins, max_count,
+                                             min_keep)
+        if debug_enabled():
+            _check_hist(plane, hist, n_distinct, (n_bins, max_count,
+                                                  min_keep))
+        return hist, n_distinct
 
     def _sorted_plane(self) -> Optional[Run]:
         """The sorted (keys, counts or None) plane that ends a count, or
@@ -307,25 +467,16 @@ class KmerCompactor:
     def counts_for(self, query_hi, query_lo) -> np.ndarray:
         """Total multiplicity of each query key (0 if absent), in query
         order, duplicates included: int64 numpy (compactor.py:610-653).
-        Queries are (hi, lo) uint32 planes.  Each key's segment in the
-        sorted plane is [searchsorted left, searchsorted right); weighted
-        runs sum their uint32 counts with the JAX package's modular
-        arithmetic.  The all-ones key counts 0, as in the JAX package,
-        whose segment end (`_key_succ`) wraps to 0 there."""
+        Queries are (hi, lo) uint32 planes; the join is
+        `_counts_for_bs`."""
         plane = self._sorted_plane()  # no piecewise compaction first
         if plane is None:
             return np.zeros(len(query_hi), np.int64)
-        keys, counts = plane
         if self.one_plane:
             assert not np.any(query_hi), (
                 "counts_for: query keys exceed the declared key_bits <= 30")
         q = from_hi_lo(query_hi, query_lo, self.device)
-        lb = torch.searchsorted(keys, q)
-        ub = torch.searchsorted(keys, q, right=True)
-        if counts is None:
-            out = ub - lb
-        else:
-            csum = torch.cumsum(counts.to(torch.int64) & 0xFFFFFFFF, 0)
-            csum = torch.cat([csum.new_zeros(1), csum])
-            out = (csum[ub] - csum[lb]) & 0xFFFFFFFF
-        return torch.where(q == SENT, 0, out).cpu().numpy()
+        out = _counts_for_bs(*plane, q).cpu().numpy()
+        if debug_enabled():
+            _check_counts_for(plane, q, out)
+        return out
