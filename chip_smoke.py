@@ -20,7 +20,10 @@ Phases, each printing its own lines:
               the kernel's SASS; the one-pass segment histogram at 2^27
               and 2^28 lanes (unweighted and weighted, kc's and
               yak-count's bins, an all-equal plane, a ragged n), beside
-              bincount(unique_consecutive) as its yardstick; the merge
+              bincount(unique_consecutive) as its yardstick, and at 2^28
+              lanes with weighted totals past 2^31 and 2^32 (segments
+              across blocks, the open final run, the sentinel's; n_bins
+              256, 1024 and 2048) == plain == a uint32 model; the merge
               path (merge_partition + merge_path) for its three lane
               types, int64 keys, int32 keys and (int64 key, int64 index)
               lanes, against a sort of the concatenation on edge cases
@@ -196,7 +199,9 @@ Phases, each printing its own lines:
               the CUDA wrappers seghist.segment_hist_sorted and
               merge.merge_runs made to corrupt one lane: kc-c4 -k31 on
               the fixture exits 0 with the switch unset and raises the
-              debug AssertionError under it
+              debug AssertionError under it; compactors on the card and
+              on the CPU holding counted runs whose key totals pass 2^31
+              and 2^32: the same hist under the switch, no check raising
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; the kernels line takes the counts of extract, seghist and the
@@ -928,6 +933,98 @@ def extract_rows(rows, rng, dev):
     del block, dirty
 
 
+# weighted segment totals at the edges of the uint32 count width, and
+# just below 2^31; seghist reads a total mod 2^32 as uint32, as the JAX
+# package's XLA histogram does (_hist_xla_core)
+U32_EDGES = (1 << 31, 0x90000000, (1 << 32) - 1, 1 << 32, (1 << 32) + 3,
+             (1 << 31) - 1)
+U32_CFGS = ((256, None, 1), (1024, 1023, 2), (2048, None, 1))
+
+
+def u32_bin(total, cfg):
+    """The bin of a weighted total as the numpy uint32 model takes it
+    (the total mod 2^32, min_keep, max_count, n_bins - 1), or None."""
+    n_bins, max_count, min_keep = cfg
+    t = total % (1 << 32)
+    if t < min_keep:
+        return None
+    return min(t, n_bins - 1 if max_count is None else max_count, n_bins - 1)
+
+
+def seghist_u32_edges(keys, g, label):
+    """The segment histogram where weighted totals pass 2^31 and 2^32, on
+    a sorted plane of the main path's size: 24 spans of seeded uint32
+    weights whose totals cycle through U32_EDGES (8 as the plane's
+    segments lie, 8 made 2^16 lanes long, 8 made 2^20 lanes long, which
+    cross blocks of the persistent grid), and the plane's last segment
+    (the open final run, or the sentinel's, which must never count).
+    For kc's, yak-count's and a global-atomic (2048) bins_cfg: kernel ==
+    plain, and == the plain histogram of the same plane under small
+    weights with those segments moved to their numpy uint32 bins; the
+    kernel's time on the plane (kc's bins_cfg)."""
+    import torch
+
+    from kmer_tpu_torch.kernels import seghist
+    from kmer_tpu_torch.kernels.keys import SENT
+
+    dev = keys.device
+    keys = keys.clone()
+    n = keys.shape[0]
+    w = torch.randint(1, 11, (n,), generator=g, device=dev,
+                      dtype=torch.int32)
+    n_real = int(torch.searchsorted(keys, keys.new_tensor([SENT])))
+    part = n_real // 25
+    spans = []  # (first lane, end lane, total)
+    for i in range(24):
+        a = part * i + int(torch.randint(0, part // 2, (1,), generator=g,
+                                         device=dev))
+        if i % 3:
+            keys[a:a + (1 << (16 if i % 3 == 1 else 20))] = keys[a].item()
+        v = keys[a:a + 1]
+        lo, hi = (int(torch.searchsorted(keys, v, right=r))
+                  for r in (False, True))
+        spans.append((lo, hi, U32_EDGES[i % len(U32_EDGES)]))
+    last = keys[-1:]
+    spans.append((int(torch.searchsorted(keys, last)), n, 0x90000000))
+    sent_tail = int(last) == SENT
+    base = {cfg: seghist.segment_hist_sorted_plain(keys, w, cfg)
+            for cfg in U32_CFGS}
+    old = [int(w[lo:hi].sum()) for lo, hi, _ in spans]
+    for lo, hi, total in spans:
+        w[lo:hi] = torch.randint(-(1 << 31), 1 << 31, (hi - lo,),
+                                 generator=g, device=dev, dtype=torch.int32)
+        rest = (total - int(w[lo:hi - 1].sum())) % (1 << 32)
+        w[hi - 1] = rest - (1 << 32) if rest >= 1 << 31 else rest
+    counted = [j for j in range(len(spans))
+               if not (j == len(spans) - 1 and sent_tail)]
+    wide = sum(1 << 31 <= spans[j][2] % (1 << 32) for j in counted)
+    for cfg in U32_CFGS:
+        hist, nd = seghist.segment_hist_sorted(keys, w, cfg)
+        plain, pnd = seghist.segment_hist_sorted_plain(keys, w, cfg)
+        e = max(max_abs_err(hist, plain), max_abs_err(nd, pnd))
+        need(e == ERR_FREE, f"seghist u32 edges {label} {cfg}: kernel != "
+             f"plain (max err {e})")
+        want, want_nd = base[cfg][0].clone(), int(base[cfg][1])
+        for j in counted:  # the sentinel's segment never counts
+            for t, sign in ((old[j], -1), (spans[j][2], 1)):
+                b = u32_bin(t, cfg)
+                if b is not None:
+                    want[b] += sign
+                    want_nd += sign
+        e = max(max_abs_err(hist, want), abs(int(nd) - want_nd))
+        need(e == ERR_FREE, f"seghist u32 edges {label} {cfg}: != the "
+             f"numpy uint32 model on the {len(spans)} segments (max err {e})")
+    ms = time_ms(lambda _: seghist.segment_hist_sorted(keys, w, U32_CFGS[0]),
+                 reps=10)
+    spans_text = ", ".join(f"{hi - lo}" for lo, hi, _ in spans[:3])
+    say("kernels", f"seghist u32 edges {label} (n={n}, {len(spans)} "
+        f"segments: lanes {spans_text}, ..., {spans[-1][1] - spans[-1][0]}; "
+        f"final run {'the sentinel' if sent_tail else 'open'}): kernel == "
+        f"plain == the uint32 model for bins_cfg {list(U32_CFGS)}, {wide} "
+        f"totals in [2^31, 2^32) in the last bin; {ms:.4f} ms (CUDA events, "
+        "10 calls)")
+
+
 def seghist_rows(rows, g, dev):
     """The one-pass segment histogram against its plain version at 2^27
     and 2^28 sorted lanes (keys from 2^25 values, a 20% sentinel tail),
@@ -999,9 +1096,14 @@ def seghist_rows(rows, g, dev):
         say("kernels", f"seghist 2^{lg} lanes unweighted {cfg}: "
             f"{timing_text(row, 'bincount(unique_consecutive) (3 calls)')}; "
             f"weighted {wms:.3f} ms (bound "
-            f"{(12 * n + 8 * (cfg[0] + 1)) / HBM_BYTES_PER_S * 1e3:.3f} ms)")
+            f"{(12 * n + 8 * (cfg[0] + 1)) / HBM_BYTES_PER_S * 1e3:.3f} ms)"
+            + ("; PR 4's kernel: 1.1082 ms unweighted" if lg == 28 else ""))
         if lg == 28:
             rows["seghist"] = row
+            for name, plane in (("sentinel tail", keys), ("open final run",
+                                                          real)):
+                seghist_u32_edges(plane, g, f"2^{lg} {name}")
+                torch.cuda.empty_cache()
         del keys, w, real
         torch.cuda.empty_cache()
 
@@ -4231,12 +4333,76 @@ def fault_runs(path):
     return seen
 
 
+def debug_wide_totals(seed):
+    """KmerCompactors on the card and on the CPU holding the same two
+    counted runs over 2^22 keys (a resumed checkpoint's run and a further
+    one), in which 4 keys for each of U32_EDGES and 64 keys of the first
+    run alone reach totals past 2^31 and 2^32; two-plane (key_bits 62)
+    and one-plane (30).  Under KMER_TPU_DEBUG=1 every hist of the card's
+    == the CPU's for U32_CFGS, no check raises, and seghist launches.
+    Returns the keys past 2^31 and the checks made."""
+    import numpy as np
+    import torch
+
+    from kmer_tpu_torch.kernels import _build
+    from kmer_tpu_torch.kernels.keys import from_hi_lo
+    from kmer_tpu_torch.table import compactor
+
+    rng = np.random.default_rng(seed)
+    n_keys, checks, wide = 1 << 22, 0, 0
+    for key_bits in (62, 30):
+        u = rng.permutation(np.unique(rng.integers(
+            0, 1 << key_bits, n_keys + (n_keys >> 3), dtype=np.uint64))
+            [:n_keys])
+        c1 = rng.integers(1, 9, n_keys, dtype=np.uint64)
+        c2 = rng.integers(1, 9, n_keys, dtype=np.uint64)
+        n_edge = 4 * len(U32_EDGES)
+        c1[:n_edge + 64] = rng.integers(1 << 31, 1 << 32, n_edge + 64,
+                                        dtype=np.uint64)
+        for i, total in enumerate(np.repeat(U32_EDGES, 4)):
+            c2[i] = (int(total) - int(c1[i])) % (1 << 32)
+        in2 = rng.random(n_keys) < 0.5
+        in2[:n_edge + 64] = np.arange(n_edge + 64) < n_edge
+        runs = [(u, c1), (u[in2], c2[in2])]
+        comps = [compactor.KmerCompactor(dev, key_bits=key_bits)
+                 for dev in ("cuda", "cpu")]
+        for comp in comps:
+            for k, c in runs:
+                comp.add_counted(
+                    from_hi_lo(k >> np.uint64(32), k & np.uint64(0xFFFFFFFF),
+                               comp.device),
+                    torch.from_numpy(c.astype(np.uint32).view(np.int32))
+                    .to(comp.device))
+        want_wide = sum(1 << 31 <= t % (1 << 32) for t in U32_EDGES) * 4 + 64
+        with debug_switch():
+            for cfg in U32_CFGS:
+                before = compactor.DEBUG_CHECKS["hist"]
+                launched = _build.LAUNCHES["seghist"]
+                card, cpu = (comp.hist(*cfg) for comp in comps)
+                need(np.array_equal(card[0], cpu[0]) and card[1] == cpu[1],
+                     f"key_bits {key_bits} {cfg}: the card's hist with totals"
+                     f" past 2^31 != the CPU's")
+                need(cpu[0][-1] >= want_wide, f"key_bits {key_bits} {cfg}: "
+                     f"{cpu[0][-1]} keys in the last bin, {want_wide} past "
+                     "2^31")
+                need(compactor.DEBUG_CHECKS["hist"] - before == 2
+                     and _build.LAUNCHES["seghist"] > launched,
+                     f"key_bits {key_bits} {cfg}: checks "
+                     f"{compactor.DEBUG_CHECKS['hist'] - before}, seghist "
+                     f"launches {_build.LAUNCHES['seghist'] - launched}")
+                checks += 2
+        wide += want_wide
+        del comps, runs
+    return wide, checks
+
+
 def phase_debug(seed, out):
     """KMER_TPU_DEBUG=1 on the card: scripts/tpu_smoke.py's cases, the
     fixture SNP chain and a 4-shard mesh on tests/fixtures, kc-c4 -k31 on
     phase 4's file and vaf-counter on phase 9's sample A2, each equal to
     its run with the switch unset; the check's device time and memory;
-    faults injected into the CUDA seghist and merge wrappers raise."""
+    faults injected into the CUDA seghist and merge wrappers raise; key
+    totals past 2^31 and 2^32 on the card == on the CPU, none raising."""
     import torch
 
     from kmer_tpu_torch.table import compactor
@@ -4291,6 +4457,11 @@ def phase_debug(seed, out):
     for name, (n, msg) in faults.items():
         say("debug", f"{name} corrupting one lane: exit 0 with the switch "
             f"unset, under it ({n} launches) AssertionError: {msg}")
+    wide, n = debug_wide_totals(seed)
+    say("debug", f"counted runs over 2^22 keys, two-plane and one-plane, "
+        f"{wide} key totals in [2^31, 2^32) and keys at 2^32 and past it: "
+        f"the card's hist == the CPU's for bins_cfg {list(U32_CFGS)}, "
+        f"{n} checks under KMER_TPU_DEBUG=1 and none raised")
 
     # kc-c4 -k31 on phase 4's 256 Mbase file, in turns: unset, under
     # the switch twice, unset

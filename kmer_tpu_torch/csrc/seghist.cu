@@ -5,10 +5,12 @@
 // histogram that follows it (kmer_tpu/table/compactor.py:202-217,
 // segops.histogram_by_matmul).  Over sorted biased int64 keys, each
 // maximal run of one key (a segment) has a total: its lane count, or the
-// sum of its int32 weights wrapping as uint32 read as int32 (the TPU
-// kernel's i32 lanes, seghist.py:105,111).  Every segment whose key is
-// not the sentinel (INT64_MAX, so only the last segment can be one) and
-// whose total e >= min_keep adds one to bin min(e, max_count,
+// sum of its weights (uint32 bits in int32 lanes) mod 2^32, read as
+// uint32 as the JAX package's XLA histogram reads it (_hist_xla_core,
+// compactor.py:250-267; the TPU kernel's int32 sum, seghist.py:105, would
+// drop a total in [2^31, 2^32)).  Every segment whose key is not the
+// sentinel (INT64_MAX, so only the last segment can be one) and whose
+// total e >= min_keep (unsigned) adds one to bin min(e, max_count,
 // n_bins - 1); bin 0 stays 0 and n_distinct counts what was added.  The
 // TPU form emits one bin per lane, histograms that plane and adds the
 // still-open final run on the host; here the final run is a segment like
@@ -78,13 +80,16 @@ struct Cfg {
 
 __device__ __forceinline__ int pad(int p) { return p + (p >> 4); }
 
-// The bin of a segment total, or -1 when it is not counted.
+// The bin of a segment total, or -1 when it is not counted.  The total
+// is compared and clamped as uint32 (min_keep, max_count and n_bins - 1
+// are below 2^31), so one in [2^31, 2^32) lands in the last bin.
 __device__ __forceinline__ int bin_of(uint32_t total, Cfg cfg) {
-  int e = static_cast<int32_t>(total);
-  if (e < cfg.min_keep) return -1;
-  if (cfg.max_count >= 0 && e > cfg.max_count) e = cfg.max_count;
-  if (e > cfg.n_bins - 1) e = cfg.n_bins - 1;
-  return e >= 1 ? e : -1;
+  if (total < static_cast<uint32_t>(cfg.min_keep)) return -1;
+  if (cfg.max_count >= 0 && total > static_cast<uint32_t>(cfg.max_count))
+    total = static_cast<uint32_t>(cfg.max_count);
+  if (total > static_cast<uint32_t>(cfg.n_bins - 1))
+    total = static_cast<uint32_t>(cfg.n_bins - 1);
+  return total >= 1 ? static_cast<int>(total) : -1;
 }
 
 // Segmented-scan combine: (f, v) then (f2, v2).

@@ -3,8 +3,11 @@ kmer_tpu/kernels/seghist.py `segment_bins_sorted` and the histogram that
 kmer_tpu/table/compactor.py:176-217 `_hist_impl_tpu` makes of its bins).
 
 Over sorted biased int64 keys (sentinels last), each segment (maximal
-run of one key) has a total: its lane count, or the int32-wrapping sum
-of its weights.  With bins_cfg = (n_bins, max_count, min_keep):
+run of one key) has a total: its lane count, or the sum of its weights
+(uint32 bits in int32 lanes) mod 2^32, read as uint32 as the JAX
+package's XLA histogram reads it (compactor.py:250-267 `_hist_xla_core`;
+the Pallas kernel's int32 sum, seghist.py:105, would drop a total in
+[2^31, 2^32)).  With bins_cfg = (n_bins, max_count, min_keep):
 
   segment_bins_sorted_plain   the TPU kernel's per-lane form: lane i
                               holds the bin of the segment that ENDED at
@@ -41,11 +44,6 @@ def _bins_dtype(n_bins: int) -> torch.dtype:
     return torch.uint8 if n_bins <= 256 else torch.int16
 
 
-def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
-    """int64 -> the int32 value with the same low 32 bits (as int64)."""
-    return ((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
-
-
 def _check(keys: torch.Tensor, weights: Optional[torch.Tensor],
            bins_cfg: BinsCfg) -> None:
     n_bins, max_count, min_keep = bins_cfg
@@ -76,7 +74,7 @@ def segment_bins_sorted_plain(keys: torch.Tensor,
     # the run carried in before lane 0 has length 0, so lanes ahead of
     # the first start sum from lane 0 like a segment starting there
     start_pos = torch.cummax(torch.where(starts, pos, 0), 0).values
-    run = _wrap_i32(csum - (csum - v)[start_pos])
+    run = (csum - (csum - v)[start_pos]) & 0xFFFFFFFF  # the uint32 total
     prev_run = torch.cat([run.new_zeros(1), run[:-1]])
     emit = torch.where(starts & (prev != SENT), prev_run, 0)
     ok = emit >= min_keep

@@ -115,6 +115,85 @@ def test_seghist_kernel_tile_crossings(dev, case, bins_cfg):
         assert torch.equal(hist, want) and int(nd) == int(wnd)
 
 
+# weighted totals at the edges of the uint32 count width, and below them
+_U32_EDGES = (1 << 31, 0x90000000, (1 << 32) - 1, 1 << 32, (1 << 32) + 3,
+              (1 << 31) - 1, 5)
+
+
+def _u32_plane(rng, case, tail):
+    """Sorted int64 keys and int32 weights (uint32 bits) on the host whose
+    segments' totals cycle through _U32_EDGES (every third segment small
+    weights): segments of 2-40 lanes inside tiles, of 3,000-9,000 lanes
+    across tiles (4096 lanes), or of 20,000-60,000 lanes with one of 1000
+    tiles, several tiles a block of the persistent grid, across blocks.
+    The last segment, the open final run, totals 0x90000000; under tail
+    "sent" a sentinel tail of that total follows (it never counts)."""
+    if case == "in_tile":
+        lens = rng.integers(2, 41, size=600)
+    elif case == "across_tiles":
+        lens = rng.integers(3000, 9001, size=40)
+    else:
+        lens = np.r_[rng.integers(20_000, 60_001, size=150), 1000 * 4096,
+                     rng.integers(20_000, 60_001, size=150)]
+    lens = np.r_[lens, 777] if tail == "open" else np.r_[lens, 777, 5000]
+    totals = [_U32_EDGES[i % len(_U32_EDGES)] if i % 3 else None
+              for i in range(len(lens))]
+    totals[-1] = totals[-2] = 0x90000000
+    keys = np.repeat(np.arange(len(lens), dtype=np.int64) * 7 - 5000, lens)
+    if tail == "sent":
+        keys[-lens[-1]:] = SENT
+    w = np.empty(keys.size, np.uint64)
+    at = 0
+    for length, total in zip(lens, totals):
+        if total is None:
+            w[at:at + length] = rng.integers(1, 7, size=length)
+        else:
+            r = rng.integers(0, 1 << 32, size=length, dtype=np.uint64)
+            r[-1] = (total - int(r[:-1].sum())) % (1 << 32)
+            w[at:at + length] = r
+        at += length
+    return (torch.from_numpy(keys),
+            torch.from_numpy(w.astype(np.uint32).view(np.int32)))
+
+
+def _u32_hist(keys, w, bins_cfg):
+    """numpy: each segment's total mod 2^32 read as uint32 (as the JAX
+    package's _hist_xla_core reads it), the sentinel's dropped, min_keep,
+    max_count and n_bins - 1; (hist, n_distinct, totals past 2^31)."""
+    n_bins, max_count, min_keep = bins_cfg
+    k = keys.numpy()
+    starts = np.flatnonzero(np.r_[True, k[1:] != k[:-1]])
+    tot = np.add.reduceat(w.numpy().view(np.uint32).astype(np.uint64),
+                          starts) & np.uint64(0xFFFFFFFF)
+    tot = tot[(k[starts] != SENT) & (tot >= min_keep)]
+    top = n_bins - 1 if max_count is None else min(max_count, n_bins - 1)
+    hist = np.bincount(np.minimum(tot, top).astype(np.int64),
+                       minlength=n_bins)
+    return hist, tot.size, int((tot >= 1 << 31).sum())
+
+
+@pytest.mark.parametrize("case", ["in_tile", "across_tiles",
+                                  "across_blocks"])
+@pytest.mark.parametrize("tail", ["open", "sent"])
+@pytest.mark.parametrize("bins_cfg", [(256, None, 1), (1024, 1023, 2),
+                                      (2048, None, 1)])
+def test_seghist_kernel_u32_totals(dev, case, tail, bins_cfg):
+    """Weighted totals in [2^31, 2^32), exactly 2^32 and past it, in
+    segments inside a tile, across tiles and across blocks (through
+    stitch_tiles), and in the open final run; n_bins 1024 (the
+    shared-memory histogram) and 2048 (global atomics): kernel == plain
+    == the numpy uint32 model."""
+    keys, w = _u32_plane(np.random.default_rng(len(case) + len(tail)),
+                         case, tail)
+    want, want_nd, wide = _u32_hist(keys, w, bins_cfg)
+    assert wide >= 3 and want[-1] >= wide
+    keys, w = keys.to(dev), w.to(dev)
+    hist, nd = seghist.segment_hist_sorted(keys, w, bins_cfg)
+    plain, pnd = seghist.segment_hist_sorted_plain(keys, w, bins_cfg)
+    assert torch.equal(hist, plain) and int(nd) == int(pnd)
+    assert np.array_equal(hist.cpu().numpy(), want) and int(nd) == want_nd
+
+
 def test_seghist_refuses_bad_input(dev):
     x = torch.arange(8, device=dev)
     with pytest.raises(ValueError):

@@ -10,6 +10,9 @@ outputs, tolerance 0).
 * The tools under the switch: each writes what it writes with the switch
   unset (when the general functions may not run at all) and what the JAX
   tool writes under the switch, and the cross-check counter moves.
+* Weighted key totals at 2^31, 0x90000000, 2^32 - 1, 2^32 and 2^32 + 3:
+  the port's `KmerCompactor.hist` == the JAX package's, one-plane and
+  two-plane, with the switch set and unset.
 * Fault injection: a seghist twin that moves one count between bins, a
   merge twin that swaps two adjacent lanes, and a binary-search join off
   by one each raise AssertionError naming KMER_TPU_DEBUG under the
@@ -177,23 +180,52 @@ def test_sort_joins_match_jax(case):
     assert np.array_equal(TC._counts_for_bs(sk, sc, tq).numpy(), got)
 
 
-def test_segment_total_past_int32_is_flagged(monkeypatch):
-    """One key whose weighted total lies in [2^31, 2^32): the segment
-    histogram (the port's, like the JAX package's TPU kernel) reads the
-    total as int32 and drops it, the general path keeps it in the last
-    bin as the JAX package's `_hist_impl` does, so the check raises."""
-    t = TC.KmerCompactor("cpu", key_bits=64)
-    c = np.asarray([0x90000000, 5], np.uint32)
-    t.add_counted(keys.from_hi_lo(*_split([7, 9])),
-                  torch.from_numpy(c.view(np.int32)))
-    hi, lo = (jnp.asarray(p) for p in _split([7, 9]))
-    h, nd = JC._hist_impl(hi, lo, jnp.asarray(c), 256, None, 1, True)
-    assert int(nd) == 2 and int(h[255]) == 1
-    assert t.hist(256, None)[1] == 1
+@pytest.mark.parametrize("bins_cfg", [(256, None, 1), (256, 255, 2),
+                                      (1024, 1023, 2)])
+@pytest.mark.parametrize("key_bits", [64, 30])
+@pytest.mark.parametrize("total", [1 << 31, 0x90000000, (1 << 32) - 1,
+                                   1 << 32, (1 << 32) + 3])
+def test_segment_total_past_int32_matches_jax(total, key_bits, bins_cfg,
+                                              monkeypatch):
+    """Two keys whose weighted totals sum to `total` over two counted
+    runs, one mid-plane and one the plane's last (the segment
+    histogram's open final run), beside keys of small totals, in a
+    two-plane and a one-plane compactor: the port's `hist` == the JAX
+    package's `KmerCompactor.hist` on the CPU (its XLA form reads a
+    total as uint32: [2^31, 2^32) in the last bin, 2^32 wraps to 0 and
+    is dropped, 2^32 + 3 lands in bin 3), bin for bin and in
+    n_distinct, and under KMER_TPU_DEBUG=1 the check passes."""
+    from kmer_tpu.kernels import u64 as U
+
+    top = (1 << key_bits) - 2
+    k = np.asarray([3, 7, 9, 12, top // 2, top], np.uint64)
+    rng = np.random.default_rng(total % 1000 + key_bits)
+    s = rng.integers(1, 9, size=5).tolist()  # small counts, keys 0, 2-4
+    c = int(rng.integers(1 << 31, 1 << 32))  # the first part of `total`
+    rest = (total - c) % (1 << 32)
+    runs = [(k[[1, 0, 5, 2]], [c, s[0], c, s[1]]),
+            (k[[5, 3, 1, 4, 3]], [rest, s[2], rest, s[3], s[4]])]
+    t = TC.KmerCompactor("cpu", key_bits=key_bits)
+    j = JC.KmerCompactor(key_bits=key_bits)
+    assert t.one_plane == j.one_plane == (key_bits == 30)
+    for rk, rc in runs:
+        rc = np.asarray(rc, np.uint32)
+        t.add_counted(keys.from_hi_lo(*_split(rk)),
+                      torch.from_numpy(rc.view(np.int32)))
+        j.add_counted(U.U64(*(jnp.asarray(p) for p in _split(rk))),
+                      jnp.asarray(rc))
+    want, want_nd = j.hist(*bins_cfg)
+    kept = [x >= bins_cfg[2] for x in (s[0], s[1], s[2] + s[4], s[3])]
+    u32 = total % (1 << 32)
+    assert want_nd == sum(kept) + 2 * (u32 >= bins_cfg[2])
+    assert want[-1] >= 2 * (u32 >= 1 << 31)
+    got, got_nd = t.hist(*bins_cfg)
+    assert np.array_equal(got, want) and got_nd == want_nd
     monkeypatch.setenv("KMER_TPU_DEBUG", "1")
-    with pytest.raises(AssertionError, match="KMER_TPU_DEBUG: Pallas/XLA "
-                       "histogram mismatch: bin 255 holds 0 against 1"):
-        t.hist(256, None)
+    before = TC.DEBUG_CHECKS["hist"]
+    got, got_nd = t.hist(*bins_cfg)
+    assert np.array_equal(got, want) and got_nd == want_nd
+    assert TC.DEBUG_CHECKS["hist"] == before + 1
 
 
 # -- the tools under the switch ----------------------------------------

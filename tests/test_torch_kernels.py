@@ -264,6 +264,130 @@ def test_segment_hist_matches_jax_hist_impl(n, bins_cfg, has_counts, tail):
         assert int(nd) == 1
 
 
+# segment totals at the edges of the uint32 count width, and below them
+U32_EDGES = (1 << 31, 0x90000000, (1 << 32) - 1, 1 << 32, (1 << 32) + 3,
+             (1 << 31) - 1, 5)
+
+
+def _edge_plane(rng, final, n=512 * 128 * 2):
+    """Sorted (hi, lo) uint32 planes and uint32 weights of n lanes: short
+    segments of small weights, each edge total three times in a segment
+    of 2-4 lanes of random uint32 weights, the edge after `final` in a
+    segment of 300 lanes across the Pallas tile edge at lane 65536, and a
+    final open run with total
+    `final` (or a sentinel tail when `final` is None, whose own total
+    lies in [2^31, 2^32) and must never count)."""
+    lens, totals = [], []
+    edges = [t for t in U32_EDGES for _ in range(3)]
+    rng.shuffle(edges)
+    marks = sorted(rng.integers(0, n - 2000, size=len(edges)).tolist())
+    pos, cross = 0, U32_EDGES[(U32_EDGES.index(final) + 1) % len(U32_EDGES)
+                              if final is not None else 0]
+
+    def seg(length, total=None):
+        lens.append(length)
+        totals.append(total)
+        return pos + length
+
+    while pos < n - 1000:
+        if pos > 65536 - 400 and cross is not None:
+            pos = seg(65536 - 150 - pos)  # background up to the crossing
+            pos, cross = seg(300, cross), None
+        elif marks and pos >= marks[0]:
+            marks.pop(0)
+            pos = seg(int(rng.integers(2, 5)), edges.pop())
+        else:
+            pos = seg(int(rng.integers(1, 9)))
+    assert not edges and cross is None
+    seg(n - pos, final if final is not None else 0xC0000000)
+    w = np.empty(n, np.uint64)
+    at = 0
+    for length, total in zip(lens, totals):
+        if total is None:
+            w[at:at + length] = rng.integers(1, 7, size=length)
+        else:
+            r = rng.integers(0, 1 << 32, size=length, dtype=np.uint64)
+            r[-1] = (total - int(r[:-1].sum())) % (1 << 32)
+            w[at:at + length] = r
+        at += length
+    u = np.repeat(np.arange(len(lens), dtype=np.uint64)
+                  * np.uint64(2654435761), lens)
+    if final is None:
+        u[-lens[-1]:] = U64_SENT
+    return ((u >> np.uint64(32)).astype(np.uint32), u.astype(np.uint32),
+            w.astype(np.uint32))
+
+
+def _u32_model(u, w, bins_cfg):
+    """numpy, uint32 arithmetic: each lane's bin (of the segment that
+    ended at the lane before, as _hist_xla_core bins a total), the
+    segments' uint32 totals and whether each is a sentinel's."""
+    n_bins, max_count, min_keep = bins_cfg
+    starts = np.flatnonzero(np.r_[True, u[1:] != u[:-1]])
+    tot = np.add.reduceat(w.astype(np.uint64), starts) & np.uint64(0xFFFFFFFF)
+    b = np.where(tot >= min_keep, np.minimum(
+        tot, min(max_count or n_bins, n_bins - 1)), 0)
+    b[u[starts] == U64_SENT] = 0
+    bins = np.zeros(u.size, np.int64)
+    bins[starts[1:]] = b[:-1]
+    return bins, tot.astype(np.int64), u[starts] == U64_SENT
+
+
+@pytest.mark.parametrize("final", [*U32_EDGES, None])
+@pytest.mark.parametrize("bins_cfg", [(256, None, 1), (256, 255, 2),
+                                      (1024, 1023, 2)])
+def test_segment_hist_u32_totals_match_xla(final, bins_cfg):
+    """Weighted totals at 2^31, 0x90000000, 2^32 - 1, 2^32 (wraps to 0),
+    2^32 + 3 (bin 3) and below 2^31, in short segments, across the Pallas
+    tile edge and as the final open run: the port's per-lane bins and
+    final run == a numpy uint32 model, its histogram (plain and the CPU
+    wrapper) == JAX `_hist_impl` (the XLA form, which reads the totals as
+    uint32).  JAX's Pallas form (interpret) sums int32 and drops exactly
+    the segments whose total lies in [2^31, 2^32): its lanes differ from
+    the model there and nowhere else, and its histogram lacks them in
+    the last bin.  Exact."""
+    from kmer_tpu.kernels.seghist import segment_bins_sorted
+    from kmer_tpu.table.compactor import _hist_impl, _hist_impl_tpu
+
+    n_bins, max_count, min_keep = bins_cfg
+    rng = np.random.default_rng(n_bins + min_keep + U32_EDGES.index(final)
+                                if final is not None else n_bins)
+    hi, lo, w = _edge_plane(rng, final)
+    u = (hi.astype(np.uint64) << np.uint64(32)) | lo
+    want_bins, tot, sent = _u32_model(u, w, bins_cfg)
+    k = keys.from_hi_lo(hi, lo)
+    tw = torch.from_numpy(w.view(np.int32))
+    bins, fin = seghist.segment_bins_sorted_plain(k, tw, bins_cfg)
+    assert np.array_equal(bins.numpy().astype(np.int64), want_bins)
+    assert int(fin[0]) == int(k[-1]) and int(fin[1]) == int(tot[-1])
+    args = dict(n_bins=n_bins, max_count=max_count, min_keep=min_keep,
+                has_counts=True)
+    planes = (jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(w))
+    want, want_nd = _hist_impl(*planes, **args)
+    want = np.asarray(want).astype(np.int64)
+    for fn in (seghist.segment_hist_sorted_plain, seghist.segment_hist_sorted):
+        hist, nd = fn(k, tw, bins_cfg)
+        assert np.array_equal(hist.numpy(), want)
+        assert int(nd) == int(want_nd)
+    # the wide totals: in the last bin here, dropped by the Pallas form
+    wide = (tot >= 1 << 31) & ~sent
+    assert wide[:-1].sum() >= 9 and want[-1] >= wide.sum()
+    with pltpu.force_tpu_interpret_mode():
+        pb, pf = segment_bins_sorted(*planes, weighted=True, tile_rows=512,
+                                     bins_cfg=bins_cfg)
+        tpu, tpu_nd = _hist_impl_tpu(*planes, **args)
+    ends = np.flatnonzero(np.r_[u[1:] != u[:-1], False]) + 1
+    differ = np.zeros(u.size, bool)
+    differ[ends[wide[:-1]]] = True
+    assert np.array_equal(np.asarray(pb).astype(np.int64) != want_bins,
+                          differ)
+    assert int(np.asarray(pf)[2]) == int(np.int64(tot[-1]).astype(np.int32))
+    drop = np.zeros(n_bins, np.int64)
+    drop[-1] = wide.sum()
+    assert np.array_equal(np.asarray(tpu).astype(np.int64), want - drop)
+    assert int(tpu_nd) == int(want_nd) - wide.sum()
+
+
 def test_segment_hist_small_cases():
     """n = 1, an all-sentinel plane, and a final run below min_keep."""
     one = torch.tensor([5], dtype=torch.int64)
