@@ -65,10 +65,11 @@ Phases, each printing its own lines:
               must equal theirs, every block must take the structural
               step (its mask elided), extract, the int64 merge path and
               seghist (and the (key, index) merge path for yak-count)
-              must launch; prints wall, Mbases/s, upload_bytes and
-              upload_s beside phase 4's, and the unpack's device time a
-              10 Mbase block (masked and structural, each equal to the
-              ASCII reader's block) beside its byte bound
+              must launch; prints wall, Mbases/s beside phase 4's, the
+              bytes staged (the `reader.stage` spans of a second,
+              untimed pass with the port's tracer on), and the unpack's
+              device time a 10 Mbase block (masked and structural, each
+              equal to the ASCII reader's block) beside its byte bound
   8. onepl    kc-c4 -k15 (one-plane keys) on 32 Mbases under the 64 MiB
               budget, kernels vs plain; the int32 merge-path kernels must
               launch in it, the int64 and (key, index) ones not
@@ -268,6 +269,30 @@ def need(cond, msg):
 
 def say(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
+
+
+def stats_line(st) -> str:
+    """A count loop's IngestStats in one line."""
+    return (f"loop {st.loop_s:.2f}s (reader {st.reader_s:.2f}s, main wait "
+            f"{st.wait_s:.2f}s, dispatch {st.dispatch_s:.2f}s)")
+
+
+def staged(fn):
+    """Call fn() with the port's tracer (kmer_tpu_torch/utils/trace.py)
+    on, in a pass of its own that nothing times: the bytes and seconds
+    of its `reader.stage` spans."""
+    from kmer_tpu_torch.utils import trace
+
+    trace.clear()
+    trace.enable(True)
+    try:
+        fn()
+    finally:
+        trace.enable(False)
+    rec = [s for s in trace.spans() if s.name == "reader.stage"]
+    trace.clear()
+    return {"bytes": sum(s.attrs["bytes"] for s in rec),
+            "s": sum(s.t1 - s.t0 for s in rec)}
 
 
 # -- timing -------------------------------------------------------------
@@ -1642,7 +1667,7 @@ def phase_e2e(seed):
         f"{bases / 1e6 / wall:.2f} Mbases/s, {eng.total_kmers} k-mers, "
         f"{n_distinct} distinct (bins 1..255), peak device memory "
         f"{peak:.2f} GiB")
-    say("e2e", f"IngestStats: {eng.stats.report()}; finalize (hist) "
+    say("e2e", f"IngestStats: {stats_line(eng.stats)}; finalize (hist) "
         f"{wall - eng.stats.loop_s:.3f} s")
     say("e2e", f"launches in this run: {json.dumps(launches)}")
     need(all(launches[name] > 0 for name in KC_PATH_KERNELS),
@@ -1659,7 +1684,7 @@ def phase_e2e(seed):
     pwall = time.perf_counter() - t0
     need(out == want, "kc-c4 with kernels != the plain versions on the card")
     say("e2e", f"plain versions on the card: same output, {pwall:.3f} s = "
-        f"{bases / 1e6 / pwall:.2f} Mbases/s ({plain.stats.report()})")
+        f"{bases / 1e6 / pwall:.2f} Mbases/s ({stats_line(plain.stats)})")
     return {"launches": launches, "out": out, "wall": wall,
             "stats": eng.stats, "peak": peak}
 
@@ -1902,7 +1927,7 @@ def phase_yak(seed):
         f"shrinking, {tap.tot} admitted in pass 1, {n_batches} batches, "
         f"peak device memory {peak:.2f} GiB, tap budget trips "
         f"{tap.budget_trips}")
-    say("yak", f"IngestStats: {eng.stats.report()}; tap finalize "
+    say("yak", f"IngestStats: {stats_line(eng.stats)}; tap finalize "
         f"{tap.finish_s:.3f} s; engine finalize (hist) "
         f"{wall - eng.stats.loop_s - tap.finish_s:.3f} s")
     say("yak", f"launches in this run: {json.dumps(launches)}")
@@ -1991,7 +2016,6 @@ def phase_packed(seed, e2e, yak):
     import torch
 
     from kmer_tpu_torch.kernels import _build
-    from kmer_tpu_torch.tools import yak_count
 
     path = reads_file(MBASES, seed)
     bases = MBASES * 1_000_000 // READ_LEN * READ_LEN
@@ -2004,7 +2028,9 @@ def phase_packed(seed, e2e, yak):
         out = run_kc_c4([f"-k{K}", path])
         wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
-    st, st4 = made[0].stats, e2e["stats"]
+    with packed_ingest():
+        kc_staged = staged(lambda: run_kc_c4([f"-k{K}", path]))
+    st = made[0].stats
     need(out == e2e["out"], "kc-c4 packed != kc-c4 ASCII (phase 4)")
     need(steps["masked"] == 0 and steps["structural"] > 0,
          f"kc-c4 packed: not every block was structural ({steps})")
@@ -2017,20 +2043,20 @@ def phase_packed(seed, e2e, yak):
     say("packed", f"kc-c4 -k{K} {MBASES} Mbases packed: same output as "
         f"phase 4, {steps['structural']} blocks all structural; {wall:.3f} "
         f"s = {bases / 1e6 / wall:.2f} Mbases/s (ASCII {e2e['wall']:.3f} s "
-        f"= {bases / 1e6 / e2e['wall']:.2f}); upload_bytes "
-        f"{st.upload_bytes} in {st.upload_s:.3f} s (ASCII "
-        f"{st4.upload_bytes} in {st4.upload_s:.3f} s, ratio "
-        f"{st.upload_bytes / st4.upload_bytes:.4f})")
-    say("packed", f"IngestStats: {st.report()}")
+        f"= {bases / 1e6 / e2e['wall']:.2f}); staged {kc_staged['bytes']} "
+        f"bytes ({kc_staged['bytes'] / bases:.4f} a base) in "
+        f"{kc_staged['s']:.3f} s (a second pass, traced)")
+    say("packed", f"IngestStats: {stats_line(st)}")
     say("packed", f"launches in this run: {json.dumps(launches)}")
 
     _build.reset_launches()
-    with packed_ingest(), counting_packed_steps() as ysteps, \
-            recording_engines(yak_count) as ymade:
+    with packed_ingest(), counting_packed_steps() as ysteps:
         t0 = time.perf_counter()
         got = run_tool("yak-count", [*YAK_ARGS, path])
         ywall = time.perf_counter() - t0
     ylaunches = dict(_build.LAUNCHES)
+    with packed_ingest():
+        ystaged = staged(lambda: run_tool("yak-count", [*YAK_ARGS, path]))
     need(got == yak["got"], "yak-count packed != yak-count ASCII (phase 6: "
          "stdout or [M lines)")
     need(ysteps["masked"] == 0 and ysteps["structural"] > 0,
@@ -2044,7 +2070,7 @@ def phase_packed(seed, e2e, yak):
     say("packed", f"yak-count {' '.join(YAK_ARGS)} packed: same stdout and "
         f"{len(got[1])} [M lines as phase 6; {ywall:.3f} s = "
         f"{bases / 1e6 / ywall:.2f} Mbases/s (ASCII {yak['wall']:.3f} s); "
-        f"upload_bytes {ymade[0].stats.upload_bytes}")
+        f"staged {ystaged['bytes']} bytes (a second pass, traced)")
     say("packed", f"launches in this run: {json.dumps(ylaunches)}")
 
     rows, n, rb = unpack_rows(path)
@@ -2461,7 +2487,7 @@ def phase_yak2(seed):
         f"{total} distinct after shrinking, pass 1 {first}, peak device "
         f"memory {peak:.2f} GiB (bits array 2^{eng.bf_shift} bytes)")
     for i, st in enumerate(eng.stats, 1):
-        say("yak2", f"pass {i} IngestStats: {st.report()}")
+        say("yak2", f"pass {i} IngestStats: {stats_line(st)}")
     # bounds, bytes at HBM_BYTES_PER_S: insert_sequential reads each key
     # (8 B) and valid flag (1 B), reads and writes each probe's byte,
     # writes each verdict (1 B); the join reads A's keys (8 B) and B's
@@ -3192,7 +3218,7 @@ def phase_mesh(seed, out):
         f"(phase 4, one engine: {e2e_wall:.3f} s = "
         f"{bases / 1e6 / e2e_wall:.2f} Mbases/s), same stdout, "
         f"{eng.total_kmers} k-mers, peak device memory {peak:.2f} GiB")
-    say("mesh", f"IngestStats: {eng.stats.report()}; finalize (hist) "
+    say("mesh", f"IngestStats: {stats_line(eng.stats)}; finalize (hist) "
         f"{wall - eng.stats.loop_s:.3f} s; steps of {eng.n_dev} rows of "
         f"{eng.row_bases} bases")
     say("mesh", f"launches in this run (kc-c4 -k{K}): "
@@ -3208,7 +3234,7 @@ def phase_mesh(seed, out):
     need(same, "one engine at the mesh's block size != the mesh")
     say("mesh", f"one engine with {eng.row_bases}-base blocks: same "
         f"stdout, {owall:.3f} s = {bases / 1e6 / owall:.2f} Mbases/s "
-        f"({one.stats.report()})")
+        f"({stats_line(one.stats)})")
     del one
     ms, n_in, n_out, bound = mesh_route_ms(path, eng)
     say("mesh", f"routing + exchange of one step ({n_in} lanes in, {n_out} "
@@ -3390,9 +3416,23 @@ import torch.distributed as dist
 from kmer_tpu_torch.kernels import _build
 from kmer_tpu_torch.pipeline import counter
 from kmer_tpu_torch.tools import get_tool, kc
+from kmer_tpu_torch.utils import trace
+from chip_smoke import stats_line
 _build.library()
 K = spec["k"]
 POLICY = ("resume", K, 3)
+# the tracer is on for every item, timed part included: each item's
+# exchanges are its mesh.exchange spans
+trace.enable(True)
+
+
+def exchanges():
+    # steps, host seconds and bytes of the mesh.exchange spans recorded
+    # since the store was last emptied; empties it
+    rec = [s for s in trace.spans() if s.name == "mesh.exchange"]
+    trace.clear()
+    return {"steps": len(rec), "s": sum(s.t1 - s.t0 for s in rec),
+            "bytes": sum(s.attrs["bytes"] for s in rec)}
 
 
 def barrier():
@@ -3419,7 +3459,7 @@ def run(item):
         h = kc._run_counter(item["paths"], K, 1023, qual_policy=POLICY)
         assert isinstance(h.eng, multihost.MultihostSortEngine), h.eng
         return {"out": hist_text(h.eng), "bases": h.eng.total_bases,
-                "stats": h.eng.stats.report()}
+                "stats": stats_line(h.eng.stats)}
     if kind == "kc_plain":
         eng = multihost.MultihostSortEngine(K, qual_policy=POLICY,
                                             plain_kernels=True)
@@ -3457,13 +3497,13 @@ def run(item):
         times = []
         for _ in range(6):
             barrier()
-            e0 = dict(sharded.EXCHANGE)
+            trace.clear()
             t0 = time.perf_counter()
             sharded.all_to_all(routed, eng.mesh)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         return {"ms": sum(times[1:]) / 5 * 1e3,
-                "bytes": sharded.EXCHANGE["bytes"] - e0["bytes"],
+                "bytes": exchanges()["bytes"],
                 "lanes": sum(int(k.shape[0]) for k in keys),
                 "row_bases": eng.row_bases}
     raise ValueError(kind)
@@ -3474,14 +3514,14 @@ for item in spec["items"]:
     barrier()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
-    e0 = dict(sharded.EXCHANGE)
+    trace.clear()
     t0 = time.perf_counter()
     r = run(item)
     torch.cuda.synchronize()
     r["wall"] = time.perf_counter() - t0
     r["launches"] = dict(_build.LAUNCHES)
     r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    r["exchange"] = {k: sharded.EXCHANGE[k] - e0[k] for k in e0}
+    r["exchange"] = exchanges()
     r["name"] = item["name"]
     results.append(r)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "kmer_tpu"))
@@ -3549,13 +3589,16 @@ def run_multiproc(name, items, n_proc=MP_PROCS, shards=MP_SHARDS,
 
 
 def mp_line(r, bases=None):
-    """wall, Mbases/s, peak memory and exchange time a step of an item."""
+    """wall, Mbases/s, peak memory and exchange time a step of an item,
+    run with the port's tracer on (its exchanges are its mesh.exchange
+    spans)."""
     x = r["exchange"]
     rate = f" = {bases / 1e6 / r['wall']:.2f} Mbases/s" if bases else ""
     return (f"{r['wall']:.3f} s{rate}, peak device memory "
             f"{r['peak_gib']:.2f} GiB, {x['steps']} exchanges "
             f"({x['s'] / max(x['steps'], 1) * 1e3:.2f} ms of host wall a "
-            f"step, {x['bytes'] / 1e6:.0f} MB sent + received)")
+            f"step, {x['bytes'] / 1e6:.0f} MB sent + received; tracer "
+            f"on)")
 
 
 def phase_multiproc(seed, out):
@@ -4103,7 +4146,7 @@ def phase_table(seed, out):
         f"{sum(c[1] for c in calls)} probe-lanes over "
         f"{sum(c[2] for c in calls)} lanes")
     for i, st in enumerate(eng.stats, 1):
-        say("table", f"pass {i} IngestStats: {st.report()}")
+        say("table", f"pass {i} IngestStats: {stats_line(st)}")
     say("table", f"launches in this run: {json.dumps(launches)}")
     del made, eng
     gc.collect()

@@ -42,7 +42,6 @@ from __future__ import annotations
 
 import math
 import os
-import time
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -54,6 +53,7 @@ from ..kernels import extract
 from ..kernels.keys import SENT, from_hi_lo, to_hi_lo
 from ..table import count_table as ct
 from ..table.compactor import KmerCompactor, stream_sorted_default
+from ..utils import trace
 
 
 # stream-sorted mode: each shard's run quantum and smallest padded run
@@ -210,11 +210,6 @@ def all_to_all(send: Sequence[Sequence[torch.Tensor]], mesh: Mesh
             for j, dev in enumerate(mesh.devices)]
 
 
-# host seconds, steps and bytes of the cross-process exchange, for the
-# smoke's per-step report
-EXCHANGE = {"steps": 0, "s": 0.0, "bytes": 0}
-
-
 def _exchange(send, mesh: Mesh) -> List[torch.Tensor]:
     """all_to_all across processes.  One all-gather of the lane counts
     (source row x global owner, rows past this process's padded with 0),
@@ -223,8 +218,15 @@ def _exchange(send, mesh: Mesh) -> List[torch.Tensor]:
     arrives from process p splits into one piece an owner, and owner j
     is the concatenation of its pieces in process order.  Under gloo the
     buffers go through pinned host memory; under NCCL they stay on the
-    card."""
-    t0 = time.perf_counter()
+    card.  A `mesh.exchange` span (utils/trace.py) whose `bytes` are
+    those sent and received."""
+    with trace.span("mesh.exchange") as sp:
+        out, nbytes = _exchange_lanes(send, mesh)
+        sp.set(bytes=nbytes)
+    return out
+
+
+def _exchange_lanes(send, mesh: Mesh):
     n_proc, n_loc = mesh.n_proc, len(mesh.devices)
     counts = np.zeros((n_loc, mesh.size), np.int64)
     for i, row in enumerate(send):
@@ -254,10 +256,7 @@ def _exchange(send, mesh: Mesh) -> List[torch.Tensor]:
     out = [torch.cat([parts[p * n_loc + j].to(d, non_blocking=True)
                       for p in range(n_proc)])
            for j, d in enumerate(mesh.devices)]
-    EXCHANGE["steps"] += 1
-    EXCHANGE["bytes"] += 8 * (int(buf.shape[0]) + int(recv.shape[0]))
-    EXCHANGE["s"] += time.perf_counter() - t0
-    return out
+    return out, 8 * (int(buf.shape[0]) + int(recv.shape[0]))
 
 
 class ShardedSortEngine:

@@ -9,6 +9,12 @@ the repository root (never beside the sources), named by a hash of the
 sources and the flags, so a changed source builds anew.  Callers check
 `available()` and use the pure-Python readers (io/fastx.py, io/bam.py,
 io/cram.py) when it is False: no g++ or zlib, or KMER_TPU_NO_NATIVE set.
+
+Each block call of the FASTQ/FASTA reader is a `reader.block` span
+(utils/trace.py) under the count loop's span `parent`, with the deltas of
+the reader's native counters (`ktp_stats`) over the call: `inflate_ns`
+(the decoder) and `native_ns` (the whole call: the decoder, the record
+scan and copy, the 2-bit pack).
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 
 from ...kernels._build import BUILD_DIR
+from ...utils import trace
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRCS = [os.path.join(_HERE, name) for name in
@@ -92,6 +99,8 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.ktp_read_block.argtypes = [
             ctypes.c_void_p, u8p, ctypes.c_int64, ctypes.c_int32,
             ctypes.c_int64, i64p, i64p, i64p, i64p]
+        lib.ktp_stats.restype = None
+        lib.ktp_stats.argtypes = [ctypes.c_void_p, i64p]
         lib.ktp_set_policy.argtypes = [
             ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64, ctypes.c_int64,
             ctypes.c_int64]
@@ -116,8 +125,28 @@ def available() -> bool:
     return _load() is not None
 
 
+class _Counters:
+    """A reader handle's ktp_stats, read after each block call: the
+    deltas go into the call's `reader.block` span."""
+
+    KEYS = ("inflate_ns", "native_ns")
+
+    def __init__(self, lib, h):
+        self.lib, self.h = lib, h
+        self.now = np.zeros(len(self.KEYS), np.int64)
+        self.ptr = self.now.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+
+    def into(self, sp) -> None:
+        if not sp:
+            return
+        was = self.now.copy()
+        self.lib.ktp_stats(self.h, self.ptr)
+        sp.set(**dict(zip(self.KEYS, (self.now - was).tolist())))
+
+
 def iter_packed_native(
-    paths, k: int, block_bases: int, capacity: int, qual_policy=None
+    paths, k: int, block_bases: int, capacity: int, qual_policy=None,
+    parent=trace.NULL,
 ) -> Iterator[Tuple[np.ndarray, int, int, int, Optional[int], bool]]:
     """Yield (ascii_u8[capacity], n_bytes_used, n_bases, n_seqs,
     row_bytes, batch_end) per buffer: n_bytes_used is the buffer layout
@@ -125,7 +154,7 @@ def iter_packed_native(
     halo is not counted again), row_bytes is L+1 when every packed read
     had length L, else None, and batch_end flags the end of one
     reference pipeline batch (yak-count.c:381-383).  qual_policy as in
-    io.fastx.FastxReader."""
+    io.fastx.FastxReader; `parent`, the count loop's span."""
     lib = _load()
     assert lib is not None
     u8p = ctypes.POINTER(ctypes.c_uint8)
@@ -137,14 +166,18 @@ def iter_packed_native(
             lib.ktp_set_policy(h, 1, block_bases, qual_policy[1],
                                qual_policy[2])
         try:
+            stats = _Counters(lib, h)
             while True:
                 buf = np.zeros(capacity, np.uint8)
                 n_seqs, n_bases = ctypes.c_int64(), ctypes.c_int64()
                 row_bytes, batch_end = ctypes.c_int64(), ctypes.c_int64()
-                used = lib.ktp_read_block(
-                    h, buf.ctypes.data_as(u8p), capacity, k, block_bases,
-                    ctypes.byref(n_seqs), ctypes.byref(n_bases),
-                    ctypes.byref(row_bytes), ctypes.byref(batch_end))
+                with trace.span("reader.block", parent) as sp:
+                    used = lib.ktp_read_block(
+                        h, buf.ctypes.data_as(u8p), capacity, k,
+                        block_bases, ctypes.byref(n_seqs),
+                        ctypes.byref(n_bases), ctypes.byref(row_bytes),
+                        ctypes.byref(batch_end))
+                    stats.into(sp)
                 if used <= 0:
                     break
                 yield (buf, int(used), int(n_bases.value),
@@ -155,7 +188,8 @@ def iter_packed_native(
 
 
 def iter_packed2bit_native(
-    paths, k: int, block_bases: int, capacity: int, qual_policy=None
+    paths, k: int, block_bases: int, capacity: int, qual_policy=None,
+    parent=trace.NULL,
 ) -> Iterator[Tuple[np.ndarray, np.ndarray, int, int, int, Optional[int],
                     bool]]:
     """Bit-packed form of iter_packed_native: yields (packed_u8[cap/4],
@@ -178,16 +212,19 @@ def iter_packed2bit_native(
             lib.ktp_set_policy(h, 1, block_bases, qual_policy[1],
                                qual_policy[2])
         try:
+            stats = _Counters(lib, h)
             while True:
                 packed = np.zeros(capacity // 4, np.uint8)
                 mask = np.zeros(capacity // 8, np.uint8)
                 n_seqs, n_bases = ctypes.c_int64(), ctypes.c_int64()
                 row_bytes, batch_end = ctypes.c_int64(), ctypes.c_int64()
-                used = lib.ktp_read_block_packed(
-                    h, packed.ctypes.data_as(u8p), mask.ctypes.data_as(u8p),
-                    capacity, k, block_bases, ctypes.byref(n_seqs),
-                    ctypes.byref(n_bases), ctypes.byref(row_bytes),
-                    ctypes.byref(batch_end))
+                with trace.span("reader.block", parent) as sp:
+                    used = lib.ktp_read_block_packed(
+                        h, packed.ctypes.data_as(u8p),
+                        mask.ctypes.data_as(u8p), capacity, k, block_bases,
+                        ctypes.byref(n_seqs), ctypes.byref(n_bases),
+                        ctypes.byref(row_bytes), ctypes.byref(batch_end))
+                    stats.into(sp)
                 if used <= 0:
                     break
                 yield (packed, mask, int(used), int(n_bases.value),

@@ -11,6 +11,12 @@
 // (k-1)-overlap chunks so no k-mer window is lost or duplicated.
 //
 // C ABI for ctypes.
+//
+// Each Reader keeps two plain int64 counters, always on (ktp_stats): the
+// nanoseconds in the decoder (gzread, or libdeflate where it is built,
+// file reads included) and the nanoseconds inside ktp_read_block and
+// ktp_read_block_packed.  Two steady_clock reads a decoder fill (1 MiB
+// of text through zlib) and two a block call.
 
 #include <sys/stat.h>
 #include <zlib.h>
@@ -24,6 +30,7 @@
 #define KTP_X86 1
 #endif
 
+#include <chrono>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
@@ -35,6 +42,12 @@
 namespace {
 
 constexpr size_t kChunk = 1 << 20;
+
+int64_t now_ns() {
+  return std::chrono::duration_cast<std::chrono::nanoseconds>(
+             std::chrono::steady_clock::now().time_since_epoch())
+      .count();
+}
 
 // Reusable big-buffer arena.  Each Reader allocates GB-scale buffers
 // (whole compressed file + whole decompressed member + block staging);
@@ -84,6 +97,10 @@ struct Reader {
   std::string& buf = ar->buf;  // unconsumed raw bytes
   size_t pos = 0;              // cursor into buf
   bool eof = false;
+
+  // ktp_stats' counters
+  int64_t inflate_ns = 0;  // in the decoder
+  int64_t native_ns = 0;   // in ktp_read_block / ktp_read_block_packed
   std::vector<uint8_t>& scratch = ar->scratch;  // packed-path staging
 
   // --- libdeflate whole-member path (gzip files only) ---------------
@@ -223,10 +240,17 @@ struct Reader {
   bool fill() {
     if (eof) return false;
 #if defined(KTP_HAVE_LIBDEFLATE)
-    if (ld) return fill_libdeflate();
+    if (ld) {
+      int64_t t0 = now_ns();
+      bool ok = fill_libdeflate();
+      inflate_ns += now_ns() - t0;
+      return ok;
+    }
 #endif
     char tmp[kChunk];
+    int64_t t0 = now_ns();
     int n = gzread(fp, tmp, kChunk);
+    inflate_ns += now_ns() - t0;
     if (n <= 0) {
       eof = true;
       return false;
@@ -417,6 +441,10 @@ int64_t pack_avx2(const uint8_t* s, int64_t used, uint8_t* packed,
 }
 #endif
 
+int64_t read_block(Reader* r, uint8_t* out, int64_t capacity, int32_t k,
+                   int64_t target_bases, int64_t* n_seqs, int64_t* n_bases,
+                   int64_t* row_bytes, int64_t* batch_end);
+
 }  // namespace
 
 extern "C" {
@@ -525,6 +553,29 @@ int64_t ktp_read_block(void* h, uint8_t* out, int64_t capacity, int32_t k,
                        int64_t* n_bases, int64_t* row_bytes,
                        int64_t* batch_end) {
   auto* r = static_cast<Reader*>(h);
+  int64_t t0 = now_ns();
+  int64_t used = read_block(r, out, capacity, k, target_bases, n_seqs,
+                            n_bases, row_bytes, batch_end);
+  r->native_ns += now_ns() - t0;
+  return used;
+}
+
+// The Reader's counters, cumulative since ktp_open: out[0] nanoseconds
+// in the decoder, out[1] nanoseconds inside the block calls (the decoder
+// included).
+void ktp_stats(void* h, int64_t* out) {
+  auto* r = static_cast<Reader*>(h);
+  out[0] = r->inflate_ns;
+  out[1] = r->native_ns;
+}
+
+}  // extern "C"
+
+namespace {
+
+int64_t read_block(Reader* r, uint8_t* out, int64_t capacity, int32_t k,
+                   int64_t target_bases, int64_t* n_seqs, int64_t* n_bases,
+                   int64_t* row_bytes, int64_t* batch_end) {
   int64_t used = 0;
   *n_seqs = 0;
   *n_bases = 0;
@@ -597,6 +648,10 @@ int64_t ktp_read_block(void* h, uint8_t* out, int64_t capacity, int32_t k,
   return used;
 }
 
+}  // namespace
+
+extern "C" {
+
 // Packed variant of ktp_read_block for bandwidth-limited host->device
 // links: emits 2-bit base codes (A/C/G/T -> 0..3, 4 per byte,
 // little-endian within the byte) plus a 1-bit-per-base invalid mask
@@ -613,11 +668,14 @@ int64_t ktp_read_block_packed(void* h, uint8_t* packed, uint8_t* mask,
                               int64_t* n_bases, int64_t* row_bytes,
                               int64_t* batch_end) {
   auto* r = static_cast<Reader*>(h);
+  int64_t t0 = now_ns();
   if ((int64_t)r->scratch.size() < capacity) r->scratch.resize(capacity);
-  int64_t used = ktp_read_block(h, r->scratch.data(), capacity, k,
-                                target_bases, n_seqs, n_bases, row_bytes,
-                                batch_end);
-  if (used <= 0) return used;
+  int64_t used = read_block(r, r->scratch.data(), capacity, k, target_bases,
+                            n_seqs, n_bases, row_bytes, batch_end);
+  if (used <= 0) {
+    r->native_ns += now_ns() - t0;
+    return used;
+  }
   static uint8_t nt4[256];
   static bool init = false;
   if (!init) {
@@ -649,6 +707,7 @@ int64_t ktp_read_block_packed(void* h, uint8_t* packed, uint8_t* mask,
   for (i = used; i < capacity && (i & 7); ++i)
     mask[i >> 3] |= (uint8_t)(1u << (i & 7));
   if (i < capacity) memset(mask + (i >> 3), 0xFF, (capacity - i) >> 3);
+  r->native_ns += now_ns() - t0;
   return used;
 }
 

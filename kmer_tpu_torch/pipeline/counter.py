@@ -21,6 +21,13 @@ processes it picks dist/multihost.py's MultihostSortEngine.
 The port imports nothing of kmer_tpu, so the JAX counter's host helpers
 (_iter_packed, _iter_packed2, _trim_to_class, _prefetch, _timed_iter,
 IngestStats) are ported here rather than imported.
+
+Spans (utils/trace.py): a count loop is `count.loop` (`lanes_added`:
+the lanes appended to the compactor); under it, in the
+reader thread, `reader.block` (io/native) and `reader.stage` (`bytes`
+staged), and in the main thread `ingest.wait` (blocked on the reader)
+and `ingest.dispatch` (issuing the copy, extraction and compactor work),
+whose times are IngestStats.wait_s and dispatch_s.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from ..io import fastx, native, packing
 from ..kernels import extract
 from ..kernels.keys import from_hi_lo, to_hi_lo
 from ..table.compactor import KmerCompactor, stream_sorted_default
+from ..utils import trace
 
 # the open-addressing tables' load factor (counter.py:36): the yak table
 # engines grow before a batch could push FULL + DELETED slots past it
@@ -53,43 +61,21 @@ class IngestStats:
     """Per-stage wall accounting for one count_paths run.
 
     All fields are thread-seconds except loop_s (main-thread wall):
-      reader_s    reader time (decompress + parse + pack), in the
-                  prefetch thread
-      upload_s    host time staging blocks (into pinned memory for a
-                  CUDA engine), in the prefetch thread; the non-blocking
-                  host->device copy is issued within dispatch
-      upload_bytes  bytes moved to the device
+      reader_s    reader time (decompress + parse + pack, and the Python
+                  side of each block), in the prefetch thread
       wait_s      main-thread time blocked on the reader
       dispatch_s  main-thread time dispatching device work, including
-                  the stream throttle's waits (throttle_s)
+                  the stream throttle's waits (`compactor.throttle`
+                  spans) and budget-trip compactions
+                  (`compactor.compact`)
+    Staging's time and bytes are the `reader.stage` spans'.
     """
 
     def __init__(self):
         self.reader_s = 0.0
-        self.upload_s = 0.0
-        self.upload_bytes = 0
         self.wait_s = 0.0
         self.dispatch_s = 0.0
-        self.throttle_s = 0.0  # subset of dispatch_s: backpressure waits
         self.loop_s = 0.0
-        self._lock = threading.Lock()
-
-    def add_upload(self, nbytes: int, dt: float) -> None:
-        with self._lock:
-            self.upload_s += dt
-            self.upload_bytes += nbytes
-
-    def report(self) -> str:
-        up_mb = self.upload_bytes / 1e6
-        per_stream = up_mb / self.upload_s if self.upload_s else 0.0
-        thr = f", of which throttle wait {self.throttle_s:.2f}s" \
-            if self.throttle_s else ""
-        return (
-            f"loop {self.loop_s:.2f}s (reader {self.reader_s:.2f}s, "
-            f"upload {up_mb:.0f} MB @ {per_stream:.1f} MB/s/stream, "
-            f"main wait {self.wait_s:.2f}s, "
-            f"dispatch {self.dispatch_s:.2f}s{thr})"
-        )
 
 
 def _timed_iter(it, stats: IngestStats):
@@ -124,17 +110,18 @@ def native_reader() -> bool:
 
 def _iter_packed(
     paths: Sequence[str], k: int, block_bases: int, capacity: int,
-    qual_policy=None,
+    qual_policy=None, parent=trace.NULL,
 ) -> Iterator[Tuple[np.ndarray, int, int, Optional[int], bool]]:
     """Yield (ascii_u8[<=capacity], n_bases, n_seqs, row_bytes,
     batch_end), exactly as kmer_tpu/pipeline/counter.py:117-178:
     n_bases/n_seqs are true per-read totals, row_bytes is L+1 when every
     read in the buffer has length L, batch_end marks the end of one
-    reference pipeline batch.  Uses the native C++ reader when it builds,
-    the pure-Python reader otherwise."""
+    reference pipeline batch.  Uses the native C++ reader when it builds
+    (its block calls are `reader.block` spans under `parent`), the
+    pure-Python reader otherwise."""
     if all(p != "-" for p in paths) and native_reader():
         for buf, used, n_bases, n_seqs, rb, be in native.iter_packed_native(
-            paths, k, block_bases, capacity, qual_policy
+            paths, k, block_bases, capacity, qual_policy, parent
         ):
             yield _trim_to_class(buf, used), n_bases, n_seqs, rb, be
         return
@@ -180,7 +167,7 @@ def _use_packed_ingest(paths) -> bool:
 
 
 def _iter_packed2(paths, k: int, block_bases: int, capacity: int,
-                  qual_policy=None):
+                  qual_policy=None, parent=trace.NULL):
     """Packed-ingest form of _iter_packed (kmer_tpu/pipeline/counter.py:
     201-231): yields (packed, mask, n_bytes_used, n_bases, n_seqs,
     row_bytes, batch_end) with the buffers trimmed to the smallest size
@@ -194,7 +181,7 @@ def _iter_packed2(paths, k: int, block_bases: int, capacity: int,
     from (n, row_bytes) and the block moves 0.25 bytes a base."""
     for packed, mask, n, n_bases, n_seqs, rb, be in (
             native.iter_packed2bit_native(
-                paths, k, block_bases, capacity, qual_policy)):
+                paths, k, block_bases, capacity, qual_policy, parent)):
         for cls in (1 << 16, 1 << 20, 1 << 23):
             if n <= cls < 4 * packed.shape[0]:
                 packed, mask = packed[: cls // 4], mask[: cls // 8]
@@ -233,22 +220,23 @@ def _prefetch(it, depth=2):
         yield item
 
 
-def _stage(item, pin: bool, stats: IngestStats):
+def _stage(item, pin: bool, parent=trace.NULL):
     """Wrap a reader item's arrays (the ASCII buffer, or the packed codes
     and the mask when there is one) as tensors; for a CUDA engine, copy
     them into pinned host memory (in the reader thread) so the
-    host->device copies can run asynchronously.  upload_bytes counts the
-    arrays' bytes, as kmer_tpu/pipeline/counter.py:265-277 does."""
-    t0 = time.perf_counter()
-    nbytes, out = 0, []
-    for x in item:
-        if isinstance(x, np.ndarray):
-            nbytes += x.nbytes
-            x = torch.from_numpy(x)
-            if pin:
-                x = x.pin_memory()
-        out.append(x)
-    stats.add_upload(nbytes, time.perf_counter() - t0)
+    host->device copies can run asynchronously.  A `reader.stage` span
+    under `parent`, whose `bytes` are the arrays' bytes, the bytes
+    kmer_tpu/pipeline/counter.py:265-277 counts as uploaded."""
+    with trace.span("reader.stage", parent) as sp:
+        nbytes, out = 0, []
+        for x in item:
+            if isinstance(x, np.ndarray):
+                nbytes += x.nbytes
+                x = torch.from_numpy(x)
+                if pin:
+                    x = x.pin_memory()
+            out.append(x)
+        sp.set(bytes=nbytes)
     return tuple(out)
 
 
@@ -346,37 +334,38 @@ class InputError(OSError):
 
 
 def _staged_items(it, pin: bool, prefetch: bool, st: IngestStats,
-                  assemble=None):
+                  assemble=None, loop=trace.NULL):
     """Drive a reader iterator: each item's arrays staged (`_stage`, in
     pinned memory when `pin`), `assemble` applied first when given (the
     mesh's step grouping), all of it in a background thread when
     `prefetch`.  The reader's OSError re-raises as InputError; `st` takes
-    the reader, staging and wait times."""
+    the reader and wait times, and the waits are `ingest.wait` spans
+    under the count loop's span `loop`."""
     it = _timed_iter(it, st)
     it = (assemble(it) if assemble is not None
-          else (_stage(item, pin, st) for item in it))
+          else (_stage(item, pin, loop) for item in it))
     if prefetch:
         it = _prefetch(it)
     while True:
-        t0 = time.perf_counter()
         try:
-            item = next(it)
+            with trace.timed("ingest.wait", loop) as w:
+                item = next(it)
         except StopIteration:
-            st.wait_s += time.perf_counter() - t0
+            st.wait_s += w.seconds
             return
         except OSError as e:
             err = InputError(*e.args)
             if e.filename is not None:
                 err.filename = e.filename
             raise err from e
-        st.wait_s += time.perf_counter() - t0
+        st.wait_s += w.seconds
         yield item
 
 
 def _extracted_blocks(paths: Sequence[str], k: int, block_bases: int,
                       capacity: int, qual_policy, device: torch.device,
                       prefetch: bool, extract_flat, extract_rows,
-                      st: IngestStats):
+                      st: IngestStats, loop=trace.NULL):
     """The ingest loop that the count and yak engines share (the port's
     form of kmer_tpu/pipeline/yak.py:209-260): reader (`_iter_packed`,
     or `_iter_packed2` under packed ingest), staging in pinned memory
@@ -385,26 +374,28 @@ def _extracted_blocks(paths: Sequence[str], k: int, block_bases: int,
     (`extract_rows`) when every read of the block has one length and the
     flat form (`extract_flat`) otherwise.  Yields (keys, n_valid,
     n_bases, n_seqs, batch_end) a block, in reader order; `st` takes the
-    reader, staging, wait and dispatch times."""
+    reader, wait and dispatch times, and the spans go under the count
+    loop's span `loop`."""
     packed_mode = _use_packed_ingest(paths)
     it = (_iter_packed2 if packed_mode else _iter_packed)(
-        paths, k, block_bases, capacity, qual_policy)
-    for item in _staged_items(it, device.type == "cuda", prefetch, st):
-        t1 = time.perf_counter()
-        if packed_mode:
-            (row, mask, n_used, n_bases, n_seqs, row_bytes,
-             batch_end) = item
-            aux, ingest = ((n_used, "packed_structural") if mask is None
-                           else (mask.to(device, non_blocking=True),
-                                 "packed"))
-        else:
-            row, n_bases, n_seqs, row_bytes, batch_end = item
-            aux, ingest = None, "ascii"
-        rb = row_bytes if row_bytes and row_bytes > k else None
-        keys, n_kmers = extract_row(row.to(device, non_blocking=True), k,
-                                    rb, aux, ingest, extract_flat,
-                                    extract_rows)
-        st.dispatch_s += time.perf_counter() - t1
+        paths, k, block_bases, capacity, qual_policy, loop)
+    for item in _staged_items(it, device.type == "cuda", prefetch, st,
+                              loop=loop):
+        with trace.timed("ingest.dispatch", loop) as d:
+            if packed_mode:
+                (row, mask, n_used, n_bases, n_seqs, row_bytes,
+                 batch_end) = item
+                aux, ingest = ((n_used, "packed_structural") if mask is None
+                               else (mask.to(device, non_blocking=True),
+                                     "packed"))
+            else:
+                row, n_bases, n_seqs, row_bytes, batch_end = item
+                aux, ingest = None, "ascii"
+            rb = row_bytes if row_bytes and row_bytes > k else None
+            keys, n_kmers = extract_row(row.to(device, non_blocking=True),
+                                        k, rb, aux, ingest, extract_flat,
+                                        extract_rows)
+        st.dispatch_s += d.seconds
         yield keys, n_kmers, n_bases, n_seqs, batch_end
 
 
@@ -414,7 +405,9 @@ def _maybe_profile():
     (host activity, and the card's when there is one) and writes a
     Chrome trace into <dir> when the loop ends, one file a loop
     (trace.<pid>.<ns>.json): the port's form of counter.py:280-296,
-    which captures a jax.profiler trace there."""
+    which captures a jax.profiler trace there.  The trace holds the
+    loop's `kmer.*` spans (utils/trace.py), the reader thread's too where
+    torch's profiler takes every thread (`profile_all_threads`)."""
     out = os.environ.get("KMER_TPU_PROFILE")
     if not out:
         yield
@@ -424,7 +417,13 @@ def _maybe_profile():
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
-    prof = profile(activities=acts)
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+
+        prof = profile(activities=acts, experimental_config=(
+            _ExperimentalConfig(profile_all_threads=True)))
+    except (ImportError, TypeError):  # a torch without the option
+        prof = profile(activities=acts)
     prof.start()
     try:
         yield
@@ -499,25 +498,27 @@ class SortCountEngine:
         it (tools/yak_count.py)."""
         st = self.stats = IngestStats()
         t_loop = time.perf_counter()
-        thr0 = self.compactor.throttle_wait_s
-        with _maybe_profile():
+        lanes = 0
+        with _maybe_profile(), trace.span("count.loop") as loop:
             for keys, n_kmers, n_bases, n_seqs, batch_end in \
                     _extracted_blocks(paths, self.k, self.block_bases,
                                       self.capacity, self.qual_policy,
                                       self.device, self.prefetch,
-                                      self._extract, self._extract_rows, st):
-                t1 = time.perf_counter()
-                self.compactor.add_raw(keys)
-                self.total_bases += int(n_bases)
-                self.total_seqs += n_seqs
-                self._nk_dev.append(n_kmers)
-                if tap is not None:
-                    tap(keys, n_kmers, n_seqs, batch_end)
-                st.dispatch_s += time.perf_counter() - t1
+                                      self._extract, self._extract_rows, st,
+                                      loop):
+                with trace.timed("ingest.dispatch", loop) as d:
+                    self.compactor.add_raw(keys)
+                    lanes += int(keys.shape[0])
+                    self.total_bases += int(n_bases)
+                    self.total_seqs += n_seqs
+                    self._nk_dev.append(n_kmers)
+                    if tap is not None:
+                        tap(keys, n_kmers, n_seqs, batch_end)
+                st.dispatch_s += d.seconds
                 if progress is not None:
                     progress(self)
+            loop.set(lanes_added=lanes)
         st.loop_s = time.perf_counter() - t_loop
-        st.throttle_s = self.compactor.throttle_wait_s - thr0
 
     def hist(self, n_bins: int, max_count=None, min_keep: int = 1):
         h, self._n_distinct = self.compactor.hist(n_bins, max_count, min_keep)
@@ -579,7 +580,7 @@ def use_mesh() -> bool:
 
 
 def _assemble_step(items, k: int, packed_mode: bool, pin: bool,
-                   st: IngestStats):
+                   loop=trace.NULL):
     """One mesh step from up to n_dev reader items (counter.py:723-771):
     (rows, row_bytes, aux, ingest, n_bases, n_seqs), rows staged as
     `_stage` stages a block.  row_bytes is kept only when every row
@@ -603,32 +604,33 @@ def _assemble_step(items, k: int, packed_mode: bool, pin: bool,
                 m = np.packbits((pos % irb == irb - 1) | (pos >= n),
                                 bitorder="little")
             aux.append(m)
-        aux = list(_stage(aux, pin, st))
-    rows = list(_stage([it[0] for it in items], pin, st))
+        aux = list(_stage(aux, pin, loop))
+    rows = list(_stage([it[0] for it in items], pin, loop))
     return (rows, rb if rb and rb > k else None, aux, ingest,
             sum(int(it[3]) for it in items), sum(int(it[4]) for it in items))
 
 
 def mesh_steps(paths: Sequence[str], k: int, row_bases: int, capacity: int,
                qual_policy, n_dev: int, packed_mode: bool, pin: bool,
-               prefetch: bool, st: IngestStats):
+               prefetch: bool, st: IngestStats, loop=trace.NULL):
     """The mesh's reader: n_dev reader items a step, the last step short
     (counter.py:773-804, yak.py:575-598), grouped and staged in the
-    reader thread.  Yields `_assemble_step`'s tuples."""
+    reader thread, its spans under `loop`.  Yields `_assemble_step`'s
+    tuples."""
     it = (_iter_packed2 if packed_mode else _iter_packed)(
-        paths, k, row_bases, capacity, qual_policy)
+        paths, k, row_bases, capacity, qual_policy, loop)
 
     def assemble(items):
         group = []
         for item in items:
             group.append(item)
             if len(group) == n_dev:
-                yield _assemble_step(group, k, packed_mode, pin, st)
+                yield _assemble_step(group, k, packed_mode, pin, loop)
                 group = []
         if group:
-            yield _assemble_step(group, k, packed_mode, pin, st)
+            yield _assemble_step(group, k, packed_mode, pin, loop)
 
-    yield from _staged_items(it, pin, prefetch, st, assemble)
+    yield from _staged_items(it, pin, prefetch, st, assemble, loop)
 
 
 class MeshSortCountEngine:
@@ -671,17 +673,17 @@ class MeshSortCountEngine:
         st = self.stats = IngestStats()
         t_loop = time.perf_counter()
         pin = any(d.type == "cuda" for d in self.mesh.devices)
-        with _maybe_profile():
+        with _maybe_profile(), trace.span("count.loop") as loop:
             for rows, rb, aux, ingest, n_bases, n_seqs in mesh_steps(
                     paths, self.k, self.row_bases, self.capacity,
                     self.qual_policy, self.n_dev, _use_packed_ingest(paths),
-                    pin, self.prefetch, st):
-                t1 = time.perf_counter()
-                self.eng.add_batch(rows, row_bytes=rb, aux=aux,
-                                   ingest=ingest)
-                self.total_bases += n_bases
-                self.total_seqs += n_seqs
-                st.dispatch_s += time.perf_counter() - t1
+                    pin, self.prefetch, st, loop):
+                with trace.timed("ingest.dispatch", loop) as d:
+                    self.eng.add_batch(rows, row_bytes=rb, aux=aux,
+                                       ingest=ingest)
+                    self.total_bases += n_bases
+                    self.total_seqs += n_seqs
+                st.dispatch_s += d.seconds
                 if progress is not None:
                     progress(self)
         st.loop_s = time.perf_counter() - t_loop

@@ -486,9 +486,7 @@ class SortYakEngine:
         pending = False
         st = IngestStats()
         self.stats.append(st)
-        comp = self.comp1 if create_new else self.comp2
         t_loop = time.perf_counter()
-        thr0 = comp.throttle_wait_s
         for keys, _nk, _nb, n_seqs, batch_end in _extracted_blocks(
                 paths, self.k, self.chunk_size, self.capacity_block,
                 ("resume", self.k, 3), self.device, True, self._extract,
@@ -510,7 +508,6 @@ class SortYakEngine:
         if pending:
             self._flush_batch(create_new)
         st.loop_s = time.perf_counter() - t_loop
-        st.throttle_s = comp.throttle_wait_s - thr0
 
     def _flush_batch(self, create_new: bool) -> None:
         if create_new:

@@ -38,6 +38,9 @@ with the shard's owned keys in stream order (dist/sharded.py `route`,
 `all_to_all`), each with its own lane base and step bounds.  The JAX
 package instead sends every device a fixed, sentinel-padded window of
 lanes a step, so that one bounds vector serves all of them.
+
+A block fed to the admission engine is a `yak.tap` span
+(utils/trace.py).
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ import torch
 from ..kernels import bloom, merge
 from ..kernels.keys import SENT
 from ..kernels.segops import segment_starts
+from ..utils import trace
 
 IDX_SENT = (1 << 63) - 1  # lane-index sentinel (pads, "no second lane")
 _MAX_LANES = (1 << 32) - (1 << 26)  # the JAX package's u32 index headroom
@@ -349,7 +353,8 @@ class DeferredYakAdmission:
                 "range (~4.2 Gbases per run); rerun with "
                 "KMER_TPU_FAST_YAK=1 to skip the stderr simulation"
             )
-        self.fs.add_raw(keys, self._base)
+        with trace.span("yak.tap"):
+            self.fs.add_raw(keys, self._base)
         self._base += n
         self._pending = True
         if batch_end:

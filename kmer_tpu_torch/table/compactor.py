@@ -46,12 +46,17 @@ normal path (`_hist_general`: a fresh sort and `bincount`;
 lanes together), and any difference raises AssertionError.  The
 answer returned is always the normal path's.  `DEBUG_CHECKS` counts
 the cross-checks made.
+
+Spans (utils/trace.py): `compactor.compact` (it ends in the
+compaction's own synchronization, the segment ends' `nonzero`),
+`compactor.sort` and `compactor.merge` (`lanes_sorted`: each sort's
+lanes, each merge's output lanes) and `compactor.throttle` (a
+stream-throttle wait).
 """
 
 from __future__ import annotations
 
 import os
-import time
 from collections import deque
 from typing import List, Optional, Tuple
 
@@ -61,6 +66,7 @@ import torch
 from ..kernels import merge, seghist
 from ..kernels.keys import SENT, SENT32, from_hi_lo, narrow, to_u64, widen
 from ..kernels.segops import segment_starts
+from ..utils import trace
 
 # stream-sorted mode: raw keys fold into sorted runs of this many lanes
 # as they arrive, and finalization pays only the ladder merges
@@ -112,10 +118,11 @@ def _concat_runs(runs: List[Run]) -> Run:
 
 
 def _sort(keys: torch.Tensor, counts: Optional[torch.Tensor]) -> Run:
-    if counts is None:
-        return torch.sort(keys).values, None
-    keys, order = torch.sort(keys)
-    return keys, counts[order]
+    with trace.span("compactor.sort", lanes_sorted=int(keys.shape[0])):
+        if counts is None:
+            return torch.sort(keys).values, None
+        keys, order = torch.sort(keys)
+        return keys, counts[order]
 
 
 def _compact(keys: torch.Tensor, counts: Optional[torch.Tensor],
@@ -307,8 +314,6 @@ class KmerCompactor:
                        else merge.merge_runs)
         self._events: deque = deque()
         self._throttle_window = throttle_window()
-        # time the host spent blocked on the stream throttle
-        self.throttle_wait_s = 0.0
         self.last_n_unique = 0  # distinct keys as of the last compact()
         self.stream = self._make_ladder() if self.stream_sorted else None
 
@@ -338,7 +343,7 @@ class KmerCompactor:
         return StreamLadder(
             chunk=self.stream_chunk,
             min_pad=self.stream_min,
-            sort_fn=lambda p: (torch.sort(p[0]).values,),
+            sort_fn=lambda p: _sort(p[0], None)[:1],
             merge_fn=self._merge_runs,
             pad_fn=self._pad_run,
             concat_fn=lambda runs: (torch.cat([r[0] for r in runs]),),
@@ -358,12 +363,13 @@ class KmerCompactor:
         ev.record(torch.cuda.current_stream(self.device))
         self._events.append(ev)
         if len(self._events) > self._throttle_window:
-            t0 = time.perf_counter()
-            self._events.popleft().synchronize()
-            self.throttle_wait_s += time.perf_counter() - t0
+            with trace.span("compactor.throttle"):
+                self._events.popleft().synchronize()
 
     def _merge_runs(self, a, b):
-        return (self._merge(a[0], b[0]),)
+        with trace.span("compactor.merge", lanes_sorted=int(
+                a[0].shape[0] + b[0].shape[0])):
+            return (self._merge(a[0], b[0]),)
 
     @staticmethod
     def _pad_run(planes, target: int):
@@ -407,7 +413,12 @@ class KmerCompactor:
             self.runs.append(_compact(keys, None, pre_sorted=True))
 
     def compact(self) -> None:
-        """Fold all runs into one (key, count) run (compactor.py:523-561)."""
+        """Fold all runs into one (key, count) run (compactor.py:523-561):
+        a `compactor.compact` span."""
+        with trace.span("compactor.compact"):
+            self._compact_all()
+
+    def _compact_all(self) -> None:
         if self.stream:
             if (not self.runs
                     and self.stream.data_lanes <= self.stream_chunk * 2):

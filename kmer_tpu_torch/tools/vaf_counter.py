@@ -15,6 +15,10 @@ map key over the sorted key plane) — the analog of worker_lookup's
 per-k-mer hash probe + atomic increments (vaf-counter.c:449-479), turned
 inside out.  In a run of several processes only process 0 writes the
 VAF file (utils.log.is_primary); the counts are the same on every one.
+
+Spans (utils/trace.py): `vaf.patterns` (the pattern file's load) and
+`vaf.kmer_map` (create_combined_kmer_map).  Under -v a file's time ends
+after the engine's devices have finished its work.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import torch
 
 from ..io.formats import read_patterns, write_vaf_file
 from ..pipeline.counter import make_count_engine
+from ..utils import trace
 from ..utils.cli import c_atoi, ketopt
 from ..utils.log import is_primary, minfo, verbose, warn
 from ..utils.seq import canonical_kmer, encode_kmer, hash64_np
@@ -76,6 +81,15 @@ def _device_name(device) -> str:
     return device.type
 
 
+def _synchronize(eng) -> None:
+    """Wait for the work queued on each CUDA device of the engine (its
+    mesh's, where it has one)."""
+    mesh = getattr(eng, "mesh", None)
+    for dev in (mesh.devices if mesh is not None else [eng.device]):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     k, n_thread, block_size = 21, 4, 10_000_000
@@ -117,7 +131,8 @@ def main(argv=None):
     minfo("main", "Loading patterns...")
     t0 = time.time()
     try:
-        patterns = read_patterns(pattern_fn)
+        with trace.span("vaf.patterns"):
+            patterns = read_patterns(pattern_fn)
     except OSError:
         sys.stderr.write("Error: failed to load pattern file\n")
         return 1
@@ -126,7 +141,8 @@ def main(argv=None):
 
     minfo("main", "Creating k-mer map...")
     t0 = time.time()
-    phi, plo, pval, n_entries = create_combined_kmer_map(patterns, k)
+    with trace.span("vaf.kmer_map"):
+        phi, plo, pval, n_entries = create_combined_kmer_map(patterns, k)
     time_map_create = time.time() - t0
     if verbose_mode:
         verbose(
@@ -155,6 +171,7 @@ def main(argv=None):
             # reference's `if ((fp = gzopen(fn, "r")) == 0) return;`
             # (vaf-counter.c:557)
         if verbose_mode:
+            _synchronize(eng)  # the file's device work, in its time
             el = time.time() - t_file
             fb, fs = eng.total_bases - b0, eng.total_seqs - s0
             verbose(

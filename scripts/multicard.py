@@ -113,7 +113,7 @@ def main(argv=None):
             f"kc-c4 did not count on a mesh of the {n} cards")
     cs.say("mesh", f"one process, {n} cards: kc-c4 -k{cs.K} A + A' "
            f"{wall:.3f} s = {2 * bases / 1e6 / wall:.2f} Mbases/s, peak "
-           f"GiB a card {peaks()}; {h.eng.stats.report()}")
+           f"GiB a card {peaks()}; {cs.stats_line(h.eng.stats)}")
     cs.say("mesh", f"launches {_build.LAUNCHES}")
     ms, lanes = mesh_exchange_ms(h.eng, a)
     cs.say("mesh", f"one step's exchange ({lanes} owned keys out, peer "

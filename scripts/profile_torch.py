@@ -134,7 +134,7 @@ def profile_run(name, path, top, out_dir, tag="", seed=0):
                 bases = made[0].total_bases
         peak = torch.cuda.max_memory_allocated() / 2**30
         label = "profiled" if profiled else f"warm {i + 1}"
-        ingest = "".join(f"; {st.report()}" for st in stats)
+        ingest = "".join(f"; {smoke.stats_line(st)}" for st in stats)
         if stats:
             ingest += (f"; finalize "
                        f"{wall - sum(st.loop_s for st in stats):.3f} s")

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 from kmer_tpu.table import compactor as JC
 from kmer_tpu_torch.kernels import keys
 from kmer_tpu_torch.table import compactor as TC
+from kmer_tpu_torch.utils import trace
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 READS = os.path.join(FIXTURES, "reads_small.fq.gz")
@@ -199,12 +200,28 @@ def test_engine_matches_jax_on_fixture(monkeypatch):
         je = JEngine(k=21, block_bases=1 << 16)
         je.count_paths([READS])
         te = SortCountEngine(k=21, block_bases=1 << 16, device="cpu")
-        te.count_paths([READS])
+        trace.clear()
+        trace.enable(True)
+        try:
+            te.count_paths([READS])
+        finally:
+            trace.enable(False)
         assert te.compactor.stream_sorted == (stream == "1")
         assert np.array_equal(je.hist(256, 1023), te.hist(256, 1023))
         assert (te.total_kmers, te.total_bases, te.total_seqs) == (
             je.total_kmers, je.total_bases, je.total_seqs)
-        assert "loop" in te.stats.report()
+        # the loop's span: a lane appended for every k-mer (pads
+        # beside), and its waits and dispatches are the stats' times
+        rec = trace.spans()
+        loop, = [s for s in rec if s.name == "count.loop"]
+        assert loop.attrs["lanes_added"] >= te.total_kmers > 0
+        for name, field in (("ingest.wait", "wait_s"),
+                            ("ingest.dispatch", "dispatch_s")):
+            got = sum(s.t1 - s.t0 for s in rec
+                      if s.name == name and s.parent == loop.id)
+            assert got == pytest.approx(getattr(te.stats, field),
+                                        rel=1e-9, abs=1e-12)
+        trace.clear()
 
 
 def test_state_from_jax_checkpoint(tmp_path, monkeypatch):

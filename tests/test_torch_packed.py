@@ -20,6 +20,7 @@ from kmer_tpu.io import native as jnative
 from kmer_tpu.pipeline import counter as jc
 from kmer_tpu_torch.io import native
 from kmer_tpu_torch.pipeline import counter as tc
+from kmer_tpu_torch.utils import trace
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(REPO, "tests", "fixtures")
@@ -27,6 +28,21 @@ READS = os.path.join(FIXTURES, "reads_small.fq.gz")
 GENOME = os.path.join(FIXTURES, "genome_small.fa.gz")
 A1 = os.path.join(FIXTURES, "sampleA1.fq.gz")
 B = os.path.join(FIXTURES, "sampleB.fq.gz")
+
+
+def _staged_bytes(eng, paths):
+    """Count `paths` on `eng` with the tracer on: the bytes its
+    `reader.stage` spans staged."""
+    trace.clear()
+    trace.enable(True)
+    try:
+        eng.count_paths(paths)
+    finally:
+        trace.enable(False)
+    got = sum(s.attrs["bytes"] for s in trace.spans()
+              if s.name == "reader.stage")
+    trace.clear()
+    return got
 
 
 @pytest.fixture(autouse=True)
@@ -280,28 +296,29 @@ def test_env_unset_does_not_pack(monkeypatch, count_packed_steps,
                                  need_native):
     monkeypatch.delenv("KMER_TPU_PACKED", raising=False)
     eng = tc.SortCountEngine(k=21, device="cpu")
-    eng.count_paths([READS])
+    staged = _staged_bytes(eng, [READS])
     assert sum(count_packed_steps.values()) == 0
-    assert eng.stats.upload_bytes == sum(
+    assert staged == sum(
         b.nbytes for b, *_ in tc._iter_packed([READS], 21, eng.block_bases,
                                               eng.capacity))
 
 
 def test_upload_bytes_are_the_packed_sizes(uniform, monkeypatch,
                                            need_native):
-    """upload_bytes counts the codes and, where it was not elided, the
-    mask: a quarter of the ASCII path's bytes on the clean file, whose
-    masks are all elided, and more on the file with an N."""
+    """The staged bytes (`reader.stage` spans) count the codes and,
+    where it was not elided, the mask: a quarter of the ASCII path's
+    bytes on the clean file, whose masks are all elided, and more on the
+    file with an N."""
     monkeypatch.setenv("KMER_TPU_PACKED", "1")
     moved = []
     for path in uniform:
         eng = tc.SortCountEngine(k=21, block_bases=1 << 16, device="cpu")
-        eng.count_paths([path])
+        staged = _staged_bytes(eng, [path])
         items = list(tc._iter_packed2([path], 21, eng.block_bases,
                                       eng.capacity))
-        assert eng.stats.upload_bytes == sum(
+        assert staged == sum(
             p.nbytes + (0 if m is None else m.nbytes) for p, m, *_ in items)
-        moved.append(eng.stats.upload_bytes)
+        moved.append(staged)
     ascii_bytes = sum(b.nbytes for b, *_ in tc._iter_packed(
         [uniform[0]], 21, 1 << 16, eng.capacity))
     assert moved[0] * 4 == ascii_bytes and moved[1] > moved[0]
