@@ -71,8 +71,9 @@ Phases, each printing its own lines:
               device time a 10 Mbase block (masked and structural, each
               equal to the ASCII reader's block) beside its byte bound
   8. onepl    kc-c4 -k15 (one-plane keys) on 32 Mbases under the 64 MiB
-              budget, kernels vs plain; the int32 merge-path kernels must
-              launch in it, the int64 and (key, index) ones not
+              budget, kernels vs plain; the int32 merge-path kernels and
+              the budget trips' (key, count) merge path must launch in
+              it, the int64 ones not
   9. snp      the SNP-fingerprint chain at NGSCheckMate's panel size:
               snp-pattern-gen -k21 on the smoke's 24 MiB genome (24
               chromosomes, gzipped FASTA) with 21,000 seeded SNP sites,
@@ -89,8 +90,9 @@ Phases, each printing its own lines:
  10. yak2     two-file `yak-count -k31 -b30 A B` (A: phase 4's 256 Mbase
               file, B: phase 9's 64 Mbase sample of genotype Y): stdout
               and every `[M` line must equal the same run with the plain
-              kernel versions in both compactors; extract and the int64
-              merge path must launch, no other kernel; prints the wall,
+              kernel versions in both compactors; extract, the int64
+              merge path and the folds' (key, count) merge path must
+              launch, no other kernel; prints the wall,
               both passes' IngestStats, insert_sequential's device time
               over pass 1, the shrink join's time and the peak device
               memory (the 1 GiB bits array and both compactors)
@@ -2107,9 +2109,12 @@ def phase_onepl(seed):
     need(all(launches[name] > 0 for name in ONE_PLANE_KERNELS),
          f"the one-plane merge kernels never launched: {launches}")
     need(not any(launches[name] for name in
-                 ("merge_partition", "merge_path", *YAK_TAP_KERNELS,
-                  *BITONIC_KERNELS)),
+                 ("merge_partition", "merge_path", *BITONIC_KERNELS)),
          f"k=15 ran a two-plane or a bitonic merge: {launches}")
+    # the budget trips fold their compacted (key, count) runs by merge path
+    need(all(launches[name] > 0 for name in YAK_TAP_KERNELS),
+         f"k=15's budget trips did not fold by the (key, count) merge "
+         f"path: {launches}")
     need(not any(out[True][2].values()), "the plain run launched kernels")
     say("onepl", f"kc-c4 -k15 32 Mbases, 64 MiB budget: kernels == plain "
         f"({check_hist_text(out[False][0])} distinct), {out[False][1]:.3f} "
@@ -2380,8 +2385,11 @@ def phase_snp(seed, card):
 # -- two-file yak-count and ed-vaf-counter --------------------------------
 
 YAK2_ARGS = ["-k31", "-b30"]
-# the two-file path runs extract and the int64 merge path only
-YAK2_KERNELS = ("extract", "merge_partition", "merge_path")
+# the two-file path runs extract and the int64 merge path, and the
+# (key, count) merge path: pass 1 compacts every batch, and each fold
+# after the first merges into the standing plane
+YAK2_KERNELS = ("extract", "merge_partition", "merge_path",
+                *YAK_TAP_KERNELS)
 
 
 @contextlib.contextmanager

@@ -20,9 +20,14 @@ stays the int64 kernel.  Classic mode keeps int64 lanes.
                (table/stream_ladder.py) with the merge-path kernels
                (kernels/merge.py `merge_runs`, out of place): int64
                runs, or int32 runs in one-plane mode.
-  compact      fold everything into one (key, count) run: sort, segment
-               ends, counts.  A budget trip in stream mode compacts
-               ladder run by ladder run (`_compact_stream_piecewise`).
+  compact      fold everything into the standing plane, one strictly
+               ascending (key, count) run (`fold`): the runs not known
+               to be sorted compact with one sort, the ladder run by
+               ladder run (`_stream_runs`), and those runs and the
+               standing plane merge by merge path (kernels/merge.py
+               `merge_runs3`, the count a payload) into one segment
+               reduce.  The budget counts the raw bytes added since the
+               last fold, so a trip fires once a budget of new lanes.
   hist         histogram of per-key counts through the one-pass
                segment-histogram kernel (kernels/seghist.py
                `segment_hist_sorted`).
@@ -49,9 +54,10 @@ the cross-checks made.
 
 Spans (utils/trace.py): `compactor.compact` (it ends in the
 compaction's own synchronization, the segment ends' `nonzero`),
-`compactor.sort` and `compactor.merge` (`lanes_sorted`: each sort's
-lanes, each merge's output lanes) and `compactor.throttle` (a
-stream-throttle wait).
+`compactor.fold` (a fold into a standing plane: `standing_lanes`,
+`new_lanes`), `compactor.sort` and `compactor.merge` (`lanes_sorted`:
+each sort's lanes, each merge's output lanes) and `compactor.throttle`
+(a stream-throttle wait).
 """
 
 from __future__ import annotations
@@ -128,22 +134,77 @@ def _sort(keys: torch.Tensor, counts: Optional[torch.Tensor]) -> Run:
 def _compact(keys: torch.Tensor, counts: Optional[torch.Tensor],
              pre_sorted: bool = False) -> Run:
     """(distinct keys, their int32 counts) of a run (_compact_impl,
-    compactor.py:656-703).  Weighted counts sum in int64 and keep their
-    low 32 bits, the JAX package's modular uint32 arithmetic."""
+    compactor.py:656-703): the run sorted (unless `pre_sorted` and
+    unweighted), then `_reduce`."""
     if counts is not None or not pre_sorted:
         keys, counts = _sort(keys, counts)
+    lanes = [(keys, None if counts is None else _wide(counts))]
+    del keys, counts
+    return _reduce(lanes)
+
+
+def _wide(counts: torch.Tensor) -> torch.Tensor:
+    """int32 counts as int64 in [0, 2^32), the uint32 values they hold."""
+    return counts.to(torch.int64).bitwise_and_(0xFFFFFFFF)
+
+
+def _reduce(lanes: List[Run]) -> Run:
+    """(distinct keys, int32 counts) of the one sorted (keys, counts)
+    pair in `lanes`, taken out of the list so that each plane frees once
+    read; counts are None (a lane counts 1) or int64 in [0, 2^32), summed
+    in place.  A key's count is the difference of the running sum at its
+    segment's end and the previous one's, kept to its low 32 bits (the
+    JAX package's modular uint32 arithmetic)."""
+    keys, wide = lanes.pop()
     is_end = torch.ones_like(keys, dtype=torch.bool)
-    is_end[:-1] = segment_starts(keys)[1:]
+    torch.ne(keys[1:], keys[:-1], out=is_end[:-1])
     # the sentinel sorts last, so dropping its segment leaves every
     # other segment's previous end in place
-    ends = torch.nonzero(is_end & (keys != SENT)).squeeze(1)
-    if counts is None:
-        csum_at_end = ends + 1
-    else:
-        csum_at_end = torch.cumsum(counts.to(torch.int64) & 0xFFFFFFFF,
-                                   0)[ends]
-    seg = torch.diff(csum_at_end, prepend=csum_at_end.new_zeros(1))
-    return keys[ends], seg.to(torch.int32)
+    is_end &= keys != SENT
+    ends = torch.nonzero(is_end).squeeze(1)
+    del is_end
+    out = keys[ends]
+    del keys
+    csum = ends + 1 if wide is None else wide.cumsum_(0)[ends]
+    del wide, ends
+    seg = torch.empty_like(csum)
+    seg[:1] = csum[:1]
+    torch.sub(csum[1:], csum[:-1], out=seg[1:])
+    del csum
+    return out, seg.to(torch.int32)
+
+
+def _lanes(run: Run) -> int:
+    return int(run[0].shape[0])
+
+
+def fold(runs: List[Run], merge3=merge.merge_runs3) -> Run:
+    """One strictly ascending (key, int32 count) run of the strictly
+    ascending (key, int32 count) runs in `runs`, which it empties so that
+    each run frees once read.  The runs merge two at a time, smallest
+    first, as (key, count) lanes (`merge3`: kernels/merge.py
+    `merge_runs3` or its plain twin, the count the int64 payload: a run's
+    keys are distinct, so its (key, count) order is its key order), and
+    one segment reduce (`_reduce`) sums each key's counts.  A merge holds
+    its inputs and its output, 16 B a lane each, so the peak is about
+    32 B a lane; a concatenation, sort and gather of the same runs, held
+    meanwhile, took twice the fold's on an H100 at 2^26 lanes
+    (tests/test_torch_cuda.py measures both)."""
+    runs.sort(key=_lanes, reverse=True)
+    if len(runs) == 1:
+        return runs.pop()
+    while len(runs) > 1:
+        (ka, ca), (kb, cb) = runs.pop(), runs.pop()
+        if ca.dtype == torch.int32:
+            ca = _wide(ca)
+        if cb.dtype == torch.int32:
+            cb = _wide(cb)
+        with trace.span("compactor.merge",
+                        lanes_sorted=int(ka.shape[0] + kb.shape[0])):
+            runs.append(merge3(ka, ca, kb, cb))
+        del ka, ca, kb, cb
+        runs.sort(key=_lanes, reverse=True)
+    return _reduce(runs)
 
 
 # -- the KMER_TPU_DEBUG derivations (plain torch, any device) ------------
@@ -288,7 +349,8 @@ class KmerCompactor:
     """Accumulate-and-sort count engine (see module docstring)."""
 
     # Budget default 2 GiB of raw keys (8 bytes a lane), as in the JAX
-    # package: compaction peaks near 3x the accumulated run bytes.
+    # package, but counted since the last fold: the standing plane's
+    # bytes do not trip it (the JAX package counts them, 12 a key).
     def __init__(self, device, budget_bytes: int = 2 << 30,
                  key_bits: Optional[int] = None,
                  stream_sorted: bool = False, plain_kernels: bool = False,
@@ -300,8 +362,11 @@ class KmerCompactor:
         self.stream_chunk = stream_chunk or _STREAM_CHUNK
         self.stream_min = stream_min or _STREAM_MIN
         self.runs: List[Run] = []
+        # runs[0] is the standing plane, the last fold's strictly
+        # ascending run; no other run's order is known
+        self._standing = False
         self.budget_bytes = budget_bytes
-        self._bytes = 0
+        self._bytes = 0  # raw bytes added since the last fold
         self.stream_sorted = bool(stream_sorted)
         # keys < 2^30 (k <= 15 after hash64) fit one int32 plane whose
         # sentinel INT32_MAX no key can equal (compactor.py:311-313 takes
@@ -312,6 +377,9 @@ class KmerCompactor:
         # both ladders' merge: int64 runs, or int32 runs in one-plane mode
         self._merge = (merge.merge_runs_plain if plain_kernels
                        else merge.merge_runs)
+        # the fold's merge of (key, count) lanes
+        self._merge3 = (merge.merge_runs3_plain if plain_kernels
+                        else merge.merge_runs3)
         self._events: deque = deque()
         self._throttle_window = throttle_window()
         self.last_n_unique = 0  # distinct keys as of the last compact()
@@ -387,17 +455,17 @@ class KmerCompactor:
     def _stream_keys(self) -> torch.Tensor:
         return self._keys_of(self.stream.planes())
 
-    def _absorb_stream(self) -> None:
-        """Mixed state (counted runs + stream runs): hand the merged
-        stream plane to the classic path as one raw run."""
-        self.runs.append((self._stream_keys(), None))
-        self.stream.clear()
-
-    def _compact_stream_piecewise(self) -> None:
-        """Budget-trip compaction that never folds the ladder into one
-        giant plane: each ladder run is already sorted, so it compacts on
-        its own and its raw plane frees (compactor.py:488-521)."""
+    def _stream_runs(self) -> List[Run]:
+        """The ladder as strictly ascending (key, count) runs, the ladder
+        cleared: its merged plane compacted while it holds at most two
+        chunks; past that each ladder run, already sorted, compacts on its
+        own and its raw plane frees, so the ladder never folds into one
+        giant plane (compactor.py:488-521)."""
         lad = self.stream
+        if lad.data_lanes <= self.stream_chunk * 2:
+            keys = self._stream_keys()
+            lad.clear()
+            return [_compact(keys, None, pre_sorted=True)]
         runs = []
         if lad.pending:
             cat = (lad.pending[0] if len(lad.pending) == 1
@@ -407,10 +475,12 @@ class KmerCompactor:
             runs.append(lad._sort(lad._pad(cat, target)))
         runs.extend(lad.ladder.values())
         lad.clear()
-        runs.sort(key=lambda p: p[0].shape[0], reverse=True)
+        runs.sort(key=_lanes, reverse=True)
+        out = []
         while runs:
-            keys = self._keys_of(runs.pop(0))
-            self.runs.append(_compact(keys, None, pre_sorted=True))
+            out.append(_compact(self._keys_of(runs.pop(0)), None,
+                                pre_sorted=True))
+        return out
 
     def compact(self) -> None:
         """Fold all runs into one (key, count) run (compactor.py:523-561):
@@ -419,30 +489,38 @@ class KmerCompactor:
             self._compact_all()
 
     def _compact_all(self) -> None:
-        if self.stream:
-            if (not self.runs
-                    and self.stream.data_lanes <= self.stream_chunk * 2):
-                keys = self._stream_keys()
-                self.stream.clear()
-                self._store_compacted(_compact(keys, None, pre_sorted=True))
-                return
-            self._compact_stream_piecewise()
-        if not self.runs:
-            return
-        self._store_compacted(_compact(*_concat_runs(self.runs)))
+        """Fold every run into the standing plane.  The new runs are
+        the ladder's (`_stream_runs`) and one of all the others but the
+        standing plane (classic raw runs, `add_counted`'s: their order
+        is not known), compacted with one sort.  They fold into the
+        standing plane under a `compactor.fold` span, or make the first
+        one."""
+        standing = self.runs.pop(0) if self._standing else None
+        loose, self.runs = self.runs, []
+        new = self._stream_runs() if self.stream else []
+        if loose:
+            new.append(_compact(*_concat_runs(loose)))
+            loose.clear()
+        sp = trace.NULL
+        if standing is not None:
+            if new:
+                sp = trace.span("compactor.fold",
+                                standing_lanes=_lanes(standing),
+                                new_lanes=sum(map(_lanes, new)))
+            new.append(standing)
+            del standing
+        if new:
+            with sp:
+                self._store_compacted(fold(new, self._merge3))
 
     def _store_compacted(self, run: Run) -> None:
         self.runs = [run]
+        self._standing = True
         self.last_n_unique = int(run[0].shape[0])
-        self._bytes = self.last_n_unique * 12
+        self._bytes = 0
 
     def hist(self, n_bins: int, max_count: Optional[int], min_keep: int = 1):
         """(histogram int64[n_bins], n_distinct) over all keys."""
-        if (self.stream and self.runs
-                and self.stream.data_lanes > self.stream_chunk * 2):
-            # big mixed state: compact piecewise first so the final sort
-            # sees counted runs only
-            self.compact()
         plane = self._sorted_plane()
         if plane is None:
             return np.zeros(n_bins, np.int64), 0
@@ -455,16 +533,17 @@ class KmerCompactor:
 
     def _sorted_plane(self) -> Optional[Run]:
         """The sorted (keys, counts or None) plane that ends a count, or
-        None when the engine holds nothing: stream only -> the folded
-        ladder plane; counted runs, or mixed after `_absorb_stream` ->
-        concat + sort."""
-        if self.stream:
-            if not self.runs:
-                return self._stream_keys(), None
-            self._absorb_stream()
+        None when the engine holds nothing: stream only -> the merged
+        ladder plane; runs whose order is not known only (classic mode
+        before a trip, `add_counted`'s) -> concat + sort; else the
+        standing plane, after `compact` folds the rest into it."""
         if not self.runs:
-            return None
-        return _sort(*_concat_runs(self.runs))
+            return (self._stream_keys(), None) if self.stream else None
+        if not (self._standing or self.stream):
+            return _sort(*_concat_runs(self.runs))
+        if self.stream or len(self.runs) > 1:
+            self.compact()
+        return self.runs[0]
 
     def _hist_sorted(self, keys, counts, n_bins, max_count, min_keep):
         """The _hist_impl_tpu shape (compactor.py:176-217) after the sort:
@@ -480,7 +559,7 @@ class KmerCompactor:
         order, duplicates included: int64 numpy (compactor.py:610-653).
         Queries are (hi, lo) uint32 planes; the join is
         `_counts_for_bs`."""
-        plane = self._sorted_plane()  # no piecewise compaction first
+        plane = self._sorted_plane()
         if plane is None:
             return np.zeros(len(query_hi), np.int64)
         if self.one_plane:

@@ -12,6 +12,7 @@ import torch
 
 import jax.numpy as jnp
 
+from kmer_tpu.kernels import u64 as U
 from kmer_tpu.table import compactor as JC
 from kmer_tpu_torch.kernels import keys
 from kmer_tpu_torch.table import compactor as TC
@@ -147,19 +148,146 @@ def test_default_chunk_small_input(stream):
     _same_hists(j, t)
 
 
+SENT_KEY = (1 << 64) - 1
+
+
+def _split(k):
+    k = np.asarray(k, np.uint64)
+    return ((k >> np.uint64(32)).astype(np.uint32),
+            (k & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+
+
+def _queries(rng, batches, key_bits):
+    """Keys the data holds, keys below 2^key_bits it mostly does not,
+    and duplicates of both, as (hi, lo) planes."""
+    data = np.concatenate([(hi.astype(np.uint64) << np.uint64(32)) | lo
+                           for hi, lo in batches])
+    data = data[data != SENT_KEY]
+    q = np.concatenate([rng.choice(data, 300),
+                        rng.integers(0, 1 << key_bits, 100, dtype=np.uint64)])
+    return _split(np.concatenate([q, q[:40], q[-20:]]))
+
+
+def _count_trips(t):
+    """Wrap t.compact: the list it returns grows by one a call."""
+    calls, real = [], t.compact
+    t.compact = lambda: calls.append(1) or real()
+    return calls
+
+
+def _same_compacted(j, t, u):
+    """After compact(): the port's run equals the JAX package's (its
+    sentinel padding dropped) and the no-trip port engine's u, and
+    last_n_unique agrees."""
+    for c in (j, t, u):
+        c.compact()
+    assert t.last_n_unique == j.last_n_unique == u.last_n_unique
+    (jh, jl, jc), = j.runs
+    (tk, tc), = t.runs
+    jh, jl, jc = np.asarray(jh), np.asarray(jl), np.asarray(jc)
+    keep = ~((jh == 0xFFFFFFFF) & (jl == 0xFFFFFFFF))
+    assert torch.equal(tk, keys.from_hi_lo(jh[keep], jl[keep]))
+    assert np.array_equal(tc.numpy().view(np.uint32), jc[keep])
+    assert torch.equal(tk, u.runs[0][0]) and torch.equal(tc, u.runs[0][1])
+
+
+@pytest.mark.parametrize("stream, key_bits", [
+    pytest.param(False, 40, id="False"), pytest.param(True, 40, id="True"),
+    pytest.param(False, 30, id="False-one_plane"),
+    pytest.param(True, 30, id="True-one_plane")])
+def test_budget_trips_match_jax(stream, key_bits, small_chunk):
+    """A small budget forces many folds mid-stream, in stream mode (the
+    ladder compacted run by run) and classic mode (the raw runs sorted
+    once), one-plane and two-plane: each fold merges new counted runs
+    into the standing plane.  The weighted segment histogram, counts_for
+    (duplicates and absent keys), last_n_unique and the run after
+    compact() all equal the JAX package's, which counts without trips,
+    and the port's without trips."""
+    rng = np.random.default_rng(5 + stream + 100 * (key_bits != 40))
+    batches = _batches(rng, 12, 2000, 4000, key_bits)
+    j = JC.KmerCompactor(key_bits=key_bits, stream_sorted=stream)
+    t, u = (TC.KmerCompactor("cpu", budget_bytes=budget, key_bits=key_bits,
+                             stream_sorted=stream)
+            for budget in (20_000, 2 << 30))
+    trips = _count_trips(t)
+    for hi, lo in batches:
+        j.add_raw(jnp.asarray(hi), jnp.asarray(lo))
+        for c in (t, u):
+            c.add_raw(keys.from_hi_lo(hi, lo))
+    assert t.one_plane == (key_bits == 30)
+    assert t.runs and t.runs[0][1] is not None  # compacted
+    assert len(trips) >= 5 and all(c is None for _, c in u.runs)
+    qhi, qlo = _queries(rng, batches, key_bits)
+    want = j.counts_for(qhi, qlo)
+    assert np.array_equal(t.counts_for(qhi, qlo), want)
+    assert np.array_equal(u.counts_for(qhi, qlo), want)
+    _same_hists(j, t)
+    _same_compacted(j, t, u)
+
+
 @pytest.mark.parametrize("stream", [False, True])
-def test_budget_trips_match_jax(stream, small_chunk):
-    """A small budget forces compactions mid-stream (and, in stream mode,
-    the piecewise path once counted runs exist); the weighted segment
-    histogram then runs over mixed counted and raw runs.  The JAX side
-    counts without trips: its own tests pin that trips change nothing."""
-    rng = np.random.default_rng(5 + stream)
-    batches = _batches(rng, 12, 2000, 4000)
-    j, _ = _pair(batches)
-    t = TC.KmerCompactor("cpu", budget_bytes=40_000, stream_sorted=stream)
+@pytest.mark.parametrize("key_bits", [40, 30])
+def test_unsorted_counted_runs_through_folds(stream, key_bits, small_chunk):
+    """Counted runs from add_counted (unsorted keys, duplicates, counts
+    near 2^32 so that per-key totals wrap) before the first trip and
+    after one: each sorts once and folds with the ladder or raw runs
+    into the standing plane; every output equals the JAX package's and
+    the no-trip port's."""
+    rng = np.random.default_rng(31 + stream + key_bits)
+    batches = _batches(rng, 10, 2000, 4000, key_bits)
+    pool = np.unique(np.concatenate([
+        (hi.astype(np.uint64) << np.uint64(32)) | lo
+        for hi, lo in batches[:3]]))
+    pool = pool[pool != SENT_KEY]
+    j = JC.KmerCompactor(key_bits=key_bits, stream_sorted=stream)
+    t, u = (TC.KmerCompactor("cpu", budget_bytes=budget, key_bits=key_bits,
+                             stream_sorted=stream)
+            for budget in (40_000, 2 << 30))
+    trips = _count_trips(t)
+    for i, (hi, lo) in enumerate(batches):
+        if i in (1, 6):
+            k = rng.choice(pool, 900)  # unsorted, with duplicates
+            c = rng.integers(0xF0000000, 1 << 32, k.shape[0],
+                             dtype=np.uint64).astype(np.uint32)
+            khi, klo = _split(k)
+            j.add_counted(U.U64(jnp.asarray(khi), jnp.asarray(klo)),
+                          jnp.asarray(c))
+            for comp in (t, u):
+                comp.add_counted(keys.from_hi_lo(khi, klo),
+                                 torch.from_numpy(c.view(np.int32)))
+            assert i == 1 or t.runs[0][1] is not None  # after a trip
+        j.add_raw(jnp.asarray(hi), jnp.asarray(lo))
+        for comp in (t, u):
+            comp.add_raw(keys.from_hi_lo(hi, lo))
+    assert len(trips) >= 3
+    qhi, qlo = _queries(rng, batches, key_bits)
+    want = j.counts_for(qhi, qlo)
+    assert np.array_equal(t.counts_for(qhi, qlo), want)
+    assert np.array_equal(u.counts_for(qhi, qlo), want)
+    _same_hists(j, t)
+    _same_compacted(j, t, u)
+
+
+@pytest.mark.parametrize("stream, key_bits", [(False, 40), (True, 40),
+                                              (True, 30)])
+def test_trips_rearm_on_new_lanes(stream, key_bits, small_chunk):
+    """The budget counts the raw bytes added since the last fold, not
+    the standing plane's: N raw lanes under budget B trip at most
+    ceil(8 N / B) times, whatever the plane holds.  Twelve batches of
+    1,000 lanes under 20,000 bytes: at 8 B a lane every third batch
+    trips (4 times); the one-plane ladder counts 4 B a lane, so every
+    sixth (2 times)."""
+    rng = np.random.default_rng(2)
+    batches = _batches(rng, 12, 1000, 1001, key_bits, sent_frac=0)
+    t = TC.KmerCompactor("cpu", budget_bytes=20_000, key_bits=key_bits,
+                         stream_sorted=stream)
+    trips = _count_trips(t)
     for hi, lo in batches:
         t.add_raw(keys.from_hi_lo(hi, lo))
-    assert t.runs and t.runs[0][1] is not None  # compacted
+    assert len(trips) <= -(-8 * 12_000 // 20_000)
+    assert len(trips) == (2 if t.one_plane else 4)
+    assert t.last_n_unique * 12 > 20_000  # the plane alone would trip
+    j, _ = _pair(batches, key_bits=key_bits)
     _same_hists(j, t)
 
 

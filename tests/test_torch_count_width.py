@@ -91,15 +91,19 @@ def _add_counted(comp, run, own=None):
                      torch.from_numpy(cnt.view(np.int32)))
 
 
-@pytest.mark.parametrize("k", [21, 15])
-def test_counted_totals_past_int32_match_jax(k, tmp_path, monkeypatch):
+@pytest.mark.parametrize("k, fold", [
+    pytest.param(21, False, id="21"), pytest.param(15, False, id="15"),
+    pytest.param(21, True, id="21-fold"), pytest.param(15, True, id="15-fold")])
+def test_counted_totals_past_int32_match_jax(k, fold, tmp_path, monkeypatch):
     """A checkpoint that the JAX package wrote, resumed by the port's
     SortCountEngine, and the same counts restored into a ShardedSortEngine
     of 8 CPU shards in the JAX mesh layout, then a further counted run
     into each: every histogram (kc's and yak-count's bins_cfg) == the JAX
     KmerCompactor.hist of both runs, bins and n_distinct, two-plane at
     k = 21 and one-plane at k = 15, with KMER_TPU_DEBUG unset and set
-    (no check raises; the single engine checks once, each shard once)."""
+    (no check raises; the single engine checks once, each shard once).
+    With `fold`, the resumed counts are compacted into the standing plane
+    first, so the edge totals form in the fold's merge and reduce."""
     rng = np.random.default_rng(k)
     r1, r2 = _counted_input(rng, k)
     jc = JC.KmerCompactor(key_bits=2 * k)
@@ -116,16 +120,19 @@ def test_counted_totals_past_int32_match_jax(k, tmp_path, monkeypatch):
                              jnp.asarray(r1[2]))
     je.save_checkpoint(path)
     single = counter.SortCountEngine.resume_checkpoint(path, device="cpu")
-    _add_counted(single.compactor, r2)
-
     mesh = sharded.make_mesh([torch.device("cpu")] * SHARDS)
     mesh_path = str(tmp_path / "mesh.npz")
     _mesh_checkpoint(mesh_path, k, r1, mesh)
     shards = sharded.ShardedSortEngine(mesh, k)
     shards.restore_checkpoint(mesh_path)
+    if fold:
+        single.compactor.compact()
+        shards.compact()
+    _add_counted(single.compactor, r2)
     for j, comp in enumerate(shards.shards):
         _add_counted(comp, r2, (r2[1] & (SHARDS - 1)) == j)
     assert all(comp.runs for comp in shards.shards)
+    assert single.compactor._standing is fold
 
     for debug in ("", "1"):
         monkeypatch.setenv("KMER_TPU_DEBUG", debug)

@@ -3,8 +3,8 @@ checkpoints and the engine factory's arguments against the JAX package's,
 on the CPU.  Every comparison is exact (integer outputs, tolerance 0).
 
 Compactor states, as both packages name them: classic raw runs, counted
-runs only, mixed (stream runs + counted runs: the stream is absorbed into
-the classic path), stream only (the folded ladder plane, sentinel lanes
+runs only, mixed (stream runs + counted runs; the port folds both into
+one counted plane), stream only (the folded ladder plane, sentinel lanes
 included), and stream after a forced budget trip (counted runs from the
 trip, then more stream runs), each at one-plane and two-plane key widths.
 """

@@ -113,9 +113,9 @@ def test_job_spans_under_a_profiler(monkeypatch, tmp_path):
         assert tree[name] == {None: 2 if name == "count.loop" else 1}, name
     for name in LOOP_CHILDREN:
         assert set(tree[name]) == {"count.loop"}, name
-    # a trip's sort under its compaction; the histogram's and
-    # counts_for's sorts of the final plane after the loop, on their own
-    assert set(tree["compactor.sort"]) == {"compactor.compact", None}
+    # a trip's sort under its compaction; the histogram and counts_for
+    # read the standing plane that the trip left, with no sort of their own
+    assert set(tree["compactor.sort"]) == {"compactor.compact"}
     loops = [s for s in rec if s.name == "count.loop"]
     for loop in loops:
         _check_loop(rec, by, loop)
@@ -277,18 +277,28 @@ def test_loop_lanes_added_are_the_lanes_appended(monkeypatch):
     assert loop.attrs == {"lanes_added": sum(appended)}
 
 
-def test_lanes_sorted_of_a_forced_trip():
-    """Stream ladder of 1,024-lane chunks, budget 20 KiB: three chunks of
-    distinct keys sort one each (3 x 1,024), the second merges with the
-    first (2,048), and the third trips the budget (24 KiB): the
-    piecewise compaction sorts nothing more until the counted runs fold
-    into one sorted plane (3,072).  8,192 lanes sorted for 3,072
-    added."""
-    comp = compactor.KmerCompactor("cpu", budget_bytes=20 << 10,
+def _trip_ladder():
+    """A stream ladder of 1,024-lane chunks under a 20 KiB budget: the
+    third chunk after a fold trips it (24 KiB)."""
+    return compactor.KmerCompactor("cpu", budget_bytes=20 << 10,
                                    key_bits=42, stream_sorted=True,
                                    stream_chunk=1024, stream_min=1024)
-    keys = torch.randperm(3 * 1024, generator=torch.Generator().manual_seed(
-        5)).to(torch.int64) * 7919 + 11
+
+
+def _distinct_keys(n, seed=5):
+    return torch.randperm(n, generator=torch.Generator().manual_seed(
+        seed)).to(torch.int64) * 7919 + 11
+
+
+def test_lanes_sorted_of_a_forced_trip():
+    """Three chunks of distinct keys sort one each (3 x 1,024), the
+    second merges with the first (2,048), and the third trips the
+    budget: each ladder run compacts on its own, with no sort, and the
+    two merge as (key, count) lanes into the first standing plane
+    (3,072).  No standing plane was there, so no fold span.  3,072 lanes
+    sorted and 5,120 merged for 3,072 added."""
+    comp = _trip_ladder()
+    keys = _distinct_keys(3 * 1024)
     trace.enable(True)
     for i in range(3):
         comp.add_raw(keys[i * 1024:(i + 1) * 1024])
@@ -297,12 +307,45 @@ def test_lanes_sorted_of_a_forced_trip():
     assert trip.attrs == {}
     sorts = [s.attrs["lanes_sorted"] for s in rec
              if s.name == "compactor.sort"]
-    merges = [s.attrs["lanes_sorted"] for s in rec
-              if s.name == "compactor.merge"]
-    assert sorts == [1024, 1024, 1024, 3072] and merges == [2048]
-    assert [s.parent for s in rec if s.name == "compactor.sort"][-1] == \
-        trip.id
-    assert comp.last_n_unique == 3072
+    merges = [s for s in rec if s.name == "compactor.merge"]
+    assert sorts == [1024, 1024, 1024]
+    assert [s.attrs["lanes_sorted"] for s in merges] == [2048, 3072]
+    assert merges[-1].parent == trip.id
+    assert not [s for s in rec if s.name == "compactor.fold"]
+    assert comp.last_n_unique == 3072 and comp._bytes == 0
+
+
+def test_fold_span_of_a_later_trip():
+    """After the first trip's plane (3,072 keys), three more chunks trip
+    the budget again: 24 KiB of raw lanes since the fold, not the
+    plane's bytes.  That trip folds the two new compacted runs (2,048
+    and 1,024 distinct keys, half of them already in the plane) into the
+    standing plane in one `compactor.fold` span under the trip, its
+    counts the lanes it found, its merges smallest first beneath it."""
+    comp = _trip_ladder()
+    keys = _distinct_keys(3 * 1024)
+    again = torch.cat([keys[:1536], (torch.arange(1536) + 3072) * 7919 + 11])
+    again = again[torch.randperm(3072, generator=torch.Generator(
+        ).manual_seed(6))]
+    for i in range(3):
+        comp.add_raw(keys[i * 1024:(i + 1) * 1024])
+    trace.enable(True)
+    for i in range(2):
+        comp.add_raw(again[i * 1024:(i + 1) * 1024])
+    assert comp._bytes == 16 << 10 and not [
+        s for s in trace.spans() if s.name == "compactor.compact"]
+    comp.add_raw(again[2048:])
+    rec = trace.spans()
+    trip, = [s for s in rec if s.name == "compactor.compact"]
+    fold, = [s for s in rec if s.name == "compactor.fold"]
+    assert fold.parent == trip.id
+    assert fold.attrs == {"standing_lanes": 3072, "new_lanes": 3072}
+    merges = [s for s in rec if s.name == "compactor.merge"
+              and s.parent == fold.id]
+    assert [s.attrs["lanes_sorted"] for s in merges] == [3072, 6144]
+    assert comp.last_n_unique == 4608
+    counts = comp.runs[0][1]
+    assert int((counts == 2).sum()) == 1536 and int(counts.sum()) == 6144
 
 
 def test_vaf_counter_synchronizes_only_under_v(monkeypatch, tmp_path):

@@ -606,6 +606,71 @@ def test_counts_for_on_card_matches_cpu(dev, k, budget, monkeypatch):
     assert np.array_equal(out[0], out[1]) and (out[0][:2500] > 0).mean() > 0.5
 
 
+def _counted_runs(dev, n, n_runs, seed):
+    """Strictly ascending (key, int32 count) runs, about n lanes in all:
+    a standing plane of n / 2 and n_runs - 1 new runs sharing the rest,
+    drawn from one pool so that keys repeat across runs; counts over the
+    whole uint32 range, so totals wrap."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    sizes = [n // 2] + [n // 2 // max(1, n_runs - 1)] * (n_runs - 1)
+    runs = []
+    for m in sizes:
+        k = torch.unique(torch.randint(-n, n, (m,), generator=g, device=dev))
+        c = torch.randint(-(1 << 31), 1 << 31, (k.shape[0],), generator=g,
+                          device=dev, dtype=torch.int32)
+        runs.append((k, c))
+    return runs
+
+
+@pytest.mark.parametrize("n_runs", [1, 2, 5])
+def test_fold_on_card_matches_plain(dev, n_runs):
+    """table/compactor.py `fold` with the merge-path kernel equals the
+    fold with the plain twin on the card and on the CPU, and the
+    concatenation, sort and reduce that it replaces."""
+    from kmer_tpu_torch.table import compactor
+
+    runs = _counted_runs(dev, (1 << 20) + 77, n_runs, n_runs)
+    want = compactor._compact(*compactor._concat_runs(runs))
+    cpu = compactor.fold([(k.cpu(), c.cpu()) for k, c in runs],
+                         merge.merge_runs3_plain)
+    plain = compactor.fold(list(runs), merge.merge_runs3_plain)
+    got = compactor.fold(list(runs))
+    for a, b in (got, want), (got, plain), (got, cpu):
+        assert torch.equal(a[0].cpu(), b[0].cpu())
+        assert torch.equal(a[1].cpu(), b[1].cpu())
+    assert got[0].is_cuda and got[1].dtype == torch.int32
+
+
+def test_fold_on_card_peaks_below_a_sort(dev):
+    """At 2^26 lanes the fold, handed its runs, peaks below the
+    concatenation, sort and gather of the same runs (which the engine
+    held while it sorted), from the same allocation; same output."""
+    from kmer_tpu_torch.table import compactor
+
+    def peak(fn):
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = fn()
+        torch.cuda.synchronize(dev)
+        return torch.cuda.max_memory_allocated(dev), out
+
+    runs = _counted_runs(dev, 1 << 26, 4, 26)
+    start = torch.cuda.memory_allocated(dev)
+    sort_peak, want = peak(
+        lambda: compactor._compact(*compactor._concat_runs(runs)))
+    del runs
+    want = tuple(x.cpu() for x in want)
+    runs = _counted_runs(dev, 1 << 26, 4, 26)
+    assert torch.cuda.memory_allocated(dev) == start
+    fold_peak, got = peak(lambda: compactor.fold(runs))
+    assert not runs
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    print(f"fold peak {fold_peak / 2**30:.3f} GiB, sort {sort_peak / 2**30:.3f}"
+          f" GiB, inputs {start / 2**30:.3f} GiB")
+    assert fold_peak < sort_peak
+
+
 @pytest.mark.parametrize("n_hashes", [4, 40])
 @pytest.mark.parametrize("fn", ["insert_sequential", "insert"])
 def test_bloom_on_card_matches_cpu(dev, fn, n_hashes):

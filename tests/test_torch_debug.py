@@ -317,8 +317,9 @@ def test_kc_c4_under_debug(k, mode, monkeypatch):
     assert plain == checked == want
     assert n_checks == (4 if mode == "mesh" else 1)
     if mode == "trip":
-        runs = made[-1].compactor.runs  # the stream absorbed at hist
-        assert [c is None for _, c in runs] == [False, True]
+        # the stream folded into the trip's standing plane at hist
+        runs = made[-1].compactor.runs
+        assert [c is None for _, c in runs] == [False]
 
 
 def test_yak_count_under_debug(monkeypatch):
