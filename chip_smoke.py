@@ -2574,28 +2574,35 @@ def myers_totals(calls):
 
 @contextlib.contextmanager
 def no_sync_in_batch_loop():
-    """ed-vaf-counter's batch loop (tools/ed_vaf_counter.py _feed) under
-    torch.cuda.set_sync_debug_mode("error"): a synchronizing call inside
-    it (a .cpu(), .item(), a pageable copy, a stream or device
-    synchronize) raises.  The staging buffers' event waits are
+    """ed-vaf-counter's batch loop (tools/ed_vaf_counter.py: each batch's
+    flush from `_Batches`; every upload and launch of the loop is inside
+    one) under torch.cuda.set_sync_debug_mode("error"): a synchronizing
+    call inside it (a .cpu(), .item(), a pageable copy, a stream or
+    device synchronize) raises.  The staging buffers' event waits are
     cudaEventSynchronize, which the mode does not watch: _Staging.waits
-    counts the ones that found the copy not done."""
+    counts the ones that found the copy not done.  `native` counts the
+    files read through the native reader."""
     import torch
 
     from kmer_tpu_torch.tools import ed_vaf_counter
 
-    real = ed_vaf_counter._feed
-    stats = {"batches": 0}
+    real_init = ed_vaf_counter._Batches.__init__
+    real_records = ed_vaf_counter.native.iter_records_native
+    stats = {"batches": 0, "native": 0}
 
-    def feed(reads, lut, flush):
-        def counted(*a):
+    def init(self, lut, flush):
+        def guarded(*a):
             stats["batches"] += 1
-            return flush(*a)
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            return real(reads, lut, counted)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return flush(*a)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        real_init(self, lut, guarded)
+
+    def records(*a):
+        stats["native"] += 1
+        return real_records(*a)
 
     waits, real_upload = [], ed_vaf_counter._Staging.upload
 
@@ -2604,12 +2611,14 @@ def no_sync_in_batch_loop():
         waits.append(self.waits)
         return out
 
-    ed_vaf_counter._feed = feed
+    ed_vaf_counter._Batches.__init__ = init
+    ed_vaf_counter.native.iter_records_native = records
     ed_vaf_counter._Staging.upload = upload
     try:
         yield stats, waits
     finally:
-        ed_vaf_counter._feed = real
+        ed_vaf_counter._Batches.__init__ = real_init
+        ed_vaf_counter.native.iter_records_native = real_records
         ed_vaf_counter._Staging.upload = real_upload
 
 
@@ -2759,6 +2768,7 @@ def edvaf_run(pat, fq, out):
     lines = read_file(out).decode().splitlines()
     return {"lines": lines, "wall": wall, "launches": launches,
             "batches": stats["batches"], "waits": waits[-1] if waits else 0,
+            "native": stats["native"],
             "myers_s": myers_s, "work": (lane_steps, ops, alu, nbytes),
             "calls": len(calls),
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
@@ -2808,6 +2818,8 @@ def phase_edvaf(seed):
              f"({run['batches']} batches) and no other kernel: "
              f"{run['launches']}")
         need(len(run["lines"]) == sites + 2, f"{len(run['lines'])} VAF lines")
+        need(run["native"] == 1, "ed-vaf-counter did not read sample B "
+             "through the native reader")
     # 2. the whole 21,000-site panel (phase 9's pattern file)
     full_pat = os.path.join(os.path.dirname(d), "snp_card", "snps.pat")
     if not os.path.exists(full_pat):

@@ -1,8 +1,9 @@
 """ctypes bindings for the native IO layer (a copy of
 kmer_tpu/io/native/__init__.py, over copies of its three sources): the
-FASTQ/FASTA block reader, in ASCII and 2-bit packed form
-(fastx_reader.cpp), the sequential BAM scan of bam-vaf-counter
-(bam_count.cpp) and the CRAM rANS 4x8 decoder (cram_rans.cpp).
+FASTQ/FASTA block reader, in ASCII and 2-bit packed form, and its
+whole-record form (fastx_reader.cpp), the sequential BAM scan of
+bam-vaf-counter (bam_count.cpp) and the CRAM rANS 4x8 decoder
+(cram_rans.cpp).
 
 The library builds with g++ at first use into build/kmer_tpu_torch/ at
 the repository root (never beside the sources), named by a hash of the
@@ -108,6 +109,10 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.ktp_read_block_packed.argtypes = [
             ctypes.c_void_p, u8p, u8p, ctypes.c_int64, ctypes.c_int32,
             ctypes.c_int64, i64p, i64p, i64p, i64p]
+        lib.ktp_read_records.restype = ctypes.c_int64
+        lib.ktp_read_records.argtypes = [
+            ctypes.c_void_p, u8p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int64, i64p, i64p]
         lib.ktp_rans_decode.restype = ctypes.c_int32
         lib.ktp_rans_decode.argtypes = [u8p, ctypes.c_int64, u8p,
                                         ctypes.c_int64]
@@ -232,6 +237,40 @@ def iter_packed2bit_native(
                        bool(batch_end.value))
         finally:
             lib.ktp_close(h)
+
+
+def iter_records_native(
+    path, target_bases: int,
+) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """Yield (bases_u8, lens_i64) per call of ktp_read_records over one
+    file: whole records, every one (empty ones too) in file order, their
+    raw bytes back to back and their lengths, about target_bases bases a
+    call.  Each block is a view of buffers that the next one reuses.  A
+    malformed quality section stops the stream (io.fastx.FastxReader's
+    qual_policy=None)."""
+    lib = _load()
+    assert lib is not None
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    h = lib.ktp_open(os.fsencode(path))
+    if not h:
+        raise OSError(errno.ENOENT, "cannot open", path)
+    try:
+        buf = np.empty(2 * target_bases, np.uint8)
+        lens = np.empty(target_bases, np.int64)
+        n = ctypes.c_int64()
+        while True:
+            used = lib.ktp_read_records(
+                h, buf.ctypes.data_as(u8p), buf.size, target_bases,
+                lens.size, lens.ctypes.data_as(i64p), ctypes.byref(n))
+            if used < 0:  # a record longer than the buffer
+                buf = np.empty(2 * -used, np.uint8)
+                continue
+            if n.value == 0:
+                break
+            yield buf[:used], lens[:n.value]
+    finally:
+        lib.ktp_close(h)
 
 
 def bam_count_native(path, tids, starts, refs, alts):

@@ -14,9 +14,9 @@
 //
 // Each Reader keeps two plain int64 counters, always on (ktp_stats): the
 // nanoseconds in the decoder (gzread, or libdeflate where it is built,
-// file reads included) and the nanoseconds inside ktp_read_block and
-// ktp_read_block_packed.  Two steady_clock reads a decoder fill (1 MiB
-// of text through zlib) and two a block call.
+// file reads included) and the nanoseconds inside ktp_read_block,
+// ktp_read_block_packed and ktp_read_records.  Two steady_clock reads a
+// decoder fill (1 MiB of text through zlib) and two a block call.
 
 #include <sys/stat.h>
 #include <zlib.h>
@@ -100,7 +100,7 @@ struct Reader {
 
   // ktp_stats' counters
   int64_t inflate_ns = 0;  // in the decoder
-  int64_t native_ns = 0;   // in ktp_read_block / ktp_read_block_packed
+  int64_t native_ns = 0;   // in the block and record calls
   std::vector<uint8_t>& scratch = ar->scratch;  // packed-path staging
 
   // --- libdeflate whole-member path (gzip files only) ---------------
@@ -219,6 +219,15 @@ struct Reader {
 
   bool stopped = false;  // kseq -2 (malformed quality): latch EOF
 
+  // ktp_read_records: a whole record that did not fit the last call;
+  // and its scan, which reads as io/fastx.py FastxReader does where the
+  // block reader's differs (a last line without its newline keeps its
+  // '\r'; a sequence line that starts with '>', '@' or '+' is never
+  // taken by the fast path)
+  std::string pending;
+  bool has_pending = false;
+  bool whole_records = false;
+
   // reference batch accounting for ktp_read_block's fill rule: the
   // reference's pipeline step 0 sums the lengths of kept reads and
   // breaks after the read that reaches the chunk size
@@ -278,7 +287,8 @@ struct Reader {
       if (!fill()) {
         if (pos < buf.size()) {
           out->assign(buf, pos, buf.size() - pos);
-          if (!out->empty() && out->back() == '\r') out->pop_back();
+          if (!whole_records && !out->empty() && out->back() == '\r')
+            out->pop_back();
           pos = buf.size();
           return !out->empty();
         }
@@ -311,6 +321,8 @@ struct Reader {
     const char* s0 = nl1 + 1;
     const char* nl2 = (const char*)memchr(s0, '\n', e - s0);
     if (!nl2 || nl2 == s0 || nl2[-1] == '\r') return false;
+    if (whole_records && (*s0 == '>' || *s0 == '@' || *s0 == '+'))
+      return false;
     size_t slen = nl2 - s0;
     const char* plus = nl2 + 1;
     if (plus >= e || *plus != '+') return false;
@@ -556,6 +568,51 @@ int64_t ktp_read_block(void* h, uint8_t* out, int64_t capacity, int32_t k,
   int64_t t0 = now_ns();
   int64_t used = read_block(r, out, capacity, k, target_bases, n_seqs,
                             n_bases, row_bytes, batch_end);
+  r->native_ns += now_ns() - t0;
+  return used;
+}
+
+// Whole records, for a caller that needs each read whole with its raw
+// bytes (ed-vaf-counter): the records' sequences back to back in `out`
+// with no separator, and each one's length in `lens`.  No record is
+// skipped (empty ones included) or split, and a NUL byte in a sequence
+// is only a byte.  Stops after `max_reads` records, or after the record
+// that brings the bases to `target_bases`, or before a record that does
+// not fit the room left (it waits in the reader for the next call).
+// Returns the bytes used and sets *n_reads, which is 0 only at the end
+// of the stream; a first record longer than `capacity` returns minus
+// its length and writes nothing, so that the caller can grow `out` and
+// call again.  Shares next_seq, the record scanner, with ktp_read_block,
+// and reads as io/fastx.py FastxReader does (Reader::whole_records); the
+// stream stops at a malformed quality section unless ktp_set_policy
+// said otherwise.  A handle takes one of the two calls.
+int64_t ktp_read_records(void* h, uint8_t* out, int64_t capacity,
+                         int64_t target_bases, int64_t max_reads,
+                         int64_t* lens, int64_t* n_reads) {
+  auto* r = static_cast<Reader*>(h);
+  int64_t t0 = now_ns();
+  r->whole_records = true;
+  int64_t used = 0, n = 0;
+  std::string seq;
+  while (n < max_reads && used < target_bases) {
+    if (r->has_pending) {
+      seq.swap(r->pending);
+      r->has_pending = false;
+    } else if (!r->next_seq(&seq)) {
+      break;
+    }
+    int64_t len = (int64_t)seq.size();
+    if (len > capacity - used) {
+      r->pending.swap(seq);
+      r->has_pending = true;
+      if (n == 0) used = -len;
+      break;
+    }
+    std::memcpy(out + used, seq.data(), len);
+    used += len;
+    lens[n++] = len;
+  }
+  *n_reads = n;
   r->native_ns += now_ns() - t0;
   return used;
 }

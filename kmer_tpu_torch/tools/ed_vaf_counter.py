@@ -16,6 +16,13 @@ longest read rounded up to 16 bases, the kernel's row stride.  The
 batch loop makes no host synchronization, so the card scans one batch
 while the host parses the next.
 
+The reads of a file come from the native reader where it is built and
+the input is a path (io/native `iter_records_native`: whole records,
+raw bytes, a few hundred KB a call); for `-` and without the native
+reader from io/fastx.py `FastxReader`, joined into blocks of the same
+size.  Each block is encoded and laid out into the bucket batches with
+whole-array numpy operations (`_Batches`).
+
 As in the JAX tool: the alphabet is the raw bytes of the patterns (no
 case folding, N == N, every other read byte one never-match code); an
 alt k-mer is truncated or NUL-padded to its ref k-mer's length; patterns
@@ -28,11 +35,11 @@ on the device in int64 (see count_fastq).
 
 Spans (utils/trace.py; none a read or a batch): `edvaf.patterns` (the
 pattern file's load, the alphabet and the Peq build), `edvaf.file` (one
-input file, from its open to its totals read back; counts `bases` and
+input file, from its open to its totals read back; counts `bases`,
+`native_bases`, those of them that came through the native reader, and
 `wait_ns`, the host's time blocked on a staging buffer's copy),
-`edvaf.drain`
-(in it: the one read of the totals, where the host waits for the
-card's backlog) and `edvaf.write` (the VAF file).
+`edvaf.drain` (in it: the one read of the totals, where the host waits
+for the card's backlog) and `edvaf.write` (the VAF file).
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ import numpy as np
 import torch
 
 from .. import default_device
+from ..io import native
 from ..io.fastx import FastxReader
 from ..io.formats import read_patterns, write_vaf_file
 from ..kernels.myers import (build_peq, build_peq_multiword, myers_hw_sums,
@@ -67,6 +75,16 @@ def _bucket_for(length: int) -> int:
     while b < length:
         b *= 4
     return b
+
+
+def _buckets_for(lens: np.ndarray) -> np.ndarray:
+    """_bucket_for(max(L, 1)) of every length."""
+    b = np.full(len(lens), _MIN_BUCKET, np.int64)
+    while True:
+        short = b < lens
+        if not short.any():
+            return b
+        b[short] *= 4
 
 
 def _alphabet_lut(kmers):
@@ -180,32 +198,83 @@ class _Staging:
         return out
 
 
-def _feed(reads, lut, flush):
-    """Batch the reads by length bucket and flush every full batch, then
-    every partial one: flush(codes, lens, nb) with the bucket's buffer
-    (255 past each read's end) and its fill.  On the card this loop
-    makes no host synchronization (chip_smoke.py phase 11 runs it under
-    torch.cuda.set_sync_debug_mode("error"))."""
-    batches = {}  # bucket -> [codes2d, lens, fill]
+def _fastx_blocks(reads, target_bases: int):
+    """FastxReader's reads in the native reader's blocks: (raw bytes back
+    to back, their lengths), about target_bases bases a block."""
+    def block(seqs):
+        return (np.frombuffer(b"".join(seqs), np.uint8),
+                np.fromiter(map(len, seqs), np.int64, len(seqs)))
+
+    seqs, size = [], 0
     for _name, seq in reads:
-        L = len(seq)
-        bucket = _bucket_for(max(L, 1))
-        if bucket not in batches:
-            rows = max(4, _BATCH_BYTES // bucket)
-            batches[bucket] = [
-                np.full((rows, bucket), 255, np.uint8),
-                np.zeros(rows, np.int32),
-                0,
-            ]
-        codes, lens, nb = batches[bucket]
-        codes[nb, :L] = _encode(seq, lut)
-        codes[nb, L:] = 255
-        lens[nb] = L
-        batches[bucket][2] = nb + 1
-        if batches[bucket][2] == codes.shape[0]:
-            flush(*batches.pop(bucket))
-    for bucket in list(batches):
-        flush(*batches.pop(bucket))
+        seqs.append(seq)
+        size += len(seq)
+        if size >= target_bases:
+            yield block(seqs)
+            seqs, size = [], 0
+    if seqs:
+        yield block(seqs)
+
+
+class _Batches:
+    """Batch the reads by length bucket, a block of reads at a time: a
+    bucket's reads go into its (rows, bucket) buffer in file order, a
+    full buffer is flushed at once, flush(codes, lens, nb), and refilled,
+    and close() flushes every partial one.  On the card the flushes make
+    no host synchronization (chip_smoke.py phase 11 runs them under
+    torch.cuda.set_sync_debug_mode("error")).  Each buffer keeps 255
+    past each read's end: `hi` is the widest a row of it was written,
+    and past `hi` it is still the fill it was made with."""
+
+    def __init__(self, lut, flush):
+        self.lut = lut
+        self.flush = flush
+        self.bufs = {}  # bucket -> [codes2d, lens, fill, hi]
+
+    def add(self, raw: np.ndarray, lens: np.ndarray) -> None:
+        """A block: its reads' raw bytes back to back, and their
+        lengths.  Each bucket's reads become rows of their longest
+        read's width, 255 past each read's end."""
+        codes = np.take(self.lut, raw)
+        lens = lens.astype(np.int32, copy=False)
+        buckets = _buckets_for(lens)
+        uniq = np.unique(buckets)
+        for bucket in uniq:
+            mine = buckets == bucket
+            sub = lens[mine]
+            width = int(sub.max())
+            rows = np.full((len(sub), width), 255, np.uint8)
+            rows[np.arange(width, dtype=np.int32) < sub[:, None]] = \
+                codes if len(uniq) == 1 else codes[np.repeat(mine, lens)]
+            self._place(int(bucket), rows, sub)
+
+    def _place(self, bucket: int, rows: np.ndarray, lens) -> None:
+        width = rows.shape[1]
+        i = 0
+        while i < len(rows):
+            buf = self.bufs.get(bucket)
+            if buf is None:
+                n_rows = max(4, _BATCH_BYTES // bucket)
+                buf = self.bufs[bucket] = [
+                    np.full((n_rows, bucket), 255, np.uint8),
+                    np.zeros(n_rows, np.int32), 0, 0]
+            codes, blens, nb, hi = buf
+            m = min(len(rows) - i, codes.shape[0] - nb)
+            codes[nb:nb + m, :width] = rows[i:i + m]
+            if hi > width:
+                codes[nb:nb + m, width:hi] = 255
+            blens[nb:nb + m] = lens[i:i + m]
+            buf[2], buf[3] = nb + m, max(hi, width)
+            i += m
+            if buf[2] == codes.shape[0]:
+                self.flush(codes, blens, buf[2])
+                buf[2] = 0
+
+    def close(self) -> None:
+        for codes, blens, nb, _hi in self.bufs.values():
+            if nb:
+                self.flush(codes, blens, nb)
+        self.bufs = {}
 
 
 @dataclass
@@ -290,13 +359,25 @@ def count_fastq(fn, search: _Search, max_e, totals, device):
                 myers_hw_sums_multiword(s.peq_long, s.plenl, codes, lens,
                                         max_e, s.n_words, acc_long)
 
-        _feed(FastxReader(fn), s.lut, flush)
+        native_bases = 0
+        on_native = fn != "-" and native.available()
+        if on_native:
+            blocks = native.iter_records_native(fn, _BATCH_BYTES // 8)
+        else:
+            blocks = _fastx_blocks(FastxReader(fn), _BATCH_BYTES // 8)
+        batches = _Batches(s.lut, flush)
+        for raw, lens in blocks:
+            if sp and on_native:
+                native_bases += raw.size
+            batches.add(raw, lens)
+        batches.close()
         with trace.span("edvaf.drain"):
             acc = acc.cpu().numpy()
             if long_idx:
                 # the dummy lanes' sums give way to the multi-word batch's
                 acc[long_idx] = acc_long.cpu().numpy()
-        sp.set(bases=bases[0], wait_ns=staging.wait_ns)
+        sp.set(bases=bases[0], native_bases=native_bases,
+               wait_ns=staging.wait_ns)
     for i in range(len(totals)):
         totals[i][0] += int(acc[2 * i])
         totals[i][1] += int(acc[2 * i + 1])

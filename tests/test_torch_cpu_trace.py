@@ -399,21 +399,30 @@ def _edvaf_inputs(tmp_path):
 def test_ed_vaf_counter_spans(monkeypatch, tmp_path):
     """With the tracer on, one ed-vaf-counter call over two files (16
     rows a batch): `edvaf.patterns`, then one `edvaf.file` a file with
-    its bases and no staging wait, its `edvaf.drain` inside it, then
-    `edvaf.write`; with it off, nothing and the same VAF file."""
+    its bases, those of the native reader (all of them on its path, none
+    under KMER_TPU_NO_NATIVE=1) and no staging wait, its `edvaf.drain`
+    inside it, then `edvaf.write`; with it off, nothing; the same VAF
+    file all three ways."""
+    from kmer_tpu_torch.io import native
+
     monkeypatch.setattr(ed_vaf_counter, "_BATCH_BYTES", 16 << 10)
     pat, paths, n_bases = _edvaf_inputs(tmp_path)
     out = {}
-    for on in (True, False):
+    for on, path in ((True, "native"), (True, "python"), (False, "native")):
+        if path == "python":
+            monkeypatch.setenv("KMER_TPU_NO_NATIVE", "1")
+        else:
+            monkeypatch.delenv("KMER_TPU_NO_NATIVE", raising=False)
         trace.clear()
         trace.enable(on)
-        vaf = str(tmp_path / f"{on}.vaf")
+        vaf = str(tmp_path / f"{on}{path}.vaf")
         _run("ed-vaf-counter", ["-e1", "-p", pat, "-o", vaf, *paths])
-        out[on] = open(vaf).read()
+        out[on, path] = open(vaf).read()
         rec = trace.spans()
         if not on:
             assert rec == []
             continue
+        on_native = path == "native" and native.available()
         assert [s.name for s in sorted(rec, key=lambda s: s.t0)] == [
             "edvaf.patterns", "edvaf.file", "edvaf.drain", "edvaf.file",
             "edvaf.drain", "edvaf.write"]
@@ -423,5 +432,6 @@ def test_ed_vaf_counter_spans(monkeypatch, tmp_path):
                 n_bases):
             assert drain.parent == f.id
             assert f.t0 <= drain.t0 <= drain.t1 <= f.t1
-            assert f.attrs == {"bases": b, "wait_ns": 0}  # the CPU
-    assert out[True] == out[False]
+            assert f.attrs == {"bases": b, "wait_ns": 0,  # the CPU
+                               "native_bases": b if on_native else 0}
+    assert len(set(out.values())) == 1

@@ -598,6 +598,204 @@ def test_many_small_batches_match_jax(case, patterns, a1_256, crafted,
     assert all(w % 16 == 0 and w <= shape[1] for shape, _, w in batches)
 
 
+def _edge_reads(pat, lens=None, long_lens=()):
+    """Reads of `lens` bases (24 of 30-250 by default), then one a
+    length in long_lens: random flanks around a ref or alt k-mer of the
+    pattern file (a substitution or an indel in every third), some
+    lowercase."""
+    rng = np.random.default_rng(22)
+    if lens is None:
+        lens = [int(x) for x in rng.integers(30, 251, 24)]
+    with open(pat, "rb") as f:
+        kmers = [c for ln in f.read().splitlines()
+                 for c in ln.split(b"\t")[6:8]]
+    reads = []
+    for i, L in enumerate(list(lens) + list(long_lens)):
+        k = kmers[i % len(kmers)]
+        if i % 3 == 0:
+            j = int(rng.integers(1, len(k) - 1))
+            k = k[:j] + (b"" if i % 2 else b"T") + k[j + 1:]
+        flank = np.frombuffer(b"ACGT", np.uint8)[
+            rng.integers(0, 4, max(L, len(k)) - len(k))].tobytes()
+        at = int(rng.integers(0, len(flank) + 1))
+        r = flank[:at] + k + flank[at:]
+        reads.append(r.lower() if i % 5 == 4 else r)
+    return reads
+
+
+def _fastq(reads, nl=b"\n"):
+    return b"".join(b"@r%d x%s%s%s+%s%s%s" % (i, nl, s, nl, nl, b"I" * len(s),
+                                            nl) for i, s in enumerate(reads))
+
+
+def _edge_inputs(reads, long_reads, uniform):
+    """{name: (file bytes, gzip: True, False, or None for bytes that
+    are gzip already)}: the inputs the native path must read as
+    FastxReader does."""
+    fasta = b"".join(b">r%d\n" % i + b"\n".join(
+        s[j:j + 60] for j in range(0, len(s), 60)) + b"\n"
+        for i, s in enumerate(reads))
+    bad = _fastq(reads[:12]) + b"@bad\nACGTACGT\n+\nIIIIIIIIIII\n" + \
+        _fastq(reads[12:])
+    nul = [s[:len(s) // 2] + b"\x00" + s[len(s) // 2 + 1:] if i % 3 else s
+           for i, s in enumerate(reads)]
+    heads = _fastq(reads[:10]) + b"@h1\n>ACGT\n+\nIIIII\n@h2\n@ACGT\n+\n" \
+        b"IIIII\n@h3\n+ACGT\n+\nIIIII\n" + _fastq(reads[10:])
+    whole = gzip.compress(_fastq(reads), 1)
+    half = len(reads) // 2
+    return {
+        "long_reads": (_fastq(long_reads), True),
+        "empty_reads": (b"".join(_fastq([s, b""]) for s in reads), True),
+        "fasta_multiline": (fasta, True),
+        "crlf": (_fastq(reads, b"\r\n") + b">last\r\n" + reads[1] + b"\r",
+                 False),
+        "bad_quality": (bad, True),
+        "truncated_gz": (whole[:len(whole) * 2 // 3], None),
+        "two_member_gz": (gzip.compress(_fastq(reads[:half])) +
+                          gzip.compress(_fastq(reads[half:])), None),
+        "nul_byte": (_fastq(nul), True),
+        "header_chars_in_sequence": (heads, False),
+        "uniform_150": (_fastq(uniform), True),
+    }
+
+
+@pytest.fixture(scope="module")
+def edge_files(crafted, tmp_path_factory):
+    d = tmp_path_factory.mktemp("ed_edges")
+    out = {}
+    reads = _edge_reads(crafted[0])
+    long_reads = _edge_reads(crafted[0], long_lens=(1100, 1600, 2400))[-6:]
+    uniform = _edge_reads(crafted[0], [150] * 200)
+    for name, (data, gz) in _edge_inputs(reads, long_reads,
+                                         uniform).items():
+        out[name] = str(d / (name + (".fq.gz" if gz is not False else
+                                     ".fq")))
+        with open(out[name], "wb") as f:
+            f.write(gzip.compress(data, 1) if gz else data)
+    return out
+
+
+def _port_paths(monkeypatch, args, d, sides=None):
+    """The port's run on the native path and on FastxReader
+    (KMER_TPU_NO_NATIVE=1), with the blocks the native path read;
+    sides(name) is called before each."""
+    from kmer_tpu_torch.io import native
+
+    if not native.available():
+        pytest.skip("the native reader does not build here (g++ or zlib)")
+    blocks = []
+    real = native.iter_records_native
+
+    def spy(path, target_bases):
+        # blocks of 512 bases in a buffer of 1,024: a read past 1,024
+        # bases grows the buffer
+        for raw, lens in real(path, 512):
+            blocks.append(len(lens))
+            yield raw, lens
+
+    monkeypatch.setenv("KMER_TPU_PLATFORM", "cpu")
+    sides = sides or (lambda name: None)
+    with monkeypatch.context() as m:
+        m.setattr(native, "iter_records_native", spy)
+        sides("native")
+        got = _run("kmer_tpu_torch", args, os.path.join(d, "native"),
+                   monkeypatch)
+    with monkeypatch.context() as m:
+        m.setenv("KMER_TPU_NO_NATIVE", "1")
+        sides("python")
+        py = _run("kmer_tpu_torch", args, os.path.join(d, "python"),
+                  monkeypatch)
+    return got, py, blocks
+
+
+@pytest.mark.parametrize("name", sorted(_edge_inputs([b"A"] * 24, [], [])))
+def test_native_reader_path_matches_jax(name, crafted, edge_files,
+                                        tmp_path, monkeypatch):
+    """Each edge input through the port's native reader path (blocks of
+    512 bases) and through FastxReader: reads longer than the reader's
+    buffer, in two buckets and the multiword batch, empty reads,
+    multi-line FASTA, CR line ends (the last line's CR and no newline),
+    a malformed quality section (the stream stops there), a truncated
+    gzip, two gzip members, NUL bytes in reads, sequence lines that
+    start with '>', '@' or '+', uniform 150-base reads.  The VAF file
+    and stderr equal the JAX tool's both ways."""
+    args = ["-e1", "-p", crafted[0], "-o", "n.vaf", edge_files[name]]
+    want = _jax(("edge", name), args, str(tmp_path / "jax"), monkeypatch)
+    got, py, blocks = _port_paths(monkeypatch, args, str(tmp_path))
+    assert want[0] == 0 and got == want and py == want
+    assert len(blocks) >= 1 and sum(blocks) > 0
+    rows = [ln.split("\t") for ln in want[2]["n.vaf"].decode().splitlines()]
+    assert sum(int(r[6]) + int(r[7]) for r in rows[2:]) > 0
+
+
+@pytest.mark.parametrize("case", ["uniform", "ragged"])
+def test_native_batches_equal_fastx_batches(case, crafted, edge_files,
+                                            tmp_path, monkeypatch):
+    """_BATCH_BYTES cut to 24 KiB: every batch the staging uploads, by
+    bucket, is the same on the native path (blocks of 512 bases) as on
+    FastxReader's (blocks of 3,072), the reads' codes over the used
+    width, their lengths, the fill and the width, and so is the number
+    of batches; only the order between buckets may differ.  Each also
+    holds what the JAX tool's batch of that bucket holds, read by read
+    (its whole buffer: 255 past the fill and each read's end, lengths 0
+    past the fill).  Uniform 150-base reads (200 of them); ragged reads
+    (empty ones, 30-2,400 bases, some past the reader's buffer)."""
+    fq = edge_files["uniform_150" if case == "uniform" else "long_reads"]
+    if case == "ragged":
+        with open(fq, "rb") as f:
+            more = gzip.decompress(f.read())
+        fq = str(tmp_path / "ragged.fq.gz")
+        with open(edge_files["empty_reads"], "rb") as f, \
+                open(fq, "wb") as g:
+            g.write(gzip.compress(more + gzip.decompress(f.read())))
+    args = ["-e1", "-p", crafted[0], "-o", "b.vaf", fq]
+    monkeypatch.setattr(TT, "_BATCH_BYTES", 24 << 10)
+    monkeypatch.setattr(JT, "_BATCH_BYTES", 24 << 10)
+    by = {}  # side -> {buffer shape: [(codes, lens, fill, width)]}
+    real = TT._Staging.upload
+    real_jax = JT.myers_hw_counts
+
+    def upload(self, codes, lens, nb):
+        w = TT._width(lens, nb)
+        by[side[0]].setdefault(codes.shape, []).append(
+            (codes[:nb, :w].tobytes(), lens[:nb].tolist(), nb, w))
+        return real(self, codes, lens, nb)
+
+    def jax_counts(peq, plen, codes, lens, max_e):
+        jax_by.setdefault(codes.shape, []).append(
+            (np.asarray(codes).tobytes(), np.asarray(lens).tolist()))
+        return real_jax(peq, plen, codes, lens, max_e)
+
+    def sides(name):
+        side[0] = name
+        by[name] = {}
+
+    side, jax_by = [None], {}
+    monkeypatch.setattr(TT._Staging, "upload", upload)
+    with monkeypatch.context() as m:
+        m.setattr(JT, "myers_hw_counts", jax_counts)
+        want = _run("kmer_tpu", args, str(tmp_path / "jax"), monkeypatch)
+    got, py, blocks = _port_paths(monkeypatch, args, str(tmp_path), sides)
+    assert got == py == want and got[0] == 0
+    assert by["native"] == by["python"]
+    batches = [(shape, b) for shape, bs in by["native"].items() for b in bs]
+    assert len(blocks) >= 2 and len(batches) >= 4
+    if case == "uniform":
+        assert list(by["native"]) == [(24, 1024)]
+    else:
+        assert {shape[1] for shape, _ in batches} == {1024, 4096}
+    assert any(b[2] == shape[0] for shape, b in batches)
+    assert any(b[2] < shape[0] for shape, b in batches)
+    port = {}
+    for (rows, bucket), bs in by["native"].items():
+        for codes, lens, nb, w in bs:
+            full = np.full((rows, bucket), 255, np.uint8)
+            full[:nb, :w] = np.frombuffer(codes, np.uint8).reshape(nb, w)
+            port.setdefault((rows, bucket), []).append(
+                (full.tobytes(), lens + [0] * (rows - nb)))
+    assert port == jax_by
+
+
 def test_batch_width_is_the_longest_read_rounded_to_16():
     lens = np.array([0, 150, 17, 0], np.int32)
     assert TT._width(lens, 4) == 160 and TT._width(lens, 3) == 160
