@@ -52,11 +52,11 @@ from .. import default_device
 from ..kernels import extract
 from ..kernels.keys import SENT, from_hi_lo, to_hi_lo
 from ..table import count_table as ct
-from ..table.compactor import KmerCompactor, stream_sorted_default
+from ..table.compactor import KmerCompactor
 from ..utils import trace
 
 
-# stream-sorted mode: each shard's run quantum and smallest padded run
+# each shard's stream-ladder run quantum and smallest padded run
 # (sharded.py:410-413: a device owns 1/n_dev of the lanes, so its runs
 # are smaller than the single-device compactor's 2^24 / 2^16)
 _MESH_STREAM_CHUNK = 1 << 22
@@ -271,7 +271,6 @@ class ShardedSortEngine:
     kernels' plain PyTorch versions, as SortCountEngine's switch does."""
 
     def __init__(self, mesh: Mesh, k: int, budget_bytes: int = 2 << 30,
-                 stream_sorted: Optional[bool] = None,
                  plain_kernels: bool = False):
         self.mesh = mesh
         self.k = k
@@ -282,9 +281,6 @@ class ShardedSortEngine:
             raise ValueError(f"mesh must have a power-of-two device count, "
                              f"got {self.n_dev}")
         self.budget_bytes = budget_bytes
-        self.stream_sorted = (stream_sorted_default(mesh.devices[0])
-                              if stream_sorted is None
-                              else bool(stream_sorted))
         self.plain_kernels = plain_kernels
         self._extract = (extract.extract_keys_plain if plain_kernels
                          else extract.extract_keys)
@@ -297,7 +293,6 @@ class ShardedSortEngine:
         self.shards = [
             KmerCompactor(dev, budget_bytes=self.budget_bytes,
                           key_bits=2 * self.k,
-                          stream_sorted=self.stream_sorted,
                           plain_kernels=self.plain_kernels,
                           stream_chunk=_MESH_STREAM_CHUNK,
                           stream_min=_MESH_STREAM_MIN)

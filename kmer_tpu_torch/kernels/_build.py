@@ -45,9 +45,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 LAUNCHES = {"extract": 0, "seghist": 0, "merge_partition": 0,
             "merge_path": 0, "merge_partition1": 0, "merge_path1": 0,
-            "merge_partition3": 0, "merge_path3": 0, "merge_tile": 0,
-            "merge_xstage": 0, "merge_tile1": 0, "merge_xstage1": 0,
-            "merge_tile3": 0, "merge_xstage3": 0, "resolve": 0, "myers": 0,
+            "merge_partition3": 0, "merge_path3": 0, "resolve": 0, "myers": 0,
             "myers_multiword": 0}
 
 _P = ctypes.c_void_p
@@ -60,15 +58,6 @@ _SIGNATURES = {
     "ktt_extract_per_thread": [],
     "ktt_seghist": [_P, _P, _I64, _I32, _I32, _I32, _P, _P, _P],
     "ktt_seghist_tile_lanes": [],
-    "ktt_merge_xstage": [_P, _I64, _I64, _P],
-    "ktt_merge_tiles": [_P, _I64, _I32, _P],
-    "ktt_merge_tile_bits": [],
-    "ktt_merge_xstage1": [_P, _I64, _I64, _P],
-    "ktt_merge_tiles1": [_P, _I64, _I32, _P],
-    "ktt_merge_tile_bits1": [],
-    "ktt_merge_xstage3": [_P, _P, _I64, _I64, _P],
-    "ktt_merge_tiles3": [_P, _P, _I64, _I32, _P],
-    "ktt_merge_tile_bits3": [],
     "ktt_merge_tile_lanes": [],
     "ktt_merge_partition": [_P, _I64, _P, _I64, _P, _P],
     "ktt_merge_path": [_P, _I64, _P, _I64, _P, _P, _P],

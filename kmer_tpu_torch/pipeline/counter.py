@@ -46,7 +46,7 @@ from .. import default_device
 from ..io import fastx, native, packing
 from ..kernels import extract
 from ..kernels.keys import from_hi_lo, to_hi_lo
-from ..table.compactor import KmerCompactor, stream_sorted_default
+from ..table.compactor import KmerCompactor
 from ..utils import trace
 
 # the open-addressing tables' load factor (counter.py:36): the yak table
@@ -465,7 +465,6 @@ class SortCountEngine:
         # one int32 plane (table/compactor.py)
         self.compactor = KmerCompactor(
             self.device, budget_bytes=budget_bytes, key_bits=2 * k,
-            stream_sorted=stream_sorted_default(self.device),
             plain_kernels=plain_kernels,
         )
         self.total_bases = 0

@@ -48,7 +48,7 @@ from ..kernels import bloom
 from ..kernels.bloom import BLK_SHIFT, BloomSpec
 from ..kernels.keys import SENT
 from ..table import count_table as ct
-from ..table.compactor import KmerCompactor, stream_sorted_default
+from ..table.compactor import KmerCompactor
 from ..utils.log import warn
 from .counter import (GROW_LOAD, IngestStats, _extracted_blocks, mesh_steps,
                       use_mesh)
@@ -472,10 +472,8 @@ class SortYakEngine:
         self.stats = []
 
     def _mk(self) -> KmerCompactor:
-        return KmerCompactor(
-            self.device, key_bits=2 * self.k,
-            stream_sorted=stream_sorted_default(self.device),
-            plain_kernels=self.plain_kernels)
+        return KmerCompactor(self.device, key_bits=2 * self.k,
+                             plain_kernels=self.plain_kernels)
 
     def count(self, paths: Sequence[str], create_new: bool) -> None:
         """One pass: pass 1 (create_new) admits through the bloom into

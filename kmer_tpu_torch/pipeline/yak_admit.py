@@ -68,13 +68,6 @@ def _sort_by_key(keys: torch.Tensor, idx: torch.Tensor):
     return keys, idx[order]
 
 
-def _sort_key_idx(keys: torch.Tensor, idx: torch.Tensor):
-    """(key, idx) lexicographic sort of arbitrary lanes: by idx first,
-    then stably by key."""
-    idx, order = torch.sort(idx)
-    return _sort_by_key(keys[order], idx)
-
-
 def _first2_keep(keys: torch.Tensor, idx: torch.Tensor):
     """Each key's first TWO lanes of (key, idx)-sorted lanes, in order,
     sentinel lanes dropped (yak_admit.py:77-102).  Input may mix raw
@@ -85,11 +78,6 @@ def _first2_keep(keys: torch.Tensor, idx: torch.Tensor):
     second[1:] = starts[:-1] & ~starts[1:]
     keep = (starts | second) & (keys != SENT)
     return keys[keep], idx[keep]
-
-
-def _first2_compact(keys: torch.Tensor, idx: torch.Tensor):
-    """Classic-mode form: sort by (key, idx), then keep the first two."""
-    return _first2_keep(*_sort_key_idx(keys, idx))
 
 
 def _first2_meta(keys: torch.Tensor, idx: torch.Tensor):
@@ -201,39 +189,27 @@ def _pad_bounds(bounds: List[int]) -> np.ndarray:
 class FirstSeenCompactor:
     """Accumulate (key, global lane index) lanes; keep, under a memory
     budget, a compacted run of each distinct key's first two occurrence
-    lanes (yak_admit.py:265-417).
+    lanes (yak_admit.py:265-417, its stream-sorted form).
 
-    * classic: raw runs keep the key plane and an integer base (the
-      index plane is an iota made at compaction); a budget trip sorts
-      everything by (key, idx).
-    * stream-sorted (the CUDA default, table.compactor.
-      stream_sorted_default): each 2^24-lane chunk is sorted by (key,
-      idx) as it arrives and carry-merged up a ladder of sorted runs
-      with the (key, index) merge path (kernels/merge.py `merge_runs3`,
-      out of place), so trips and the end pay merges and one keep pass,
-      never a bulk re-sort.
-      The index is unique, so (key, idx) is a total order.  16 B a raw
-      lane (key and index) against classic's 8.
+    Each 2^24-lane chunk is sorted by (key, idx) as it arrives and
+    carry-merged up a ladder of sorted runs with the (key, index) merge
+    path (kernels/merge.py `merge_runs3`, out of place), so trips and the
+    end pay merges and one keep pass, never a bulk re-sort.  The index is
+    unique, so (key, idx) is a total order.  The budget counts 16 B a raw
+    lane (key and index).
 
     `plain_kernels=True` merges with the plain PyTorch version on any
     device (as table.compactor.KmerCompactor)."""
 
     def __init__(self, device, budget_bytes: int = 1 << 30,
-                 stream_sorted: Optional[bool] = None,
                  plain_kernels: bool = False):
-        from ..table.compactor import stream_sorted_default
-
         self.device = torch.device(device)
-        self.runs: List[Tuple] = []  # (keys, idx plane or int base)
         self.budget_bytes = budget_bytes
         self._bytes = 0
-        self.stream_sorted = (stream_sorted_default(self.device)
-                              if stream_sorted is None
-                              else bool(stream_sorted))
         self._merge = (merge.merge_runs3_plain if plain_kernels
                        else merge.merge_runs3)
-        self.stream = self._make_ladder() if self.stream_sorted else None
-        self._compacted: Optional[Tuple] = None  # stream mode first-2 run
+        self.stream = self._make_ladder()
+        self._compacted: Optional[Tuple] = None  # the standing first-2 run
         self.trips = 0  # budget-trip compactions
 
     def _make_ladder(self):
@@ -269,34 +245,14 @@ class FirstSeenCompactor:
 
     def add_raw(self, keys: torch.Tensor, base: int) -> None:
         n = int(keys.shape[0])
-        if self.stream_sorted:
-            idx = torch.arange(base, base + n, device=keys.device)
-            self.stream.add((keys, idx))
-            self._bytes += n * 16
-        else:
-            self.runs.append((keys, int(base)))
-            self._bytes += n * 8
+        idx = torch.arange(base, base + n, device=keys.device)
+        self.stream.add((keys, idx))
+        self._bytes += n * 16
         if self._bytes > self.budget_bytes:
             self.trips += 1
             self.compact()
 
-    def _concat(self):
-        keys = torch.cat([r[0] for r in self.runs])
-        idx = torch.cat([
-            torch.arange(r[1], r[1] + r[0].shape[0], device=r[0].device)
-            if isinstance(r[1], int) else r[1]
-            for r in self.runs])
-        return keys, idx
-
     def compact(self) -> None:
-        if self.stream_sorted:
-            self._compact_stream()
-            return
-        if not self.runs:
-            return
-        self._shrink(*_first2_compact(*self._concat()))
-
-    def _compact_stream(self) -> None:
         if not self.stream:
             return  # no new lanes since the last compact
         planes = self.stream.planes()
@@ -306,22 +262,14 @@ class FirstSeenCompactor:
             # (the JAX package pads both to one power of two for its
             # bitonic network; a merge path takes unequal runs)
             planes = self._merge_runs(self._compacted, planes)
-        self._shrink(*_first2_keep(*planes))
-
-    def _shrink(self, keys: torch.Tensor, idx: torch.Tensor) -> None:
-        if self.stream_sorted:
-            self._compacted = (keys, idx)
-        else:
-            self.runs = [(keys, idx)]
+        keys, idx = self._compacted = _first2_keep(*planes)
         self._bytes = int(keys.shape[0]) * 16
 
     def first2_planes(self):
         """The compacted first-2 (keys, idx) planes, or None if nothing
         was ever added."""
         self.compact()
-        if self.stream_sorted:
-            return self._compacted
-        return self.runs[0] if self.runs else None
+        return self._compacted
 
 
 class DeferredYakAdmission:
@@ -332,13 +280,11 @@ class DeferredYakAdmission:
     occurrence."""
 
     def __init__(self, spec: Optional[bloom.BloomSpec], use_bloom: bool,
-                 budget_bytes: int = 1 << 30,
-                 stream_sorted: Optional[bool] = None, device="cpu",
+                 budget_bytes: int = 1 << 30, device="cpu",
                  plain_kernels: bool = False):
         self.spec = spec
         self.use_bloom = bool(use_bloom and spec is not None)
-        self.fs = FirstSeenCompactor(device, budget_bytes, stream_sorted,
-                                     plain_kernels)
+        self.fs = FirstSeenCompactor(device, budget_bytes, plain_kernels)
         self._base = 0
         self.bounds: List[int] = []  # exclusive end lane per batch
         self._pending = False
@@ -413,12 +359,11 @@ class ShardedDeferredYak:
 
     def __init__(self, mesh, spec: Optional[bloom.BloomSpec],
                  use_bloom: bool, budget_bytes: int = 1 << 30,
-                 stream_sorted: Optional[bool] = None,
                  plain_kernels: bool = False):
         self.mesh = mesh
         self.shards = [
-            DeferredYakAdmission(spec, use_bloom, budget_bytes,
-                                 stream_sorted, dev, plain_kernels)
+            DeferredYakAdmission(spec, use_bloom, budget_bytes, dev,
+                                 plain_kernels)
             for dev in mesh.devices]
 
     def add_chunk(self, owned, step_end: bool = True) -> None:

@@ -5,6 +5,9 @@ Keys are biased int64 (kernels/keys.py): one plane carries what the JAX
 package keeps as (hi, lo).  Counts are int32 holding the JAX package's
 uint32 counts.
 
+Accumulation is stream-sorted on every device, as in the JAX package's
+stream-sorted engine; the port has no other.
+
 One-plane mode (`key_bits <= 30`, i.e. k <= 15): as in the JAX package,
 the stream ladder then holds one 32-bit key plane, sorts and merges it
 (kernels/merge.py `merge_runs` on int32 runs) and counts 4 bytes a raw
@@ -12,22 +15,23 @@ lane against the budget.  Keys narrow to int32 once,
 where they enter the ladder, and widen back to biased int64 where the
 ladder folds into `_compact` / `_hist_sorted` (as the JAX package derives
 its hi plane there, compactor.py:165-171), so the segment histogram
-stays the int64 kernel.  Classic mode keeps int64 lanes.
+stays the int64 kernel.
 
-  add_raw      append sentinelized key planes; classic mode keeps a run
-               list, stream-sorted mode sorts 2^24-lane chunks as they
-               arrive and carry-merges them up a binary ladder
+  add_raw      append sentinelized key planes: 2^24-lane chunks are
+               sorted as they arrive and carry-merged up a binary ladder
                (table/stream_ladder.py) with the merge-path kernels
                (kernels/merge.py `merge_runs`, out of place): int64
                runs, or int32 runs in one-plane mode.
+  add_counted  append a (key, count) run in any order (a resumed
+               checkpoint, a mesh shard's counts).
   compact      fold everything into the standing plane, one strictly
-               ascending (key, count) run (`fold`): the runs not known
-               to be sorted compact with one sort, the ladder run by
-               ladder run (`_stream_runs`), and those runs and the
-               standing plane merge by merge path (kernels/merge.py
-               `merge_runs3`, the count a payload) into one segment
-               reduce.  The budget counts the raw bytes added since the
-               last fold, so a trip fires once a budget of new lanes.
+               ascending (key, count) run (`fold`): `add_counted`'s runs
+               compact with one sort, the ladder run by ladder run
+               (`_stream_runs`), and those runs and the standing plane
+               merge by merge path (kernels/merge.py `merge_runs3`, the
+               count a payload) into one segment reduce.  The budget
+               counts the raw bytes added since the last fold, so a trip
+               fires once a budget of new lanes.
   hist         histogram of per-key counts through the one-pass
                segment-histogram kernel (kernels/seghist.py
                `segment_hist_sorted`).
@@ -74,28 +78,17 @@ from ..kernels.keys import SENT, SENT32, from_hi_lo, narrow, to_u64, widen
 from ..kernels.segops import segment_starts
 from ..utils import trace
 
-# stream-sorted mode: raw keys fold into sorted runs of this many lanes
-# as they arrive, and finalization pays only the ladder merges
+# raw keys fold into sorted runs of this many lanes as they arrive, and
+# finalization pays only the ladder merges
 _STREAM_CHUNK = 1 << 24
 _STREAM_MIN = 1 << 16
-# pushed chunks the host may run ahead of the device in stream mode,
-# unless KMER_TPU_THROTTLE_WINDOW says otherwise
+# pushed chunks the host may run ahead of the device, unless
+# KMER_TPU_THROTTLE_WINDOW says otherwise
 _THROTTLE_WINDOW = 4
 # KMER_TPU_DEBUG cross-checks made in this process, by method
 DEBUG_CHECKS = {"hist": 0, "counts_for": 0}
 
 Run = Tuple[torch.Tensor, Optional[torch.Tensor]]  # (keys, counts or None)
-
-
-def stream_sorted_default(device: torch.device) -> bool:
-    """Stream-sorted accumulation is on for CUDA engines and off on the
-    CPU; KMER_TPU_STREAM_SORT=1/0 overrides (compactor.py:55-64)."""
-    env = os.environ.get("KMER_TPU_STREAM_SORT", "").strip().lower()
-    if env in ("1", "true", "on", "yes"):
-        return True
-    if env in ("0", "false", "off", "no"):
-        return False
-    return torch.device(device).type == "cuda"
 
 
 def throttle_window() -> int:
@@ -113,14 +106,8 @@ def debug_enabled() -> bool:
 
 
 def _concat_runs(runs: List[Run]) -> Run:
-    """Concatenate runs; raw runs (counts None) get count 1."""
-    keys = torch.cat([r[0] for r in runs])
-    if all(r[1] is None for r in runs):
-        return keys, None
-    counts = torch.cat([r[1] if r[1] is not None
-                        else torch.ones_like(r[0], dtype=torch.int32)
-                        for r in runs])
-    return keys, counts
+    """Concatenate (keys, counts) runs."""
+    return torch.cat([r[0] for r in runs]), torch.cat([r[1] for r in runs])
 
 
 def _sort(keys: torch.Tensor, counts: Optional[torch.Tensor]) -> Run:
@@ -352,8 +339,7 @@ class KmerCompactor:
     # package, but counted since the last fold: the standing plane's
     # bytes do not trip it (the JAX package counts them, 12 a key).
     def __init__(self, device, budget_bytes: int = 2 << 30,
-                 key_bits: Optional[int] = None,
-                 stream_sorted: bool = False, plain_kernels: bool = False,
+                 key_bits: Optional[int] = None, plain_kernels: bool = False,
                  stream_chunk: Optional[int] = None,
                  stream_min: Optional[int] = None):
         self.device = torch.device(device)
@@ -361,13 +347,12 @@ class KmerCompactor:
         # shard takes smaller ones, as the JAX package's mesh does)
         self.stream_chunk = stream_chunk or _STREAM_CHUNK
         self.stream_min = stream_min or _STREAM_MIN
+        # add_counted's runs, and at runs[0] the standing plane, the last
+        # fold's strictly ascending run; no other run's order is known
         self.runs: List[Run] = []
-        # runs[0] is the standing plane, the last fold's strictly
-        # ascending run; no other run's order is known
         self._standing = False
         self.budget_bytes = budget_bytes
         self._bytes = 0  # raw bytes added since the last fold
-        self.stream_sorted = bool(stream_sorted)
         # keys < 2^30 (k <= 15 after hash64) fit one int32 plane whose
         # sentinel INT32_MAX no key can equal (compactor.py:311-313 takes
         # key_bits <= 31 for its u32 plane, whose sentinel is 2^32 - 1)
@@ -383,14 +368,11 @@ class KmerCompactor:
         self._events: deque = deque()
         self._throttle_window = throttle_window()
         self.last_n_unique = 0  # distinct keys as of the last compact()
-        self.stream = self._make_ladder() if self.stream_sorted else None
+        self.stream = self._make_ladder()
 
     def add_raw(self, keys: torch.Tensor) -> None:
         """Append sentinelized keys (invalid lanes already SENT)."""
-        if not self.stream_sorted:
-            self.runs.append((keys, None))
-            self._bytes += int(keys.shape[0]) * 8
-        elif self.one_plane:
+        if self.one_plane:
             self.stream.add((narrow(keys),))
             self._bytes += int(keys.shape[0]) * 4
         else:
@@ -403,7 +385,7 @@ class KmerCompactor:
         self.runs.append((keys, counts.to(torch.int32)))
         self._bytes += int(keys.shape[0]) * 12
 
-    # -- stream-sorted accumulation ------------------------------------
+    # -- the stream ladder ---------------------------------------------
 
     def _make_ladder(self):
         from .stream_ladder import StreamLadder
@@ -490,11 +472,10 @@ class KmerCompactor:
 
     def _compact_all(self) -> None:
         """Fold every run into the standing plane.  The new runs are
-        the ladder's (`_stream_runs`) and one of all the others but the
-        standing plane (classic raw runs, `add_counted`'s: their order
-        is not known), compacted with one sort.  They fold into the
-        standing plane under a `compactor.fold` span, or make the first
-        one."""
+        the ladder's (`_stream_runs`) and one of `add_counted`'s (their
+        order is not known), compacted with one sort.  They fold into
+        the standing plane under a `compactor.fold` span, or make the
+        first one."""
         standing = self.runs.pop(0) if self._standing else None
         loose, self.runs = self.runs, []
         new = self._stream_runs() if self.stream else []
@@ -533,15 +514,12 @@ class KmerCompactor:
 
     def _sorted_plane(self) -> Optional[Run]:
         """The sorted (keys, counts or None) plane that ends a count, or
-        None when the engine holds nothing: stream only -> the merged
-        ladder plane; runs whose order is not known only (classic mode
-        before a trip, `add_counted`'s) -> concat + sort; else the
-        standing plane, after `compact` folds the rest into it."""
+        None when the engine holds nothing: the ladder alone -> its
+        merged plane; else the standing plane, after `compact` folds the
+        rest into it."""
         if not self.runs:
             return (self._stream_keys(), None) if self.stream else None
-        if not (self._standing or self.stream):
-            return _sort(*_concat_runs(self.runs))
-        if self.stream or len(self.runs) > 1:
+        if self.stream or len(self.runs) > int(self._standing):
             self.compact()
         return self.runs[0]
 

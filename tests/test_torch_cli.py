@@ -1,9 +1,8 @@
-"""kc-c1..c4 and single-file yak-count of the port (kmer_tpu_torch.tools)
-against kmer_tpu.tools: kc stdout must be byte-identical on both fixtures
-at k in {15, 21, 31, 32}; yak-count stdout and its ordered `[M` stderr
-lines on the reads fixture, with stream-sorted accumulation off and on.
-Also pins that the port never imports jax nor anything of kmer_tpu (it
-carries its own copies of the host modules it shares with it)."""
+"""kc-c1..c4 of the port (kmer_tpu_torch.tools) against kmer_tpu.tools:
+stdout must be byte-identical on both fixtures at k in {15, 21, 31, 32}
+(yak-count is tests/test_torch_cli_yak.py).  Also pins that the port
+never imports jax nor anything of kmer_tpu (it carries its own copies of
+the host modules it shares with it)."""
 
 import os
 import subprocess
@@ -216,108 +215,3 @@ def test_launcher_runs_a_tool():
     r = subprocess.run([sys.executable, os.path.join(REPO, "ktc_torch")],
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 1 and "kc-c4" in r.stderr
-
-
-# -- yak-count (single file) ------------------------------------------
-
-YAK_ARGS = [["-k31"], ["-k31", "-b22"], ["-k21", "-b20", "-H3"],
-            ["-k21", "-b19", "-K30000"], ["-k21", "-K25000"],
-            ["-k15", "-b20"]]
-_yak_want = {}
-
-
-def _yak(pkg, args, capsys):
-    """(rc, stdout, the ordered `[M` stderr lines) of one yak-count run."""
-    import importlib
-
-    rc = importlib.import_module(f"{pkg}.tools").get_tool("yak-count")(args)
-    cap = capsys.readouterr()
-    return rc, cap.out, [ln for ln in cap.err.splitlines()
-                         if ln.startswith("[M")]
-
-
-def _yak_jax(args, capsys):
-    key = tuple(args)
-    if key not in _yak_want:
-        _yak_want[key] = _yak("kmer_tpu", [*args, READS], capsys)
-    return _yak_want[key]
-
-
-@pytest.mark.parametrize("mode", ["default", "stream_trips"])
-@pytest.mark.parametrize("args", YAK_ARGS, ids=" ".join)
-def test_yak_count_matches_jax(args, mode, capsys, monkeypatch):
-    """stdout (1023 rows) and the `[M` lines equal the JAX package's.
-    stream_trips: stream-sorted accumulation in the engine and the tap,
-    a small stream chunk and a small tap budget, so the (key, index)
-    ladder merges runs and the tap compacts on budget trips (through
-    the plain merge versions on the CPU)."""
-    from kmer_tpu_torch.pipeline import yak
-    from kmer_tpu_torch.table import compactor
-
-    want = _yak_jax(args, capsys)
-    monkeypatch.setenv("KMER_TPU_PLATFORM", "cpu")
-    trips = []
-    if mode == "stream_trips":
-        monkeypatch.setenv("KMER_TPU_STREAM_SORT", "1")
-        monkeypatch.setenv("KMER_TPU_TAP_BUDGET", str(1 << 20))
-        monkeypatch.setattr(compactor, "_STREAM_CHUNK", 1 << 15)
-        real = yak.YakSimTap.finish_batches
-
-        def finish(self):
-            assert self.adm.fs.stream_sorted
-            real(self)
-            trips.append(self.budget_trips)
-
-        monkeypatch.setattr(yak.YakSimTap, "finish_batches", finish)
-    got = _yak("kmer_tpu_torch", [*args, READS], capsys)
-    assert want[0] == 0 and len(want[1].splitlines()) == 1023
-    assert want[2][-1].startswith("[M::main]")
-    assert got == want
-    if mode == "stream_trips":
-        assert trips and trips[0] > 0
-    if args == ["-k21", "-b19", "-K30000"]:
-        assert sum(ln.startswith("[M] ") for ln in got[2]) == 20
-    if args == ["-k15", "-b20"]:
-        assert "23242 distinct k-mers in the hash" in got[2][0]
-        assert got[2][-1] == "[M::main] 23236 distinct k-mers after shrinking"
-
-
-@pytest.mark.parametrize("args", [[], ["-k0", READS], ["-k33", READS],
-                                  ["-p5", READS], ["/nonexistent.fa"]])
-def test_yak_count_errors_match_jax(args, capsys, monkeypatch):
-    """Usage and error text (stderr) and exit codes are identical."""
-    from kmer_tpu.tools import get_tool as jax_tool
-    from kmer_tpu_torch.tools import get_tool
-
-    rc_want = jax_tool("yak-count")(args)
-    want = capsys.readouterr()
-    monkeypatch.setenv("KMER_TPU_PLATFORM", "cpu")
-    rc = get_tool("yak-count")(args)
-    got = capsys.readouterr()
-    assert rc_want == 1
-    assert (rc, got.out, got.err) == (rc_want, want.out, want.err)
-
-
-def test_yak_count_fast_matches_jax(capsys, monkeypatch):
-    """KMER_TPU_FAST_YAK=1 skips the simulation: one summary line."""
-    monkeypatch.setenv("KMER_TPU_FAST_YAK", "1")
-    want = _yak("kmer_tpu", ["-k21", "-b20", READS], capsys)
-    monkeypatch.setenv("KMER_TPU_PLATFORM", "cpu")
-    got = _yak("kmer_tpu_torch", ["-k21", "-b20", READS], capsys)
-    assert got == want
-    assert len(got[2]) == 2 and got[2][0].startswith("[M] processed 3000 ")
-
-
-def test_yak_count_two_files_run(capsys, monkeypatch):
-    """Two different files run the two-pass engine: exit 0, stdout and
-    `[M` lines equal the JAX package's; the same file twice is
-    single-file mode."""
-    want = _yak("kmer_tpu", ["-k21", "-b20", READS, GENOME], capsys)
-    monkeypatch.setenv("KMER_TPU_PLATFORM", "cpu")
-    got = _yak("kmer_tpu_torch", ["-k21", "-b20", READS, GENOME], capsys)
-    assert got[0] == 0 and len(got[1].splitlines()) == 1023
-    assert got == want
-    # the same file twice is single-file mode
-    assert got != _yak("kmer_tpu_torch", ["-k21", "-b20", READS, READS],
-                       capsys)
-    assert _yak("kmer_tpu_torch", ["-k21", READS, READS], capsys)[0] == 0

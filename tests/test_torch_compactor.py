@@ -1,8 +1,9 @@
 """The port's KmerCompactor and SortCountEngine against the JAX package's
-on the CPU: hist and n_distinct, with stream-sorted accumulation on and
-off, a small stream chunk (as tests/test_stream_sorted.py runs it),
-forced budget trips, and state carried over from a JAX checkpoint.
-All comparisons are exact (integer outputs)."""
+on the CPU: hist and n_distinct, the port's one stream-sorted path held
+against the JAX package's classic and stream-sorted engines, a small
+stream chunk (as tests/test_stream_sorted.py runs it), forced budget
+trips, and state carried over from a JAX checkpoint.  All comparisons
+are exact (integer outputs)."""
 
 import os
 
@@ -40,9 +41,11 @@ def _batches(rng, n_batches, lanes_lo, lanes_hi, key_bits=40,
 
 
 def _pair(batches, budget=2 << 30, stream=False, key_bits=40):
+    """The JAX compactor (classic, or stream-sorted when `stream`) and
+    the port's, fed the same batches."""
     j = JC.KmerCompactor(budget_bytes=budget, key_bits=key_bits,
                          stream_sorted=stream)
-    t = TC.KmerCompactor("cpu", budget_bytes=budget, stream_sorted=stream)
+    t = TC.KmerCompactor("cpu", budget_bytes=budget)
     for hi, lo in batches:
         j.add_raw(jnp.asarray(hi), jnp.asarray(lo))
         t.add_raw(keys.from_hi_lo(hi, lo))
@@ -65,6 +68,15 @@ def small_chunk(monkeypatch):
         monkeypatch.setattr(mod, "_STREAM_MIN", 1 << 8)
 
 
+def _set_port_chunk(monkeypatch, chunk):
+    """The port's ladder chunk: "default" (2^24 lanes, so a small input
+    stays pending until the end: the tail-only fold, pad + sort) or
+    "small" (1,024 lanes, so runs merge up the ladder as they arrive)."""
+    if chunk == "small":
+        monkeypatch.setattr(TC, "_STREAM_CHUNK", 1 << 10)
+        monkeypatch.setattr(TC, "_STREAM_MIN", 1 << 8)
+
+
 @pytest.mark.parametrize("stream", [False, True])
 @pytest.mark.parametrize("key_bits", [40, 30, 64])
 def test_hist_matches_jax(stream, key_bits, small_chunk):
@@ -85,8 +97,7 @@ def test_two_plane_ladder_merges_with_merge_path(plain_kernels, small_chunk):
     rng = np.random.default_rng(17)
     batches = _batches(rng, 9, 300, 5000)
     j, _ = _pair(batches, stream=True)
-    t = TC.KmerCompactor("cpu", stream_sorted=True,
-                         plain_kernels=plain_kernels)
+    t = TC.KmerCompactor("cpu", plain_kernels=plain_kernels)
     assert t._merge is (merge.merge_runs_plain if plain_kernels
                         else merge.merge_runs)
     merges = []
@@ -116,8 +127,7 @@ def test_one_plane_ladder_merges_with_merge_path(plain_kernels, small_chunk):
     rng = np.random.default_rng(23)
     batches = _batches(rng, 9, 300, 5000, key_bits=30)
     j = JC.KmerCompactor(key_bits=30, stream_sorted=True)
-    t = TC.KmerCompactor("cpu", key_bits=30, stream_sorted=True,
-                         plain_kernels=plain_kernels)
+    t = TC.KmerCompactor("cpu", key_bits=30, plain_kernels=plain_kernels)
     assert j.one_plane and t.one_plane
     assert t._merge is (merge.merge_runs_plain if plain_kernels
                         else merge.merge_runs)
@@ -140,11 +150,17 @@ def test_one_plane_ladder_merges_with_merge_path(plain_kernels, small_chunk):
     assert merges and {m[:2] for m in merges} == {(torch.int32, torch.int32)}
 
 
-@pytest.mark.parametrize("stream", [False, True])
-def test_default_chunk_small_input(stream):
-    """Input far below one chunk: the tail-only fold (pad + sort)."""
+@pytest.mark.parametrize("chunk", ["default", "small"])
+def test_default_chunk_small_input(chunk, monkeypatch):
+    """A few thousand lanes: far below the default chunk, the tail-only
+    fold (pad + sort); with a small chunk, ladder merges and a tail."""
+    _set_port_chunk(monkeypatch, chunk)
     rng = np.random.default_rng(9)
-    j, t = _pair(_batches(rng, 2, 100, 3000), stream=stream)
+    j, t = _pair(_batches(rng, 2, 100, 3000))
+    if chunk == "small":
+        assert t.stream.ladder and t.stream.pending
+    else:
+        assert not t.stream.ladder
     _same_hists(j, t)
 
 
@@ -196,18 +212,16 @@ def _same_compacted(j, t, u):
     pytest.param(False, 30, id="False-one_plane"),
     pytest.param(True, 30, id="True-one_plane")])
 def test_budget_trips_match_jax(stream, key_bits, small_chunk):
-    """A small budget forces many folds mid-stream, in stream mode (the
-    ladder compacted run by run) and classic mode (the raw runs sorted
-    once), one-plane and two-plane: each fold merges new counted runs
-    into the standing plane.  The weighted segment histogram, counts_for
-    (duplicates and absent keys), last_n_unique and the run after
-    compact() all equal the JAX package's, which counts without trips,
-    and the port's without trips."""
+    """A small budget forces many folds mid-stream (the ladder compacted
+    run by run), one-plane and two-plane: each fold merges new counted
+    runs into the standing plane.  The weighted segment histogram,
+    counts_for (duplicates and absent keys), last_n_unique and the run
+    after compact() all equal the JAX package's in the mode `stream`
+    names, which counts without trips, and the port's without trips."""
     rng = np.random.default_rng(5 + stream + 100 * (key_bits != 40))
     batches = _batches(rng, 12, 2000, 4000, key_bits)
     j = JC.KmerCompactor(key_bits=key_bits, stream_sorted=stream)
-    t, u = (TC.KmerCompactor("cpu", budget_bytes=budget, key_bits=key_bits,
-                             stream_sorted=stream)
+    t, u = (TC.KmerCompactor("cpu", budget_bytes=budget, key_bits=key_bits)
             for budget in (20_000, 2 << 30))
     trips = _count_trips(t)
     for hi, lo in batches:
@@ -216,7 +230,7 @@ def test_budget_trips_match_jax(stream, key_bits, small_chunk):
             c.add_raw(keys.from_hi_lo(hi, lo))
     assert t.one_plane == (key_bits == 30)
     assert t.runs and t.runs[0][1] is not None  # compacted
-    assert len(trips) >= 5 and all(c is None for _, c in u.runs)
+    assert len(trips) >= 5 and not u.runs
     qhi, qlo = _queries(rng, batches, key_bits)
     want = j.counts_for(qhi, qlo)
     assert np.array_equal(t.counts_for(qhi, qlo), want)
@@ -230,9 +244,9 @@ def test_budget_trips_match_jax(stream, key_bits, small_chunk):
 def test_unsorted_counted_runs_through_folds(stream, key_bits, small_chunk):
     """Counted runs from add_counted (unsorted keys, duplicates, counts
     near 2^32 so that per-key totals wrap) before the first trip and
-    after one: each sorts once and folds with the ladder or raw runs
-    into the standing plane; every output equals the JAX package's and
-    the no-trip port's."""
+    after one: each sorts once and folds with the ladder's runs into the
+    standing plane; every output equals the JAX package's (in the mode
+    `stream` names) and the no-trip port's."""
     rng = np.random.default_rng(31 + stream + key_bits)
     batches = _batches(rng, 10, 2000, 4000, key_bits)
     pool = np.unique(np.concatenate([
@@ -240,9 +254,10 @@ def test_unsorted_counted_runs_through_folds(stream, key_bits, small_chunk):
         for hi, lo in batches[:3]]))
     pool = pool[pool != SENT_KEY]
     j = JC.KmerCompactor(key_bits=key_bits, stream_sorted=stream)
-    t, u = (TC.KmerCompactor("cpu", budget_bytes=budget, key_bits=key_bits,
-                             stream_sorted=stream)
-            for budget in (40_000, 2 << 30))
+    # the one-plane ladder counts 4 B a raw lane, so half the budget
+    # trips as often as 8 B lanes under the whole
+    t, u = (TC.KmerCompactor("cpu", budget_bytes=budget, key_bits=key_bits)
+            for budget in (40_000 if key_bits > 30 else 20_000, 2 << 30))
     trips = _count_trips(t)
     for i, (hi, lo) in enumerate(batches):
         if i in (1, 6):
@@ -268,19 +283,20 @@ def test_unsorted_counted_runs_through_folds(stream, key_bits, small_chunk):
     _same_compacted(j, t, u)
 
 
-@pytest.mark.parametrize("stream, key_bits", [(False, 40), (True, 40),
-                                              (True, 30)])
-def test_trips_rearm_on_new_lanes(stream, key_bits, small_chunk):
+@pytest.mark.parametrize("chunk, key_bits", [("default", 40), ("small", 40),
+                                             ("small", 30)])
+def test_trips_rearm_on_new_lanes(chunk, key_bits, monkeypatch):
     """The budget counts the raw bytes added since the last fold, not
     the standing plane's: N raw lanes under budget B trip at most
     ceil(8 N / B) times, whatever the plane holds.  Twelve batches of
     1,000 lanes under 20,000 bytes: at 8 B a lane every third batch
     trips (4 times); the one-plane ladder counts 4 B a lane, so every
-    sixth (2 times)."""
+    sixth (2 times).  With the default chunk a trip folds pending lanes
+    only; with a small one, ladder runs too."""
+    _set_port_chunk(monkeypatch, chunk)
     rng = np.random.default_rng(2)
     batches = _batches(rng, 12, 1000, 1001, key_bits, sent_frac=0)
-    t = TC.KmerCompactor("cpu", budget_bytes=20_000, key_bits=key_bits,
-                         stream_sorted=stream)
+    t = TC.KmerCompactor("cpu", budget_bytes=20_000, key_bits=key_bits)
     trips = _count_trips(t)
     for hi, lo in batches:
         t.add_raw(keys.from_hi_lo(hi, lo))
@@ -323,7 +339,7 @@ def test_engine_matches_jax_on_fixture(monkeypatch):
     from kmer_tpu.pipeline.counter import SortCountEngine as JEngine
     from kmer_tpu_torch.pipeline.counter import SortCountEngine
 
-    for stream in ("0", "1"):
+    for stream in ("0", "1"):  # the JAX engine's mode
         monkeypatch.setenv("KMER_TPU_STREAM_SORT", stream)
         je = JEngine(k=21, block_bases=1 << 16)
         je.count_paths([READS])
@@ -334,7 +350,6 @@ def test_engine_matches_jax_on_fixture(monkeypatch):
             te.count_paths([READS])
         finally:
             trace.enable(False)
-        assert te.compactor.stream_sorted == (stream == "1")
         assert np.array_equal(je.hist(256, 1023), te.hist(256, 1023))
         assert (te.total_kmers, te.total_bases, te.total_seqs) == (
             je.total_kmers, je.total_bases, je.total_seqs)
@@ -366,8 +381,8 @@ def test_state_from_jax_checkpoint(tmp_path, monkeypatch):
     want_saved = je.hist(256, None)
     je.count_paths([genome])
     want = [(je.hist(*cfg), je._n_distinct) for cfg in CFGS[:2]]
-    for stream in ("0", "1"):
-        monkeypatch.setenv("KMER_TPU_STREAM_SORT", stream)
+    for chunk in ("default", "small"):
+        _set_port_chunk(monkeypatch, chunk)
         te = SortCountEngine.from_jax_checkpoint(ckpt, block_bases=1 << 16,
                                                  device="cpu")
         assert te.k == 31
@@ -400,38 +415,35 @@ def test_device_rule(monkeypatch):
 @pytest.mark.parametrize("stream", [False, True])
 @pytest.mark.parametrize("k", [11, 15])
 def test_one_plane_matches_jax(k, stream, budget, small_chunk):
-    """KmerCompactor(key_bits=2k) at k <= 15 runs one-plane: in stream
-    mode the ladder holds int32 lanes and merges them with merge_runs on
-    int32 runs; with or without budget trips its histograms equal the
-    JAX one-plane compactor's (which counts without trips)."""
+    """KmerCompactor(key_bits=2k) at k <= 15 runs one-plane: the ladder
+    holds int32 lanes and merges them with merge_runs on int32 runs;
+    with or without budget trips its histograms equal the JAX one-plane
+    compactor's in the mode `stream` names (which counts without
+    trips)."""
     rng = np.random.default_rng(k + 10 * stream + (budget < 1 << 20))
     batches = _batches(rng, 10, 300, 5000, key_bits=2 * k)
     j = JC.KmerCompactor(key_bits=2 * k, stream_sorted=stream)
-    t = TC.KmerCompactor("cpu", budget_bytes=budget, key_bits=2 * k,
-                         stream_sorted=stream)
+    t = TC.KmerCompactor("cpu", budget_bytes=budget, key_bits=2 * k)
     assert j.one_plane and t.one_plane
     merges = []
-    if stream:
-        real = t._merge
-        t._merge = lambda a, b: merges.append(a.dtype) or real(a, b)
+    real = t._merge
+    t._merge = lambda a, b: merges.append(a.dtype) or real(a, b)
     held = set()  # dtypes the ladder held between adds (trips empty it)
     for hi, lo in batches:
         j.add_raw(jnp.asarray(hi), jnp.asarray(lo))
         t.add_raw(keys.from_hi_lo(hi, lo))
-        if stream:
-            held |= {p[0].dtype for p in
-                     list(t.stream.ladder.values()) + t.stream.pending}
-    if stream:
-        assert held == {torch.int32}
-        assert merges and set(merges) == {torch.int32}
+        held |= {p[0].dtype for p in
+                 list(t.stream.ladder.values()) + t.stream.pending}
+    assert held == {torch.int32}
+    assert merges and set(merges) == {torch.int32}
     if budget < 1 << 20:
         assert t.runs and t.runs[0][1] is not None  # compacted
     _same_hists(j, t)
 
 
 def test_one_plane_engine_matches_jax(monkeypatch):
-    """The port's engine at k=15 (one-plane, stream mode, small chunk)
-    against the JAX engine on the fixture."""
+    """The port's engine at k=15 (one-plane, small chunk) against the
+    JAX stream-sorted engine on the fixture."""
     from kmer_tpu.pipeline.counter import SortCountEngine as JEngine
     from kmer_tpu_torch.pipeline.counter import SortCountEngine
 
@@ -441,7 +453,7 @@ def test_one_plane_engine_matches_jax(monkeypatch):
     je.count_paths([READS])
     te = SortCountEngine(k=15, block_bases=1 << 16, device="cpu",
                          budget_bytes=1 << 18)
-    assert te.compactor.one_plane and te.compactor.stream_sorted
+    assert te.compactor.one_plane
     te.count_paths([READS])
     for cfg in CFGS:
         assert np.array_equal(je.hist(*cfg), te.hist(*cfg))

@@ -2,11 +2,13 @@
 checkpoints and the engine factory's arguments against the JAX package's,
 on the CPU.  Every comparison is exact (integer outputs, tolerance 0).
 
-Compactor states, as both packages name them: classic raw runs, counted
-runs only, mixed (stream runs + counted runs; the port folds both into
-one counted plane), stream only (the folded ladder plane, sentinel lanes
-included), and stream after a forced budget trip (counted runs from the
-trip, then more stream runs), each at one-plane and two-plane key widths.
+Compactor states, as the JAX package names them: classic raw runs,
+counted runs only, mixed (stream runs + counted runs; the port folds both
+into one counted plane), stream only (the folded ladder plane, sentinel
+lanes included), and stream after a forced budget trip (counted runs from
+the trip, then more stream runs), each at one-plane and two-plane key
+widths.  The port always accumulates through its stream ladder; the
+state's mode is the JAX compactor's.
 """
 
 import os
@@ -71,12 +73,13 @@ def _counted_runs(rng, pool, n_runs):
 
 
 class Pair:
-    """A JAX compactor and the port's, fed the same runs."""
+    """A JAX compactor (classic, or stream-sorted when `stream`) and the
+    port's, fed the same runs."""
 
-    def __init__(self, key_bits, stream, budget=2 << 30):
+    def __init__(self, key_bits, stream=False, budget=2 << 30):
         self.j = JC.KmerCompactor(key_bits=key_bits, stream_sorted=stream)
         self.t = TC.KmerCompactor("cpu", budget_bytes=budget,
-                                  key_bits=key_bits, stream_sorted=stream)
+                                  key_bits=key_bits)
 
     def add_raw(self, k):
         hi, lo = _split(k)
@@ -152,23 +155,26 @@ def test_compactor_counts_for_matches_jax(state, key_bits, small_chunk):
     p.counts_for(pool[:50])
 
 
-@pytest.mark.parametrize("stream", [False, True])
-def test_counts_for_exact_values(stream):
+@pytest.mark.parametrize("chunk", ["default", "small"])
+def test_counts_for_exact_values(chunk, monkeypatch):
     """Duplicated, absent and edge queries against known counts; the
     largest key with no sentinel lane after it (2^16 data lanes fill the
     stream's padded run exactly, the JAX package's off-by-one guard at
     compactor.py:725-730); absent keys below the smallest and above the
-    largest; the all-ones key counts 0 in both packages."""
+    largest; the all-ones key counts 0 in both packages.  The port's
+    ladder either holds the lanes pending (the default chunk) or merges
+    16 chunks of 2^12 into the one run."""
+    if chunk == "small":
+        monkeypatch.setattr(TC, "_STREAM_CHUNK", 1 << 12)
     n = TC._STREAM_MIN
     assert n == JC._STREAM_MIN
-    p = Pair(64, stream)
+    p = Pair(64, True)
     data = np.arange(5, n + 5, dtype=np.uint64)  # max key n + 4
     p.add_raw(data)
     q = np.asarray([n + 4, n + 4, n + 5, 4, 0, 5, 6, ALL_ONES, n + 4],
                    np.uint64)
     assert p.counts_for(q).tolist() == [1, 1, 0, 0, 0, 1, 1, 0, 1]
-    if stream:
-        assert p.t.stream.planes()[0].shape[0] == n  # no sentinel tail
+    assert p.t.stream.planes()[0].shape[0] == n  # no sentinel tail
     p.add_raw(np.asarray([ALL_ONES] * 3 + [n + 4] * 2, np.uint64))
     assert p.counts_for(q[:2]).tolist() == [3, 3]
     assert p.counts_for(q[7:8]).tolist() == [0]
@@ -180,7 +186,7 @@ def test_counts_for_weighted_wrap(key_bits):
     low 32 bits (the JAX package's modular uint32 cumsum), however often
     the global cumsum wraps; duplicated queries and an absent one."""
     keys_ = np.arange(1, 51, dtype=np.uint64) * 977
-    p = Pair(key_bits, False)
+    p = Pair(key_bits)
     big = np.full(50, 0xF0000000, np.uint32)
     for _ in range(3):
         p.add_counted(keys_, big)
@@ -191,11 +197,16 @@ def test_counts_for_weighted_wrap(key_bits):
     assert got.tolist() == want + want[:5] + [0]
 
 
-@pytest.mark.parametrize("stream", [False, True])
-def test_counts_for_empty(stream):
+@pytest.mark.parametrize("chunk", ["default", "small"])
+def test_counts_for_empty(chunk, monkeypatch):
     """An empty engine answers zeros, one per query (also for no
-    queries); an engine with data answers an empty query list."""
-    p = Pair(42, stream)
+    queries); an engine with data answers an empty query list.  With a
+    2-lane chunk the three lanes make a ladder run, a padded tail and a
+    merge."""
+    if chunk == "small":
+        monkeypatch.setattr(TC, "_STREAM_CHUNK", 2)
+        monkeypatch.setattr(TC, "_STREAM_MIN", 2)
+    p = Pair(42)
     assert p.counts_for(np.asarray([1, 2, 2], np.uint64)).tolist() == [0] * 3
     assert p.counts_for(np.zeros(0, np.uint64)).shape == (0,)
     p.add_raw(np.asarray([7, 7, 9], np.uint64))
@@ -250,7 +261,6 @@ def test_engine_counts_for_matches_jax(path, stream, monkeypatch):
     je.count_paths([path])
     te = TCounter.SortCountEngine(k=k, block_bases=1 << 16, device="cpu")
     te.count_paths([path])
-    assert te.compactor.stream_sorted == (stream == "1")
     want = je.counts_for(qhi, qlo)
     got = te.counts_for(qhi, qlo)
     assert np.array_equal(got, want) and got.dtype == np.int64
@@ -306,7 +316,7 @@ def test_throttle_window_env(value, want, monkeypatch):
         monkeypatch.setenv("KMER_TPU_THROTTLE_WINDOW", value)
     j = JC.KmerCompactor(stream_sorted=True)
     j._throttle_push((jnp.zeros(8, jnp.uint32),))
-    t = TC.KmerCompactor("cpu", stream_sorted=True)
+    t = TC.KmerCompactor("cpu")
     assert t._throttle_window == j._sync_window == want
     monkeypatch.setenv("KMER_TPU_THROTTLE_WINDOW", "99")
     assert t._throttle_window == want

@@ -282,8 +282,8 @@ def _trip_ladder():
     """A stream ladder of 1,024-lane chunks under a 20 KiB budget: the
     third chunk after a fold trips it (24 KiB)."""
     return compactor.KmerCompactor("cpu", budget_bytes=20 << 10,
-                                   key_bits=42, stream_sorted=True,
-                                   stream_chunk=1024, stream_min=1024)
+                                   key_bits=42, stream_chunk=1024,
+                                   stream_min=1024)
 
 
 def _distinct_keys(n, seed=5):

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from kmer_tpu_torch.kernels import bitonic, extract, merge, seghist
+from kmer_tpu_torch.kernels import extract, merge, seghist
 from kmer_tpu_torch.kernels.keys import SENT, SENT32
 
 pytestmark = pytest.mark.cuda
@@ -201,19 +201,6 @@ def test_seghist_refuses_bad_input(dev):
                                     (256, None, 1))
     with pytest.raises(ValueError):
         seghist.segment_hist_sorted(x[:0], None, (256, None, 1))
-
-
-@pytest.mark.parametrize("log2n", [1, 5, 12, 13, 20])
-def test_merge_kernel_matches_sort(dev, log2n):
-    n = 1 << log2n
-    g = torch.Generator(device=dev).manual_seed(log2n)
-    v = torch.randint(-(1 << 62), 1 << 62, (n,), generator=g, device=dev)
-    v[torch.rand(n, generator=g, device=dev) < 0.15] = SENT
-    half = n // 2
-    x = torch.cat([torch.sort(v[:half]).values, torch.sort(v[half:]).values])
-    want = torch.sort(v).values
-    assert torch.equal(bitonic.merge_sorted_halves_(x.clone()), want)
-    assert torch.equal(bitonic.merge_sorted_halves_plain_(x.clone()), want)
 
 
 def _runs(dev, na, nb, seed, pool=None, sent=0.15):
@@ -427,105 +414,18 @@ def test_merge_path_lane_types_refuse_bad_input(dev):
         merge.merge_path3(*(x.cpu(),) * 4, torch.zeros(2, dtype=torch.int64))
 
 
-def _halves1(dev, n, seed):
-    """Two ascending int32 halves of one-plane keys, 15% SENT32."""
-    g = torch.Generator(device=dev).manual_seed(seed)
-    v = torch.randint(0, 1 << 30, (n,), generator=g, device=dev,
-                      dtype=torch.int32)
-    v[torch.rand(n, generator=g, device=dev) < 0.15] = SENT32
-    half = n // 2
-    return (torch.cat([torch.sort(v[:half]).values,
-                       torch.sort(v[half:]).values]),
-            torch.sort(v).values)
-
-
-def _halves3(dev, n, seed):
-    """Two (key, index)-sorted halves: repeated int64 keys with 15% SENT
-    and a rising index (the stream ladder's layout), and the whole
-    (key, index) order."""
-    g = torch.Generator(device=dev).manual_seed(seed)
-    key = torch.randint(-(1 << 62), 1 << 62, (max(2, n // 4),), generator=g,
-                        device=dev)[torch.randint(0, max(2, n // 4), (n,),
-                                                  generator=g, device=dev)]
-    key[torch.rand(n, generator=g, device=dev) < 0.15] = SENT
-    idx = torch.arange(n, device=dev) + (1 << 32) - (1 << 26) - n
-    half = n // 2
-
-    def sort(k, i):
-        k, o = torch.sort(k, stable=True)
-        return k, i[o]
-
-    (k0, i0), (k1, i1) = sort(key[:half], idx[:half]), sort(key[half:],
-                                                            idx[half:])
-    return (torch.cat([k0, k1]), torch.cat([i0, i1])), sort(key, idx)
-
-
-@pytest.mark.parametrize("log2n", [1, 5, 13, 14, 20])
-def test_merge1_kernels_match_sort(dev, log2n):
-    """One-plane merge (merge_xstage1 + merge_tiles1) on int32 lanes."""
-    x, want = _halves1(dev, 1 << log2n, log2n)
-    assert torch.equal(bitonic.merge_sorted_halves1_(x.clone()), want)
-    assert torch.equal(bitonic.merge_sorted_halves1_plain_(x.clone()), want)
-
-
-@pytest.mark.parametrize("log2n", [1, 5, 11, 12, 20])
-def test_merge3_kernels_match_sort(dev, log2n):
-    """(key, index) merge (merge_xstage3 + merge_tiles3)."""
-    (k, i), (wk, wi) = _halves3(dev, 1 << log2n, log2n)
-    gk, gi = bitonic.merge_sorted_halves3_(k.clone(), i.clone())
-    assert torch.equal(gk, wk) and torch.equal(gi, wi)
-    pk, pi = bitonic.merge_sorted_halves3_plain_(k.clone(), i.clone())
-    assert torch.equal(pk, wk) and torch.equal(pi, wi)
-
-
-@pytest.mark.parametrize("planes", [1, 3])
-def test_new_merge_kernels_match_plain_stages(dev, planes):
-    """Each of the four kernels alone against its plain stage(s): the
-    top cross-tile stage, then the tile pass after the plain cross-tile
-    stages."""
-    n = 1 << 18
-    if planes == 1:
-        x, _ = _halves1(dev, n, 3)
-        x = (x,)
-        xstage, stage, tiles, bits = (bitonic.xstage1_, bitonic.stage1_plain_,
-                                      bitonic.merge_tiles1_,
-                                      bitonic.tile_bits1())
-    else:
-        x, _ = _halves3(dev, n, 3)
-        xstage, stage, tiles, bits = (bitonic.xstage3_, bitonic.stage3_plain_,
-                                      bitonic.merge_tiles3_,
-                                      bitonic.tile_bits3())
-    seq = tuple(p.clone() for p in x)
-    bitonic._flip_second_half_(*seq)
-
-    def clone():
-        return tuple(p.clone() for p in seq)
-
-    got, want = clone(), clone()
-    xstage(*got, n // 2)
-    stage(*want, n // 2)
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
-    upper = clone()
-    for k in range(n.bit_length() - 2, bits - 1, -1):
-        stage(*upper, 1 << k)
-    got, want = tuple(p.clone() for p in upper), tuple(p.clone()
-                                                       for p in upper)
-    tiles(*got, bits)
-    for k in range(bits - 1, -1, -1):
-        stage(*want, 1 << k)
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
-
-
-@pytest.mark.parametrize("stream", [False, True])
+@pytest.mark.parametrize("chunk", [1 << 24, 1 << 14])
 @pytest.mark.parametrize("use_bloom", [False, True])
-def test_deferred_admission_on_card_matches_cpu(dev, stream, use_bloom,
+def test_deferred_admission_on_card_matches_cpu(dev, chunk, use_bloom,
                                                 monkeypatch):
+    """The tap on the card equals the tap on the CPU, budget trips
+    folding pending lanes only (the default chunk) or ladder runs."""
     from kmer_tpu_torch.kernels import bloom
     from kmer_tpu_torch.kernels.keys import from_u64
     from kmer_tpu_torch.pipeline.yak_admit import DeferredYakAdmission
     from kmer_tpu_torch.table import compactor
 
-    monkeypatch.setattr(compactor, "_STREAM_CHUNK", 1 << 14)
+    monkeypatch.setattr(compactor, "_STREAM_CHUNK", chunk)
     rng = np.random.default_rng(11)
     pool = rng.integers(0, 1 << 62, 20_000, dtype=np.uint64)
     k = pool[rng.integers(0, 20_000, 200_000)]
@@ -535,7 +435,7 @@ def test_deferred_admission_on_card_matches_cpu(dev, stream, use_bloom,
     out = []
     for device in (dev, "cpu"):
         adm = DeferredYakAdmission(spec, use_bloom, budget_bytes=1 << 20,
-                                   stream_sorted=stream, device=device)
+                                   device=device)
         for j, a in enumerate(range(0, keys.shape[0], 7_001)):
             adm.add_block(keys[a:a + 7_001].to(device), j % 3 == 2)
         pb, tot = adm.finish()
@@ -585,7 +485,6 @@ def test_counts_for_on_card_matches_cpu(dev, k, budget, monkeypatch):
     from kmer_tpu_torch.table import compactor
 
     monkeypatch.setattr(compactor, "_STREAM_CHUNK", 1 << 14)
-    monkeypatch.setenv("KMER_TPU_STREAM_SORT", "1")
     path = os.path.join(FIXTURES, "reads_small.fq.gz")
     rng = np.random.default_rng(k)
     q = rng.integers(0, 1 << (2 * k), 5000, dtype=np.uint64)

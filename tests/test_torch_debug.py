@@ -278,26 +278,28 @@ def _port_both(name, args, monkeypatch, method):
     return plain, checked, made
 
 
-# trip: stream mode, 2^16-base blocks and a budget that trips once
+# trip: 2^16-base blocks and a budget that trips once
 # mid-file and leaves stream runs beside the counted one (mixed state)
 TRIP_BUDGET = {31: 2_000_000, 15: 1_000_000}
 
 
-@pytest.mark.parametrize("mode", ["classic", "stream", "trip", "mesh"])
+@pytest.mark.parametrize("mode", ["default_chunk", "small_chunk", "trip",
+                                  "mesh"])
 @pytest.mark.parametrize("k", [31, 15])
 def test_kc_c4_under_debug(k, mode, monkeypatch):
     """kc-c4 on the reads fixture: the same stdout with the switch unset,
     under it, and from the JAX tool under it; the port's hist was
-    checked (once a shard on a 4-shard CPU mesh)."""
+    checked (once a shard on a 4-shard CPU mesh).  default_chunk leaves
+    the whole file pending in the ladder until hist; the other modes take
+    2^15-lane chunks, so the ladder merges."""
     from kmer_tpu_torch.dist import sharded
     from kmer_tpu_torch.tools import kc
 
     args = [f"-k{k}", READS]
     want = _jax_debug("kc-c4", args, monkeypatch)
     monkeypatch.setenv("KMER_TPU_PLATFORM", "cpu")
-    monkeypatch.setenv("KMER_TPU_STREAM_SORT", "0" if mode == "classic"
-                       else "1")
-    monkeypatch.setattr(TC, "_STREAM_CHUNK", 1 << 15)
+    if mode != "default_chunk":
+        monkeypatch.setattr(TC, "_STREAM_CHUNK", 1 << 15)
     made = []
     real = kc.make_count_engine
 
@@ -361,18 +363,18 @@ def patterns(tmp_path, monkeypatch):
     return pat
 
 
-@pytest.mark.parametrize("stream", ["0", "1"])
-def test_vaf_counter_under_debug(stream, patterns, tmp_path, monkeypatch):
+@pytest.mark.parametrize("chunk", ["default", "small"])
+def test_vaf_counter_under_debug(chunk, patterns, tmp_path, monkeypatch):
     """vaf-counter on sampleA1: the same VAF file with the switch unset,
-    under it, and from the JAX tool under it."""
+    under it, and from the JAX tool under it; the port's ladder at its
+    default chunk and at a small one, where it merges."""
     files = []
     for pkg, debug in (("kmer_tpu", True), ("kmer_tpu_torch", False),
                        ("kmer_tpu_torch", True)):
         vaf = str(tmp_path / f"{len(files)}.vaf")
         with monkeypatch.context() as m:
             m.setenv("KMER_TPU_PLATFORM", "cpu")
-            if pkg == "kmer_tpu_torch":
-                m.setenv("KMER_TPU_STREAM_SORT", stream)
+            if pkg == "kmer_tpu_torch" and chunk == "small":
                 m.setattr(TC, "_STREAM_CHUNK", 1 << 16)
             if debug:
                 m.setenv("KMER_TPU_DEBUG", "1")
@@ -445,7 +447,6 @@ def test_fault_is_caught_only_under_debug(fault, debug, tmp_path,
     finishes with exit 0 and no word of it."""
     mod, name, wrap, message = FAULTS[fault]
     monkeypatch.setenv("KMER_TPU_PLATFORM", "cpu")
-    monkeypatch.setenv("KMER_TPU_STREAM_SORT", "1")
     monkeypatch.setattr(TC, "_STREAM_CHUNK", 1 << 15)
     monkeypatch.setattr(mod, name, wrap(getattr(mod, name)))
     if debug:

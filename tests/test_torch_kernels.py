@@ -16,7 +16,7 @@ import jax
 import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
-from kmer_tpu_torch.kernels import bitonic, extract, keys, merge, seghist
+from kmer_tpu_torch.kernels import extract, keys, merge, seghist
 from kmer_tpu_torch.kernels.encode import encode_bases
 from kmer_tpu_torch.kernels.hash64 import HASH64_K32_ZERO, hash64, hash64_int
 
@@ -415,44 +415,6 @@ def test_segment_hist_refuses_bad_input():
                 fn(k, w, cfg)
 
 
-# -- bitonic merge ------------------------------------------------------
-
-@pytest.mark.parametrize("n", [1 << 18, 1 << 20])
-def test_merge_plain_matches_pallas_interpret(n):
-    from kmer_tpu.kernels import bitonic as jb
-
-    rng = np.random.default_rng(n)
-    hi = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
-    lo = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
-    m = rng.random(n) < 0.15
-    hi[m] = 0xFFFFFFFF
-    lo[m] = 0xFFFFFFFF
-    half = n // 2
-    h0, l0 = jax.lax.sort((jnp.asarray(hi[:half]), jnp.asarray(lo[:half])),
-                          num_keys=2)
-    h1, l1 = jax.lax.sort((jnp.asarray(hi[half:]), jnp.asarray(lo[half:])),
-                          num_keys=2)
-    ch, cl = jnp.concatenate([h0, h1]), jnp.concatenate([l0, l1])
-    mh, ml = jb.merge_sorted_halves(ch, cl, use_pallas=True)
-    x = _jax_keys(ch, cl)
-    out = bitonic.merge_sorted_halves_plain_(x)
-    assert out is x  # in place
-    assert torch.equal(out, _jax_keys(mh, ml))
-
-
-def test_merge_small_and_wrapper():
-    rng = np.random.default_rng(3)
-    for lg in (1, 2, 7):
-        n = 1 << lg
-        v = torch.from_numpy(rng.integers(-50, 50, n))
-        x = torch.cat([torch.sort(v[: n // 2]).values,
-                       torch.sort(v[n // 2:]).values])
-        assert torch.equal(bitonic.merge_sorted_halves_(x.clone()),
-                           torch.sort(v).values)
-    with pytest.raises(ValueError):
-        bitonic.merge_sorted_halves_(torch.zeros(6, dtype=torch.int64))
-
-
 # -- merge path (the two-plane ladder's merge) --------------------------
 
 def _dup_keys_u32(rng, n, sent=0.15):
@@ -464,7 +426,7 @@ def _dup_keys_u32(rng, n, sent=0.15):
     return (u >> np.uint64(32)).astype(np.uint32), u.astype(np.uint32)
 
 
-@pytest.mark.parametrize("n", [16, 1 << 10, 1 << 18, 1 << 19])
+@pytest.mark.parametrize("n", [16, 1 << 10, 1 << 18, 1 << 19, 1 << 20])
 def test_merge_runs_plain_matches_pallas_interpret(n):
     """merge_runs_plain on the two sorted halves equals the JAX two-plane
     bitonic merge (`merge_sorted_halves`, Pallas interpret from 2^18
@@ -499,6 +461,16 @@ def _merge_cases():
         "all_sentinel": (sent[:300], sent),
         "sentinel_tails": (np.concatenate([small[:900], sent[:100]]),
                            np.concatenate([big[:3], sent[:1]])),
+        # equal power-of-two halves, as a bitonic merge takes them: one
+        # lane each, 64 lanes of repeated keys, 2^12 lanes with 15%
+        # sentinels (each half's sentinel tail), one key on every lane
+        "pow2_one_lane": (small[:1], small[1:2]),
+        "pow2_dups": (small[:64], small[64:128]),
+        "pow2_sentinel_tails": tuple(
+            np.where(rng.random(4096) < 0.15, keys.SENT, h)
+            for h in (big[:4096], small[:2048].repeat(2))),
+        "pow2_all_equal": (np.full(2048, -3, np.int64),
+                           np.full(2048, -3, np.int64)),
     }
 
 
@@ -594,79 +566,6 @@ def test_one_plane_narrow_widen():
     assert np.array_equal(x[3:].numpy(), u[3:].astype(np.int32))
     assert torch.equal(keys.widen(x), b)
     assert torch.equal(torch.sort(x).indices, torch.sort(b).indices)
-
-
-@pytest.mark.parametrize("n", [1 << 18, 1 << 19])
-def test_merge1_plain_matches_pallas_interpret(n):
-    """One-plane merge (kernels 5-6, _merge_tile_kernel1/_xstage_kernel1)
-    with 20% sentinels: the port's int32 twin equals the JAX u32 merge."""
-    from kmer_tpu.kernels import bitonic as jb
-
-    rng = np.random.default_rng(n + 1)
-    lo = rng.integers(0, 1 << 30, n, dtype=np.uint64).astype(np.uint32)
-    lo[rng.random(n) < 0.2] = 0xFFFFFFFF
-    (cl,) = _sorted_halves_u32([lo], n)
-    ml = np.asarray(jb.merge_sorted_halves1(cl, use_pallas=True))
-    x = keys.narrow(keys.from_hi_lo(np.where(np.asarray(cl) == 0xFFFFFFFF,
-                                             0xFFFFFFFF, 0), np.asarray(cl)))
-    out = bitonic.merge_sorted_halves1_plain_(x)
-    assert out is x and out.dtype == torch.int32
-    want = np.where(ml == 0xFFFFFFFF, keys.SENT32, ml).astype(np.int32)
-    assert np.array_equal(out.numpy(), want)
-    assert (out == keys.SENT32).sum() == (lo == 0xFFFFFFFF).sum()
-
-
-@pytest.mark.parametrize("n", [1 << 17, 1 << 18])
-def test_merge3_plain_matches_pallas_interpret(n):
-    """Three-plane merge (kernels 7-8, _merge_tile_kernel3/_xstage_kernel3;
-    2^17 is the tile pass alone, 2^18 adds one cross-tile stage): the
-    port's (int64 key, int64 index) twin equals the JAX (hi, lo, idx)
-    merge, with repeated keys so the index decides ties, and 15%
-    sentinel lanes."""
-    from kmer_tpu.kernels import bitonic as jb
-
-    rng = np.random.default_rng(n + 3)
-    pool = rng.integers(0, 1 << 40, 2000, dtype=np.uint64)
-    u = pool[rng.integers(0, 2000, n)]
-    hi = (u >> np.uint64(32)).astype(np.uint32)
-    lo = u.astype(np.uint32)
-    idx = rng.permutation(n).astype(np.uint32)
-    idx[: n // 4] += np.uint32((1 << 32) - (1 << 26) - n)  # high indices
-    m = rng.random(n) < 0.15
-    hi[m], lo[m], idx[m] = 0xFFFFFFFF, 0xFFFFFFFF, 0xFFFFFFFF
-    ch, cl, cx = _sorted_halves_u32([hi, lo, idx], n)
-    mh, ml, mx = jb.merge_sorted_halves3(ch, cl, cx, use_pallas=True)
-    k = _jax_keys(ch, cl)
-    i = torch.from_numpy(np.asarray(cx).astype(np.int64))
-    ok, oi = bitonic.merge_sorted_halves3_plain_(k, i)
-    assert ok is k and oi is i
-    assert torch.equal(ok, _jax_keys(mh, ml))
-    assert np.array_equal(oi.numpy(), np.asarray(mx).astype(np.int64))
-
-
-def test_merge1_merge3_small_and_wrappers():
-    rng = np.random.default_rng(8)
-    for lg in (1, 2, 7, 12):
-        n = 1 << lg
-        v = torch.from_numpy(rng.integers(-50, 50, n).astype(np.int32))
-        x = torch.cat([torch.sort(v[: n // 2]).values,
-                       torch.sort(v[n // 2:]).values])
-        assert torch.equal(bitonic.merge_sorted_halves1_(x.clone()),
-                           torch.sort(v).values)
-        k = torch.from_numpy(rng.integers(0, 5, n))
-        i = torch.from_numpy(rng.permutation(n))
-        halves = [np.lexsort((i[a:a + n // 2].numpy(),
-                              k[a:a + n // 2].numpy())) + a
-                  for a in (0, n // 2)]
-        o = torch.from_numpy(np.concatenate(halves))
-        ok, oi = bitonic.merge_sorted_halves3_(k[o].clone(), i[o].clone())
-        want = np.lexsort((i.numpy(), k.numpy()))
-        assert torch.equal(ok, k[want]) and torch.equal(oi, i[want])
-    with pytest.raises(ValueError):
-        bitonic.merge_sorted_halves1_(torch.zeros(8, dtype=torch.int64))
-    with pytest.raises(ValueError):
-        bitonic.merge_sorted_halves3_(torch.zeros(8, dtype=torch.int64),
-                                      torch.zeros(4, dtype=torch.int64))
 
 
 # -- merge path on the one-plane and (key, index) ladders ---------------

@@ -180,7 +180,7 @@ def test_make_mesh_factorization():
 
 # -- ShardedSortEngine -----------------------------------------------------
 
-# (shape, k, stream_sorted, budget_bytes, row layout)
+# (shape, k, the JAX engine's stream_sorted, budget_bytes, row layout)
 ENGINE_CASES = [
     ((2, 4), 21, False, 2 << 30, "ragged"),
     ((1, 8), 21, True, 2 << 30, "ragged"),
@@ -199,8 +199,8 @@ def test_sharded_engine_matches_jax(shape, k, stream, budget, layout,
     """hist, _n_distinct and total_kmers against JAX ShardedSortEngine
     over three batches (a repeated one, so keys recur across batches and
     rows; the last short: JAX pads it with zero rows, the port sends
-    fewer rows), stream mode on and off, budget 1 (a trip every batch),
-    uniform rows (row_bytes) and ragged ones."""
+    fewer rows), the JAX engine in stream mode and classic, budget 1 (a
+    trip every batch), uniform rows (row_bytes) and ragged ones."""
     rng = np.random.default_rng(k * 7 + shape[0])
     width, rb = 4096, 101
     make = ((lambda n: _uniform_rows(rng, n, width, rb - 1))
@@ -213,8 +213,7 @@ def test_sharded_engine_matches_jax(shape, k, stream, budget, layout,
     jm, tm = _meshes(shape)
     je = jsharded.ShardedSortEngine(jm, k, budget_bytes=budget,
                                     stream_sorted=stream)
-    te = sharded.ShardedSortEngine(tm, k, budget_bytes=budget,
-                                   stream_sorted=stream)
+    te = sharded.ShardedSortEngine(tm, k, budget_bytes=budget)
     for b in batches:
         padded = np.zeros((8, width), np.uint8)
         padded[:b.shape[0]] = b
@@ -253,14 +252,15 @@ def test_sharded_engine_empty():
 @pytest.mark.parametrize("k", [13, 21])
 def test_counts_for_matches_jax(k, stream, small_chunk):
     """The sum of the shards' answers equals JAX's mesh `counts_for`
-    (replicated queries + psum): after two batches (stream runs, or raw
-    runs), after a compact, and in the mixed state of a compact and one
-    more batch; present, absent and repeated query keys."""
+    (replicated queries + psum), the JAX engine in stream mode and
+    classic: after two batches, after a compact, and in the mixed state
+    of a compact and one more batch; present, absent and repeated query
+    keys."""
     rng = np.random.default_rng(40 + k)
     rows = np.stack([_random_ascii(rng, 4096) for _ in range(8)])
     jm, tm = _meshes((2, 4))
     je = jsharded.ShardedSortEngine(jm, k, stream_sorted=stream)
-    te = sharded.ShardedSortEngine(tm, k, stream_sorted=stream)
+    te = sharded.ShardedSortEngine(tm, k)
     keys = np.concatenate([
         tkeys.to_u64(extract.extract_keys_plain(
             torch.from_numpy(r), k)[0].numpy()) for r in rows[:2]])

@@ -248,7 +248,6 @@ def test_yak_count_packed_matches_jax(args, capsys, count_packed_steps,
     monkeypatch.setenv("KMER_TPU_PLATFORM", "cpu")
     trips = []
     if len(paths) == 1:
-        monkeypatch.setenv("KMER_TPU_STREAM_SORT", "1")
         monkeypatch.setenv("KMER_TPU_TAP_BUDGET", str(1 << 20))
         monkeypatch.setattr(compactor, "_STREAM_CHUNK", 1 << 15)
         real = yak.YakSimTap.finish_batches

@@ -88,18 +88,18 @@ def jax_chain(tmp_path_factory):
                          CHAIN, mp)
 
 
-@pytest.mark.parametrize("stream", ["0", "1"])
-def test_snp_chain_matches_jax(stream, jax_chain, tmp_path,
+@pytest.mark.parametrize("chunk", ["default", "small"])
+def test_snp_chain_matches_jax(chunk, jax_chain, tmp_path,
                                monkeypatch):
     """Every file of the chain byte-identical to the JAX tools', every
     exit code 0, every stderr equal after masking; the classifier finds
-    the replicate pair.  stream=1 runs the stream ladder on the CPU (the
-    card's default), with a small chunk so that it merges runs."""
+    the replicate pair.  The stream ladder runs at its default chunk and
+    at a small one, so that it merges runs."""
     from kmer_tpu_torch.table import compactor
 
     monkeypatch.setenv("KMER_TPU_PLATFORM", "cpu")
-    monkeypatch.setenv("KMER_TPU_STREAM_SORT", stream)
-    monkeypatch.setattr(compactor, "_STREAM_CHUNK", 1 << 16)
+    if chunk == "small":
+        monkeypatch.setattr(compactor, "_STREAM_CHUNK", 1 << 16)
     rcs, errs, files = run_chain("kmer_tpu_torch", str(tmp_path / "port"),
                                  CHAIN, monkeypatch)
     want_rcs, want_errs, want_files = jax_chain
@@ -176,7 +176,8 @@ def test_vaf_counter_kernel_library_failure_is_loud(fault, tmp_path,
 @pytest.mark.parametrize("stream", ["0", "1"])
 def test_k15_one_plane_chain(stream, tmp_path, monkeypatch):
     """snp-pattern-gen -k15 and vaf-counter -k15: the one-plane compactor
-    (an int32 ladder in stream mode) answers counts_for."""
+    (an int32 ladder) answers counts_for, against the JAX tools in the
+    mode `stream` names."""
     from kmer_tpu_torch.table import compactor
 
     chain = [
@@ -192,14 +193,14 @@ def test_k15_one_plane_chain(stream, tmp_path, monkeypatch):
     real = compactor.KmerCompactor.counts_for
 
     def counts_for(self, *a):
-        engines.append((self.one_plane, self.stream_sorted))
+        engines.append(self.one_plane)
         return real(self, *a)
 
     monkeypatch.setattr(compactor.KmerCompactor, "counts_for", counts_for)
     got = run_chain("kmer_tpu_torch", str(tmp_path / "port"), chain,
                     monkeypatch)
     assert got == want and got[0] == [0, 0]
-    assert engines == [(True, stream == "1")] * 2
+    assert engines == [True] * 2
     assert got[2]["k15.vaf"].count(b"\n") > 100
 
 

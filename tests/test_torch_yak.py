@@ -67,10 +67,28 @@ def _blocks(n, bounds, block):
             start = end
 
 
-def _drive_port(hi, lo, bounds, spec, use_bloom, block=997, budget=1 << 30,
-                stream=None):
-    adm = TA.DeferredYakAdmission(spec, use_bloom, budget_bytes=budget,
-                                  stream_sorted=stream)
+def _set_chunk(monkeypatch, chunk, lanes=1 << 10):
+    """The tap ladder's chunk: "default" (2^24 lanes, so these inputs
+    stay pending until a compaction) or "small" (`lanes`, so chunks are
+    sorted and runs merge as they arrive)."""
+    from kmer_tpu_torch.table import compactor
+
+    if chunk == "small":
+        monkeypatch.setattr(compactor, "_STREAM_CHUNK", lanes)
+        monkeypatch.setattr(compactor, "_STREAM_MIN", 1 << 8)
+
+
+def _first2_of(hi, lo, idx=None):
+    """Each key's first two (key, idx) lanes of the whole input: a numpy
+    (key, idx) sort, then the tap's keep pass."""
+    k = _port_keys(hi, lo)
+    i = torch.arange(len(hi)) if idx is None else idx
+    order = torch.from_numpy(np.lexsort((i.numpy(), k.numpy())))
+    return TA._first2_keep(k[order], i[order])
+
+
+def _drive_port(hi, lo, bounds, spec, use_bloom, block=997, budget=1 << 30):
+    adm = TA.DeferredYakAdmission(spec, use_bloom, budget_bytes=budget)
     for a, b, end in _blocks(len(hi), bounds, block):
         adm.add_block(_port_keys(hi[a:b], lo[a:b]), batch_end=end)
     return adm
@@ -90,7 +108,7 @@ def _specs(n_shift, use_bloom):
     return (jbloom.BloomSpec(4, n_shift, 4), bloom.BloomSpec(4, n_shift, 4))
 
 
-@pytest.mark.parametrize("stream", [False, True])
+@pytest.mark.parametrize("chunk", ["default", "small"])
 @pytest.mark.parametrize("seed", [0, 1])
 @pytest.mark.parametrize("n,n_keys,n_shift,use_bloom", [
     (6000, 900, 14, True),   # dense bloom: many false positives
@@ -98,13 +116,11 @@ def _specs(n_shift, use_bloom):
     (4000, 700, 14, False),  # no bloom: first occurrences
 ])
 def test_deferred_matches_jax_and_oracle(n, n_keys, n_shift, use_bloom, seed,
-                                         stream, monkeypatch):
-    from kmer_tpu_torch.table import compactor
-
+                                         chunk, monkeypatch):
     # a small stream chunk, so the (key, index) ladder sorts chunks and
-    # merges runs (as tests/test_stream_sorted.py shrinks the JAX one)
-    monkeypatch.setattr(compactor, "_STREAM_CHUNK", 1 << 11)
-    monkeypatch.setattr(compactor, "_STREAM_MIN", 1 << 8)
+    # merges runs (as tests/test_stream_sorted.py shrinks the JAX one);
+    # the default one leaves every lane pending until the end
+    _set_chunk(monkeypatch, chunk, 1 << 11)
     rng = np.random.default_rng(seed)
     hi, lo = _rand_planes(rng, n, n_keys)
     n_batches = int(rng.integers(2, 6))
@@ -114,13 +130,12 @@ def test_deferred_matches_jax_and_oracle(n, n_keys, n_shift, use_bloom, seed,
     jspec, tspec = _specs(n_shift, use_bloom)
     want = _oracle(hi, lo, bounds, jspec, use_bloom)
     jpb, jtot = _drive_jax(hi, lo, bounds, jspec, use_bloom)
-    adm = _drive_port(hi, lo, bounds, tspec, use_bloom, stream=stream)
-    assert adm.fs.stream_sorted == stream
+    adm = _drive_port(hi, lo, bounds, tspec, use_bloom)
+    assert bool(adm.fs.stream.ladder) == (chunk == "small")
     pb, tot = adm.finish()
     assert list(pb) == list(jpb) == want[0]
     assert tot == jtot == want[1]
-    if stream:
-        assert adm.fs.stream.ladder == {} and adm.fs._compacted is not None
+    assert adm.fs.stream.ladder == {} and adm.fs._compacted is not None
 
 
 @pytest.mark.parametrize("plain_kernels", [False, True])
@@ -130,7 +145,7 @@ def test_tap_ladder_merges_with_merge_runs3(plain_kernels, monkeypatch):
     plain_kernels), out of place; after a budget trip the standing
     first-2 run merges with the new lanes unpadded, at unequal lengths.
     The totals equal the JAX package's and the oracle's, and the first-2
-    planes equal the classic path's."""
+    planes equal those of a (key, idx) sort of the whole input."""
     from kmer_tpu_torch.kernels import merge
     from kmer_tpu_torch.table import compactor
 
@@ -143,7 +158,6 @@ def test_tap_ladder_merges_with_merge_runs3(plain_kernels, monkeypatch):
     jspec, tspec = _specs(14, True)
     want = _oracle(hi, lo, bounds, jspec, True)
     adm = TA.DeferredYakAdmission(tspec, True, budget_bytes=40_000,
-                                  stream_sorted=True,
                                   plain_kernels=plain_kernels)
     fs = adm.fs
     assert fs._merge is (merge.merge_runs3_plain if plain_kernels
@@ -167,8 +181,7 @@ def test_tap_ladder_merges_with_merge_runs3(plain_kernels, monkeypatch):
     assert fs.trips > 1
     assert any(na != nb for na, nb in sizes)  # the standing run, unpadded
     assert any(na == nb for na, nb in sizes)  # the ladder's carries
-    wk, wi = TA._first2_compact(_port_keys(hi, lo),
-                                torch.arange(n, dtype=torch.int64))
+    wk, wi = _first2_of(hi, lo)
     assert torch.equal(planes[0], wk) and torch.equal(planes[1], wi)
     pb, tot = adm.finish()
     jpb, jtot = _drive_jax(hi, lo, bounds, jspec, True)
@@ -176,26 +189,29 @@ def test_tap_ladder_merges_with_merge_runs3(plain_kernels, monkeypatch):
     assert tot == jtot == want[1]
 
 
-@pytest.mark.parametrize("stream", [False, True])
+@pytest.mark.parametrize("chunk", ["default", "small"])
 @pytest.mark.parametrize("use_bloom", [True, False])
-def test_budget_trips_every_block(stream, use_bloom):
-    """budget_bytes=1 compacts after every block; no total changes."""
-    rng = np.random.default_rng(7 + stream)
+def test_budget_trips_every_block(chunk, use_bloom, monkeypatch):
+    """budget_bytes=1 compacts after every block, pending lanes only or
+    (a 256-lane chunk) a ladder run and a tail; no total changes."""
+    _set_chunk(monkeypatch, chunk, 1 << 8)
+    rng = np.random.default_rng(7 + (chunk == "small"))
     hi, lo = _rand_planes(rng, 5000, 800)
     bounds = [1700, 3400, 5000]
     jspec, tspec = _specs(14, use_bloom)
     want = _oracle(hi, lo, bounds, jspec, use_bloom)
-    adm = _drive_port(hi, lo, bounds, tspec, use_bloom, block=333, budget=1,
-                      stream=stream)
+    adm = _drive_port(hi, lo, bounds, tspec, use_bloom, block=333, budget=1)
     assert adm.fs.trips == len(list(_blocks(5000, bounds, 333)))
     pb, tot = adm.finish()
     assert (list(pb), tot) == (want[0], want[1])
 
 
-@pytest.mark.parametrize("stream", [False, True])
-def test_fp_unpacked_fallback(stream, monkeypatch):
+@pytest.mark.parametrize("chunk", ["default", "small"])
+def test_fp_unpacked_fallback(chunk, monkeypatch):
     """_pack_ok False: the (pos, verdict) planes return to probe order by
-    a scatter instead of the packed plane's sort; same totals."""
+    a scatter instead of the packed plane's sort; same totals, with the
+    lanes pending to the end or merged up the ladder."""
+    _set_chunk(monkeypatch, chunk)
     monkeypatch.setattr(TA, "_pack_ok", lambda m, nh: False)
     rng = np.random.default_rng(5)
     n = 7001
@@ -203,10 +219,9 @@ def test_fp_unpacked_fallback(stream, monkeypatch):
     bounds = [2345, 5678, n]
     jspec, tspec = _specs(14, True)
     want = _oracle(hi, lo, bounds, jspec, True)
-    pb, tot = _drive_port(hi, lo, bounds, tspec, True, stream=stream).finish()
+    pb, tot = _drive_port(hi, lo, bounds, tspec, True).finish()
     assert (list(pb), tot) == (want[0], want[1])
-    keys_, idx = TA._first2_compact(_port_keys(hi, lo),
-                                    torch.arange(n, dtype=torch.int64))
+    keys_, idx = _first2_of(hi, lo)
     assert len(TA._fp_sort(keys_, idx, tspec)) == 2
 
 
@@ -222,8 +237,7 @@ def test_fp_sort_packed_entries_match_jax():
     jh, jl, ji, nk = JA._first2_compact(jnp.asarray(hi), jnp.asarray(lo),
                                         jnp.asarray(idx))
     nk = int(nk)
-    tk, ti = TA._first2_compact(_port_keys(hi, lo), torch.from_numpy(
-        idx.astype(np.int64)))
+    tk, ti = _first2_of(hi, lo, torch.from_numpy(idx.astype(np.int64)))
     assert torch.equal(tk, _port_keys(np.asarray(jh)[:nk],
                                       np.asarray(jl)[:nk]))
     assert np.array_equal(ti.numpy(), np.asarray(ji)[:nk])
@@ -239,15 +253,12 @@ def test_fp_sort_packed_entries_match_jax():
 
 def test_stream_chunk_sort_is_key_idx_order():
     """A stable key sort of a chunk whose index rises is the (key, idx)
-    order; the classic path sorts arbitrary lanes by (key, idx)."""
+    order."""
     rng = np.random.default_rng(3)
     k = torch.from_numpy(rng.integers(0, 50, 4000))
     i = torch.arange(4000)
     sk, si = TA._sort_by_key(k, i)
     order = np.lexsort((i.numpy(), k.numpy()))
-    assert torch.equal(sk, k[order]) and torch.equal(si, i[order])
-    perm = torch.from_numpy(rng.permutation(4000))
-    sk, si = TA._sort_key_idx(k[perm], i[perm])
     assert torch.equal(sk, k[order]) and torch.equal(si, i[order])
 
 

@@ -268,24 +268,23 @@ def _jax_want(name, argv, capsys, monkeypatch):
     return _want[name]
 
 
-@pytest.mark.parametrize("name,stream", [
-    *((name, False) for name in CLI_CASES),
-    ("k31", True), ("k21_K200000", True), ("k15", True)])
-def test_two_file_cli_matches_jax(name, stream, capsys, monkeypatch):
+@pytest.mark.parametrize("name,chunk", [
+    *((name, "default") for name in CLI_CASES),
+    ("k31", "small"), ("k21_K200000", "small"), ("k15", "small")])
+def test_two_file_cli_matches_jax(name, chunk, capsys, monkeypatch):
     """stdout (1023 rows) and every `[M` line equal the JAX package's:
     k = 31, 21 and 15 (one-plane), one batch and several, -b0 (one pass,
     no shrink), -b15 (bloom disabled by its geometry, two passes all the
-    same), and KMER_TPU_EXACT_BLOOM=0 (the batched insert); stream-sorted
-    accumulation off (the CPU default), and on for both key layouts and
-    for several batches."""
+    same), and KMER_TPU_EXACT_BLOOM=0 (the batched insert); the stream
+    ladders at their default chunk, and at a small one, where they merge,
+    for both key layouts and for several batches."""
     exact, args = CLI_CASES[name]
     argv = [*args, A1, B]
     want = _jax_want(name, argv, capsys, monkeypatch)
     monkeypatch.setenv("KMER_TPU_PLATFORM", "cpu")
-    monkeypatch.setenv("KMER_TPU_STREAM_SORT", "1" if stream else "0")
     if exact:
         monkeypatch.setenv("KMER_TPU_EXACT_BLOOM", exact)
-    if stream:
+    if chunk == "small":
         from kmer_tpu_torch.table import compactor
 
         monkeypatch.setattr(compactor, "_STREAM_CHUNK", 1 << 15)
