@@ -1,9 +1,10 @@
-"""ctypes bindings for the native IO layer (a copy of
-kmer_tpu/io/native/__init__.py, over copies of its three sources): the
-FASTQ/FASTA block reader, in ASCII and 2-bit packed form, and its
-whole-record form (fastx_reader.cpp), the sequential BAM scan of
-bam-vaf-counter (bam_count.cpp) and the CRAM rANS 4x8 decoder
-(cram_rans.cpp).
+"""ctypes bindings for the native IO layer (after
+kmer_tpu/io/native/__init__.py, over copies of its three sources and a
+gzip decoder of its own): the FASTQ/FASTA block reader, in ASCII and
+2-bit packed form, and its whole-record form (fastx_reader.cpp, over the
+table-driven gzip/DEFLATE decoder of gzinflate.cpp, which serves the
+bytes zlib's gzread serves), the sequential BAM scan of bam-vaf-counter
+(bam_count.cpp) and the CRAM rANS 4x8 decoder (cram_rans.cpp).
 
 The library builds with g++ at first use into build/kmer_tpu_torch/ at
 the repository root (never beside the sources), named by a hash of the
@@ -14,8 +15,10 @@ io/cram.py) when it is False: no g++ or zlib, or KMER_TPU_NO_NATIVE set.
 Each block call of the FASTQ/FASTA reader is a `reader.block` span
 (utils/trace.py) under the count loop's span `parent`, with the deltas of
 the reader's native counters (`ktp_stats`) over the call: `inflate_ns`
-(the decoder) and `native_ns` (the whole call: the decoder, the record
-scan and copy, the 2-bit pack).
+(the decoder, file reads included), `native_ns` (the whole call: the
+decoder, the record scan and copy, the 2-bit pack), `inflate_bytes` (the
+text bytes the DEFLATE decoder served) and `text_bytes` (all text bytes
+served, a plain file's too).
 """
 
 from __future__ import annotations
@@ -35,27 +38,24 @@ from ...utils import trace
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRCS = [os.path.join(_HERE, name) for name in
-         ("fastx_reader.cpp", "bam_count.cpp", "cram_rans.cpp")]
+         ("fastx_reader.cpp", "gzinflate.cpp", "bam_count.cpp",
+          "cram_rans.cpp")]
+_HDRS = [os.path.join(_HERE, "gzinflate.h")]
 _lock = threading.Lock()
 _lib = None
 _tried = False
 
 
 def _command(out: str):
-    # No ISA flags beyond the platform baseline: the packing loop carries
-    # its own target("avx2") attribute and a runtime CPU check.
-    # libdeflate (when present) decodes gzip faster than zlib; the reader
-    # streams through zlib without it.
-    cmd = ["g++", "-O3", "-shared", "-fPIC", "-o", out, *_SRCS, "-lz"]
-    if os.path.exists("/usr/include/libdeflate.h"):
-        cmd.insert(1, "-DKTP_HAVE_LIBDEFLATE")
-        cmd.append("-ldeflate")
-    return cmd
+    # No ISA flags beyond the platform baseline: the packing loop and the
+    # decoder's fast loop and CRC carry their own target attributes and a
+    # runtime CPU check.  zlib gives the decoder its byte-wise CRC32.
+    return ["g++", "-O3", "-shared", "-fPIC", "-o", out, *_SRCS, "-lz"]
 
 
 def _library_path() -> str:
     h = hashlib.sha256(" ".join(_command("")).encode())
-    for src in _SRCS:
+    for src in _SRCS + _HDRS:
         with open(src, "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"libkmerio_{h.hexdigest()[:16]}.so")
@@ -102,6 +102,8 @@ def _load() -> Optional[ctypes.CDLL]:
             ctypes.c_int64, i64p, i64p, i64p, i64p]
         lib.ktp_stats.restype = None
         lib.ktp_stats.argtypes = [ctypes.c_void_p, i64p]
+        lib.ktp_read_text.restype = ctypes.c_int64
+        lib.ktp_read_text.argtypes = [ctypes.c_void_p, u8p, ctypes.c_int64]
         lib.ktp_set_policy.argtypes = [
             ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64, ctypes.c_int64,
             ctypes.c_int64]
@@ -134,7 +136,7 @@ class _Counters:
     """A reader handle's ktp_stats, read after each block call: the
     deltas go into the call's `reader.block` span."""
 
-    KEYS = ("inflate_ns", "native_ns")
+    KEYS = ("inflate_ns", "native_ns", "inflate_bytes", "text_bytes")
 
     def __init__(self, lib, h):
         self.lib, self.h = lib, h
@@ -237,6 +239,32 @@ def iter_packed2bit_native(
                        bool(batch_end.value))
         finally:
             lib.ktp_close(h)
+
+
+def read_text_native(path, chunk: int = 1 << 20):
+    """(text, counters): the whole text of a file as the block reader
+    scans it (gzinflate.cpp: gzip decoded, a plain file passed through,
+    gzread's bytes on a damaged stream), and the reader's counters after
+    it (_Counters.KEYS)."""
+    lib = _load()
+    assert lib is not None
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    h = lib.ktp_open(os.fsencode(path))
+    if not h:
+        raise OSError(errno.ENOENT, "cannot open", path)
+    try:
+        buf = np.empty(chunk, np.uint8)
+        parts = []
+        while True:
+            n = lib.ktp_read_text(h, buf.ctypes.data_as(u8p), chunk)
+            if n <= 0:
+                break
+            parts.append(buf[:n].tobytes())
+        stats = _Counters(lib, h)
+        lib.ktp_stats(h, stats.ptr)
+        return b"".join(parts), dict(zip(stats.KEYS, stats.now.tolist()))
+    finally:
+        lib.ktp_close(h)
 
 
 def iter_records_native(

@@ -6,33 +6,31 @@
 // ready for device upload — the host side of the counting pipeline
 // (the role kseq.h + the kt_pipeline read step play in the reference:
 // the reference's kc-c4.c:133-155).  Fresh implementation: a chunked
-// gzread scanner with a small record state machine; sequences shorter
-// than k are skipped, sequences longer than the buffer are split into
-// (k-1)-overlap chunks so no k-mer window is lost or duplicated.
+// scanner with a small record state machine over the text that
+// gzinflate.cpp decodes (gzread's bytes); sequences shorter than k are
+// skipped, sequences longer than the buffer are split into (k-1)-overlap
+// chunks so no k-mer window is lost or duplicated.
 //
 // C ABI for ctypes.
 //
-// Each Reader keeps two plain int64 counters, always on (ktp_stats): the
-// nanoseconds in the decoder (gzread, or libdeflate where it is built,
-// file reads included) and the nanoseconds inside ktp_read_block,
-// ktp_read_block_packed and ktp_read_records.  Two steady_clock reads a
-// decoder fill (1 MiB of text through zlib) and two a block call.
+// Each Reader keeps plain int64 counters, always on (ktp_stats): the
+// nanoseconds in the decoder (file reads included), the nanoseconds
+// inside ktp_read_block, ktp_read_block_packed and ktp_read_records, the
+// text bytes the DEFLATE decoder served and all text bytes served.  Two
+// steady_clock reads a decoder fill (a 1 MiB round) and two a block call.
 
-#include <sys/stat.h>
-#include <zlib.h>
+#include <fcntl.h>
 
-#if defined(KTP_HAVE_LIBDEFLATE)
-#include <libdeflate.h>
-#endif
+#include "gzinflate.h"
 
 #if defined(__x86_64__) || defined(__i386__)
 #include <immintrin.h>
 #define KTP_X86 1
 #endif
 
+#include <algorithm>
 #include <chrono>
 #include <cstdint>
-#include <cstdio>
 #include <cstdlib>
 #include <cstring>
 #include <mutex>
@@ -41,27 +39,23 @@
 
 namespace {
 
-constexpr size_t kChunk = 1 << 20;
-
 int64_t now_ns() {
   return std::chrono::duration_cast<std::chrono::nanoseconds>(
              std::chrono::steady_clock::now().time_since_epoch())
       .count();
 }
 
-// Reusable big-buffer arena.  Each Reader allocates GB-scale buffers
-// (whole compressed file + whole decompressed member + block staging);
-// on this class of VM the FIRST touch of fresh anonymous pages runs
-// 5-10x slower than reuse (measured 146 MB/s first-touch vs 2.3+ GB/s
+// Reusable big-buffer arena.  Each Reader holds MB-scale buffers (the
+// decoded text with its window, the compressed input, block staging);
+// on some VMs the FIRST touch of fresh anonymous pages runs 5-10x
+// slower than reuse (measured 146 MB/s first-touch vs 2.3+ GB/s
 // refault), and glibc munmaps huge frees — so per-pass Reader churn
-// re-paid the fault cost every pass (18.6 s of a 20.5 s end-to-end
-// run).  A small process-global pool keeps the pages alive across
-// Reader lifetimes; capacity is retained by clear().
+// re-paid the fault cost every pass.  A small process-global pool keeps
+// the pages alive across Reader lifetimes.
 struct Arena {
-  std::string buf;             // unconsumed decompressed bytes
-  std::vector<uint8_t> comp;   // whole compressed file
+  std::vector<char> text;        // decoded text (TextStream)
+  std::vector<uint8_t> input;    // compressed input (TextStream)
   std::vector<uint8_t> scratch;  // ASCII staging for the packed path
-  std::vector<uint8_t> out;    // multi-member decode staging
 };
 
 std::mutex g_arena_m;
@@ -79,10 +73,6 @@ Arena* arena_acquire() {
 
 void arena_release(Arena* a) {
   if (!a) return;
-  a->buf.clear();
-  a->comp.clear();
-  a->scratch.clear();
-  a->out.clear();
   std::lock_guard<std::mutex> lk(g_arena_m);
   if (g_arena_pool.size() < 2) {
     g_arena_pool.push_back(a);
@@ -92,126 +82,19 @@ void arena_release(Arena* a) {
 }
 
 struct Reader {
-  gzFile fp = nullptr;
-  Arena* ar = arena_acquire();
-  std::string& buf = ar->buf;  // unconsumed raw bytes
-  size_t pos = 0;              // cursor into buf
+  Arena* ar;
+  ktp::TextStream buf;  // the text: [pos, buf.size()) unconsumed
+  size_t pos = 0;       // cursor into buf
   bool eof = false;
 
-  // ktp_stats' counters
+  // ktp_stats' counters (and buf's inflate_bytes, text_bytes)
   int64_t inflate_ns = 0;  // in the decoder
   int64_t native_ns = 0;   // in the block and record calls
-  std::vector<uint8_t>& scratch = ar->scratch;  // packed-path staging
+  std::vector<uint8_t>& scratch;  // packed-path staging
 
-  // --- libdeflate whole-member path (gzip files only) ---------------
-  // zlib's streaming inflate is the reader's dominant cost on a
-  // single-core host (~240 MB/s); libdeflate decodes ~2.5x faster but
-  // is one-shot per gzip member, so the compressed file is slurped and
-  // members are decoded lazily into `buf` on demand.  A truncated or
-  // corrupt member falls back to a zlib streaming pass over the same
-  // bytes so the decodable prefix is still served (gzread semantics,
-  // pinned by tests/test_golden_counters.py truncated-prefix golden).
-#if defined(KTP_HAVE_LIBDEFLATE)
-  libdeflate_decompressor* ld = nullptr;
-#endif
-  std::vector<uint8_t>& comp = ar->comp;  // whole compressed file
-  size_t comp_pos = 0;
-  uint32_t trailer_isize = 0;  // last member's ISIZE (whole file for
-                               // single-member gzip — the common case)
-
-  ~Reader() {
-#if defined(KTP_HAVE_LIBDEFLATE)
-    if (ld) libdeflate_free_decompressor(ld);
-#endif
-    Arena* a = ar;
-    ar = nullptr;
-    arena_release(a);
-  }
-
-#if defined(KTP_HAVE_LIBDEFLATE)
-  // Decode one gzip member into buf; false at end-of-data.
-  bool fill_libdeflate() {
-    for (;;) {
-      if (comp_pos >= comp.size()) {
-        eof = true;
-        return false;
-      }
-      if (pos > 0) {
-        buf.erase(0, pos);
-        pos = 0;
-      }
-      size_t remain = comp.size() - comp_pos;
-      // Direct decode into buf when it is empty (the typical state:
-      // single-member gzip whose trailer ISIZE is the exact output
-      // size) — no staging buffer, no 535 MB append copy.  A lying
-      // trailer (multi-member middle, corrupt) either still succeeds
-      // with actual_out < want, or reports INSUFFICIENT_SPACE and
-      // falls through to the staged path below.
-      if (buf.empty() && trailer_isize > 0) {
-        buf.resize((size_t)trailer_isize);
-        size_t actual_in = 0, actual_out = 0;
-        libdeflate_result rc = libdeflate_gzip_decompress_ex(
-            ld, comp.data() + comp_pos, remain, &buf[0], buf.size(),
-            &actual_in, &actual_out);
-        if (rc == LIBDEFLATE_SUCCESS) {
-          comp_pos += actual_in ? actual_in : remain;
-          buf.resize(actual_out);
-          if (actual_out == 0) continue;  // empty member: try the next
-          return true;
-        }
-        buf.clear();
-      }
-      // Staged path: decode into the arena's out buffer, append.
-      // First guess covers the whole remaining output; the buffer is
-      // pooled and reused, so over-reservation is amortized.
-      size_t guess = (size_t)trailer_isize + (size_t)(1 << 16);
-      if (guess < 4 * remain) guess = 4 * remain;
-      for (;;) {
-        if (ar->out.size() < guess) ar->out.resize(guess);
-        size_t actual_in = 0, actual_out = 0;
-        libdeflate_result rc = libdeflate_gzip_decompress_ex(
-            ld, comp.data() + comp_pos, remain, ar->out.data(),
-            ar->out.size(), &actual_in, &actual_out);
-        if (rc == LIBDEFLATE_SUCCESS) {
-          comp_pos += actual_in ? actual_in : remain;
-          if (actual_out == 0) break;  // empty member: try the next one
-          buf.append(reinterpret_cast<const char*>(ar->out.data()),
-                     actual_out);
-          return true;
-        }
-        if (rc == LIBDEFLATE_INSUFFICIENT_SPACE) {
-          guess = ar->out.size() * 2;
-          continue;
-        }
-        // Truncated/corrupt member (or trailing garbage): recover the
-        // decodable prefix with streaming zlib, then latch EOF.
-        bool got = false;
-        z_stream zs;
-        std::memset(&zs, 0, sizeof(zs));
-        if (inflateInit2(&zs, 15 + 16) == Z_OK) {
-          zs.next_in = comp.data() + comp_pos;
-          zs.avail_in = (uInt)remain;
-          std::vector<uint8_t> tmp(kChunk);
-          for (;;) {
-            zs.next_out = tmp.data();
-            zs.avail_out = (uInt)tmp.size();
-            int zrc = inflate(&zs, Z_NO_FLUSH);
-            size_t produced = tmp.size() - zs.avail_out;
-            if (produced) {
-              buf.append(reinterpret_cast<const char*>(tmp.data()), produced);
-              got = true;
-            }
-            if (zrc != Z_OK || zs.avail_in == 0) break;
-          }
-          inflateEnd(&zs);
-        }
-        comp_pos = comp.size();
-        eof = true;
-        return got;
-      }
-    }
-  }
-#endif  // KTP_HAVE_LIBDEFLATE
+  Reader(int fd, Arena* a)
+      : ar(a), buf(fd, &a->text, &a->input), scratch(a->scratch) {}
+  ~Reader() { arena_release(ar); }
 
   // carry-over sequence that did not fit the caller's buffer
   std::string carry;
@@ -248,28 +131,11 @@ struct Reader {
 
   bool fill() {
     if (eof) return false;
-#if defined(KTP_HAVE_LIBDEFLATE)
-    if (ld) {
-      int64_t t0 = now_ns();
-      bool ok = fill_libdeflate();
-      inflate_ns += now_ns() - t0;
-      return ok;
-    }
-#endif
-    char tmp[kChunk];
     int64_t t0 = now_ns();
-    int n = gzread(fp, tmp, kChunk);
+    bool ok = buf.fill(&pos);
     inflate_ns += now_ns() - t0;
-    if (n <= 0) {
-      eof = true;
-      return false;
-    }
-    if (pos > 0) {
-      buf.erase(0, pos);
-      pos = 0;
-    }
-    buf.append(tmp, n);
-    return true;
+    if (!ok) eof = true;
+    return ok;
   }
 
   // next line (without newline); returns false at EOF with no data
@@ -277,16 +143,16 @@ struct Reader {
     out->clear();
     for (;;) {
       size_t nl = buf.find('\n', pos);
-      if (nl != std::string::npos) {
+      if (nl != ktp::TextStream::npos) {
         size_t len = nl - pos;
         if (len && buf[nl - 1] == '\r') --len;
-        out->assign(buf, pos, len);
+        out->assign(buf.data() + pos, len);
         pos = nl + 1;
         return true;
       }
       if (!fill()) {
         if (pos < buf.size()) {
-          out->assign(buf, pos, buf.size() - pos);
+          out->assign(buf.data() + pos, buf.size() - pos);
           if (!whole_records && !out->empty() && out->back() == '\r')
             out->pop_back();
           pos = buf.size();
@@ -461,64 +327,12 @@ int64_t read_block(Reader* r, uint8_t* out, int64_t capacity, int32_t k,
 
 extern "C" {
 
+// A handle on a FASTA/FASTQ file, gzipped or plain (a FIFO too: the
+// first read tells them apart); null when it cannot be opened.
 void* ktp_open(const char* path) {
-#if defined(KTP_HAVE_LIBDEFLATE)
-  // gzip files take the libdeflate whole-member path: slurp the
-  // compressed bytes (page-cache read, ~GB/s) and decode members
-  // lazily in fill_libdeflate().  Plain files keep zlib's transparent
-  // gzopen passthrough.  ONLY for regular files of sane size: a FIFO /
-  // process substitution (`tool <(zcat ...)`) cannot be reopened after
-  // the magic sniff (reopening blocks for a new writer — deadlock),
-  // and slurping an arbitrarily large single-member .gz would hold
-  // compressed + uncompressed bytes in RAM; both stream through zlib
-  // instead, like the reference's gzread.
-  struct stat st;
-  bool slurpable = stat(path, &st) == 0 && S_ISREG(st.st_mode) &&
-                   (uint64_t)st.st_size <= (1ull << 30);
-  if (slurpable) {
-    if (FILE* f = fopen(path, "rb")) {
-      uint8_t magic[2];
-      size_t got = fread(magic, 1, 2, f);
-      if (got == 2 && magic[0] == 0x1f && magic[1] == 0x8b) {
-        auto* r = new Reader();
-        r->ld = libdeflate_alloc_decompressor();
-        if (r->ld) {
-          if (fseek(f, 0, SEEK_END) == 0) {
-            long sz = ftell(f);
-            if (sz > 0) {
-              r->comp.resize((size_t)sz);
-              fseek(f, 0, SEEK_SET);
-              if (fread(r->comp.data(), 1, (size_t)sz, f) != (size_t)sz)
-                r->comp.clear();
-              if (r->comp.size() >= 4) {
-                const uint8_t* t = r->comp.data() + r->comp.size() - 4;
-                r->trailer_isize = (uint32_t)t[0] | ((uint32_t)t[1] << 8) |
-                                   ((uint32_t)t[2] << 16) |
-                                   ((uint32_t)t[3] << 24);
-              }
-            }
-          }
-          fclose(f);
-          f = nullptr;
-          if (!r->comp.empty()) return r;
-        }
-        delete r;  // slurp failed: fall through to the zlib path
-        if (f) fclose(f);  // still open when the decompressor alloc failed
-      } else {
-        fclose(f);  // not gzip (or unreadable): zlib passthrough below
-      }
-    } else {
-      return nullptr;  // regular file that cannot be opened
-    }
-  }
-  // non-regular (FIFO/pipe) or oversized inputs stream through zlib
-#endif
-  gzFile fp = gzopen(path, "r");
-  if (!fp) return nullptr;
-  gzbuffer(fp, 1 << 20);
-  auto* r = new Reader();
-  r->fp = fp;
-  return r;
+  int fd = open(path, O_RDONLY | O_CLOEXEC);
+  if (fd < 0) return nullptr;
+  return new Reader(fd, arena_acquire());
 }
 
 // Configure the malformed-quality policy (must precede reads).
@@ -532,11 +346,7 @@ void ktp_set_policy(void* h, int32_t qual_resume, int64_t ref_block,
 }
 
 void ktp_close(void* h) {
-  auto* r = static_cast<Reader*>(h);
-  if (r) {
-    if (r->fp) gzclose(r->fp);
-    delete r;
-  }
+  delete static_cast<Reader*>(h);
 }
 
 // Fill `out` (capacity bytes) with NUL-separated sequences.
@@ -619,11 +429,26 @@ int64_t ktp_read_records(void* h, uint8_t* out, int64_t capacity,
 
 // The Reader's counters, cumulative since ktp_open: out[0] nanoseconds
 // in the decoder, out[1] nanoseconds inside the block calls (the decoder
-// included).
+// included), out[2] text bytes served from the DEFLATE decoder, out[3]
+// all text bytes served (a plain file's too).
 void ktp_stats(void* h, int64_t* out) {
   auto* r = static_cast<Reader*>(h);
   out[0] = r->inflate_ns;
   out[1] = r->native_ns;
+  out[2] = r->buf.inflate_bytes;
+  out[3] = r->buf.text_bytes;
+}
+
+// The text itself, as the record scanner sees it: up to `capacity`
+// bytes, 0 at the end.  A handle takes this call or the record calls.
+int64_t ktp_read_text(void* h, uint8_t* out, int64_t capacity) {
+  auto* r = static_cast<Reader*>(h);
+  while (r->pos >= r->buf.size())
+    if (!r->fill()) return 0;
+  int64_t n = std::min<int64_t>(capacity, r->buf.size() - r->pos);
+  std::memcpy(out, r->buf.data() + r->pos, n);
+  r->pos += n;
+  return n;
 }
 
 }  // extern "C"

@@ -12,6 +12,7 @@ import collections
 import contextlib
 import ctypes
 import functools
+import gzip
 import io
 import json
 import os
@@ -206,7 +207,8 @@ def test_native_counters_are_exact(path, packed):
     the call that finds the end), each with exactly the counters'
     keys; the decoder's time is within the call's, and the call's
     within its span's (steady_clock and perf_counter are both the
-    monotonic clock)."""
+    monotonic clock); every text byte of a gzip file came from the
+    DEFLATE decoder."""
     if not native.available():
         pytest.skip("the native reader does not build here")
     fn = native.iter_packed2bit_native if packed else \
@@ -214,20 +216,26 @@ def test_native_counters_are_exact(path, packed):
     n_blocks = sum(1 for _ in fn([path], 21, 1 << 15, (1 << 15) + 4096))
     blocks = _reader_spans(fn, path)
     assert n_blocks >= 1 and len(blocks) == n_blocks + 1
-    assert all(set(s.attrs) == {"inflate_ns", "native_ns"} for s in blocks)
+    assert all(set(s.attrs) == {"inflate_ns", "native_ns", "inflate_bytes",
+                                "text_bytes"} for s in blocks)
     assert all(0 <= s.attrs["inflate_ns"] <= s.attrs["native_ns"]
                <= (s.t1 - s.t0) * 1e9 for s in blocks)
     assert sum(s.attrs["inflate_ns"] for s in blocks) > 0
+    text = sum(s.attrs["text_bytes"] for s in blocks)
+    with gzip.open(path, "rb") as f:
+        assert text == len(f.read())
+    assert sum(s.attrs["inflate_bytes"] for s in blocks) == text
 
 
 def test_native_counters_through_zlib(tmp_path):
-    """The reader built without libdeflate (zlib's gzread streams the
-    file, as where libdeflate is not installed): the decoder's time
-    within the block calls', and theirs within the reading's wall."""
+    """The reader built from its two sources alone, with plain g++ and
+    zlib (whose crc32 the decoder uses), whatever else the host has:
+    the decoder's time within the block calls', and theirs within the
+    reading's wall; its text bytes, all from the DEFLATE decoder."""
     so = str(tmp_path / "libzlibonly.so")
-    src = os.path.join(REPO, "kmer_tpu_torch", "io", "native",
-                       "fastx_reader.cpp")
-    r = subprocess.run(["g++", "-O1", "-shared", "-fPIC", "-o", so, src,
+    srcs = [os.path.join(REPO, "kmer_tpu_torch", "io", "native", name)
+            for name in ("fastx_reader.cpp", "gzinflate.cpp")]
+    r = subprocess.run(["g++", "-O1", "-shared", "-fPIC", "-o", so, *srcs,
                         "-lz"], capture_output=True, timeout=120)
     if r.returncode != 0:
         pytest.skip("g++ and zlib do not build the reader here")
@@ -254,11 +262,12 @@ def test_native_counters_through_zlib(tmp_path):
                 21, 1 << 14, *map(ctypes.byref, out)) > 0:
             calls += 1
         wall_ns = (time.perf_counter() - t0) * 1e9
-        st = np.zeros(2, np.int64)
+        st = np.zeros(4, np.int64)
         lib.ktp_stats(h, st.ctypes.data_as(i64p))
         lib.ktp_close(h)
         assert calls >= 1
         assert 0 < st[0] <= st[1] <= wall_ns
+        assert 0 < st[2] == st[3]
 
 
 def test_loop_lanes_added_are_the_lanes_appended(monkeypatch):

@@ -8,6 +8,7 @@ on a machine with one, run them with
 The inputs are integers and the outputs too: every comparison is exact.
 """
 
+import gc
 import os
 
 import numpy as np
@@ -553,6 +554,9 @@ def test_fold_on_card_peaks_below_a_sort(dev):
         torch.cuda.synchronize(dev)
         return torch.cuda.max_memory_allocated(dev), out
 
+    # earlier tests' cyclic garbage holding device memory would otherwise
+    # be freed whenever the collector runs, between the two samples
+    gc.collect()
     runs = _counted_runs(dev, 1 << 26, 4, 26)
     start = torch.cuda.memory_allocated(dev)
     sort_peak, want = peak(
