@@ -90,9 +90,9 @@ Phases, each printing its own lines:
               kernel versions in both compactors; extract, the int64
               merge path and the folds' (key, count) merge path must
               launch, no other kernel; prints the wall,
-              both passes' IngestStats, insert_sequential's device time
+              both passes' IngestStats, the bloom admission's device time
               over pass 1, the shrink join's time and the peak device
-              memory (the 1 GiB bits array and both compactors)
+              memory (the 128 MiB packed bits array and both compactors)
  11. edvaf    ed-vaf-counter -e1 on sample B (64 Mbases) with the first
               1,000 sites of phase 9's panel (2,000 patterns at k = 21),
               then with the whole panel (~21,000 sites, 42,000
@@ -2217,10 +2217,10 @@ def phase_snp(seed, card):
 # -- two-file yak-count and ed-vaf-counter --------------------------------
 
 YAK2_ARGS = ["-k31", "-b30"]
-# the two-file path runs extract and the int64 merge path, and the
-# (key, count) merge path: pass 1 compacts every batch, and each fold
-# after the first merges into the standing plane
-YAK2_KERNELS = ("extract", "merge_partition", "merge_path",
+# the two-file path runs extract, the bloom's test-and-set, the int64
+# merge path, and the (key, count) merge path: pass 1 compacts every
+# batch, and each fold after the first merges into the standing plane
+YAK2_KERNELS = ("extract", "bloom", "merge_partition", "merge_path",
                 *YAK_TAP_KERNELS)
 
 
@@ -2247,23 +2247,23 @@ def recording_yak_engines(plain_kernels=False):
 
 @contextlib.contextmanager
 def timing_yak2():
-    """Time the two-file engine's plain-torch parts: every
-    insert_sequential call between two CUDA events (no synchronize, so
-    the pipeline runs as it would; the events also count any wait for
-    the host inside the call), and the shrink join between two
-    synchronizes (host wall)."""
+    """Time the two-file engine's bloom and join: every bloom.admit call
+    (csrc/bloom.cu) between two CUDA events (no synchronize, so the
+    pipeline runs as it would; the events also count any wait for the
+    host inside the call), and the shrink join between two synchronizes
+    (host wall)."""
     import torch
 
     from kmer_tpu_torch.kernels import bloom
     from kmer_tpu_torch.pipeline import yak
 
     times = {"insert": [], "join_s": []}
-    real_ins, real_join = bloom.insert_sequential, yak._shrink_join_core
+    real_ins, real_join = bloom.admit, yak._shrink_join_core
 
-    def insert_sequential(bits, keys, valid, spec):
+    def admit(bits, keys, spec, *a):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
-        out = real_ins(bits, keys, valid, spec)
+        out = real_ins(bits, keys, spec, *a)
         ev[1].record()
         times["insert"].append((ev, keys.shape[0], spec.n_hashes))
         return out
@@ -2277,12 +2277,12 @@ def timing_yak2():
         times["join_lanes"] = (keys1.shape[0], keys2.shape[0])
         return out
 
-    bloom.insert_sequential = insert_sequential
+    bloom.admit = admit
     yak._shrink_join_core = shrink_join
     try:
         yield times
     finally:
-        bloom.insert_sequential, yak._shrink_join_core = real_ins, real_join
+        bloom.admit, yak._shrink_join_core = real_ins, real_join
 
 
 def phase_yak2(seed):
@@ -2310,7 +2310,7 @@ def phase_yak2(seed):
     need(f"-b{eng.bf_shift}" in YAK2_ARGS and not eng.plain_kernels,
          "the two-file engine is not on card compactors")
     need(times["insert"] and len(times["join_s"]) == 1,
-         "pass 1 did not run the sequential bloom, or the shrink no join")
+         "pass 1 did not run the bloom admission, or the shrink no join")
     total = check_yak_text(got)
     n_b = bases[1] // READ_LEN
     need(sum(eng.batch_seq_counts) == n_b,
@@ -2327,14 +2327,14 @@ def phase_yak2(seed):
         f"memory {peak:.2f} GiB (bits array 2^{eng.bf_shift} bytes)")
     for i, st in enumerate(eng.stats, 1):
         say("yak2", f"pass {i} IngestStats: {stats_line(st)}")
-    # bounds, bytes at HBM_BYTES_PER_S: insert_sequential reads each key
-    # (8 B) and valid flag (1 B), reads and writes each probe's byte,
-    # writes each verdict (1 B); the join reads A's keys (8 B) and B's
-    # keys and counts (12 B) and writes 1024 int64 bins
-    ins_bytes = sum(n * (10 + 2 * h) for _, n, h in times["insert"])
+    # bounds, bytes at HBM_BYTES_PER_S: the admission reads each key
+    # (8 B) and its 64-byte bloom block and writes the admitted key (8
+    # B); the join reads A's keys (8 B) and B's keys and counts (12 B)
+    # and writes 1024 int64 bins
+    ins_bytes = sum(n * 80 for _, n, _h in times["insert"])
     n1, n2 = times["join_lanes"]
     join_bytes = n1 * 8 + n2 * 12 + 1024 * 8
-    say("yak2", f"insert_sequential: {len(times['insert'])} calls over "
+    say("yak2", f"bloom admission: {len(times['insert'])} calls over "
         f"{sum(n for _, n, _ in times['insert'])} lanes, {insert_ms:.3f} ms "
         f"of device time in all (CUDA events); bound {ins_bytes / 1e6:.0f} "
         f"MB = {ins_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
@@ -3634,7 +3634,7 @@ def phase_multiproc(seed, out):
 
 # the table path runs extract and the slot resolve, and no merge and no
 # segment histogram: that is what shows KMER_TPU_TABLE_YAK=1 switched
-TABLE_KERNELS = ("extract", "resolve")
+TABLE_KERNELS = ("extract", "resolve", "bloom")
 SECTOR_BYTES = 32  # a random access moves one 32-byte sector
 
 
@@ -3973,7 +3973,8 @@ def phase_table(seed, out):
     need(got == out["yak2"]["got"],
          "the table engine's yak-count != phase 10's (stdout or [M lines)")
     need(all(launches[n] > 0 for n in TABLE_KERNELS),
-         f"the table path never launched extract or resolve: {launches}")
+         f"the table path never launched extract, resolve or the bloom: "
+         f"{launches}")
     need(not any(v for n, v in launches.items() if n not in TABLE_KERNELS),
          f"the table path launched a merge or seghist kernel: {launches}")
     need(launches["resolve"] == len(calls),

@@ -24,7 +24,8 @@ one to its count where it launches its kernel and nowhere else, so a run
 can show that the main path went through the kernels.  A kernel with two
 entry points counts both: `myers` is csrc/myers.cu's one-word kernel,
 launched by ktt_myers (the (R, P) counts) and ktt_myers_sums (their sum
-a pattern), `myers_multiword` its W-word kernel.
+a pattern), `myers_multiword` its W-word kernel; `bloom` counts calls of
+ktt_bloom_insert, which launches csrc/bloom.cu's two kernels.
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"extract": 0, "seghist": 0, "merge_partition": 0,
             "merge_path": 0, "merge_partition1": 0, "merge_path1": 0,
             "merge_partition3": 0, "merge_path3": 0, "resolve": 0, "myers": 0,
-            "myers_multiword": 0}
+            "myers_multiword": 0, "bloom": 0}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -77,6 +78,8 @@ _SIGNATURES = {
     "ktt_myers_multiword_sums": [_P, _P, _P, _P, _I64, _I64, _I64, _I32,
                                  _I32, _I32, _P, _P, _P],
     "ktt_myers_shape": [_I64, _I64, _I32, _I32, _I32, _P],
+    "ktt_bloom_insert": [_P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _P, _P,
+                         _P, _I64, _P, _P, _P],
 }
 
 _lock = threading.Lock()

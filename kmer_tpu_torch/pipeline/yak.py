@@ -27,6 +27,14 @@ pass 1's admission resolves per shard when the pass ends
 (pipeline/yak_admit.py `ShardedDeferredYak`), and the shrink join runs
 per shard and sums.
 
+The bits array is packed (kernels/bloom.py, 2^(b - 3) bytes).
+SortYakEngine holds the -b asked for, up to 2^38 bits (32 GiB) on its
+one device; the other engines clamp at 2^31 bits a device, as the JAX
+package does (`_clamp_bf_shift`): the table engine's checkpoints are
+the JAX package's byte-per-bit layout, the mesh engines follow the JAX
+mesh, and the single-file tap's deferred admission packs bit << 32 |
+lane (pipeline/yak_admit.py).
+
 KMER_TPU_TABLE_YAK=1 runs the open-addressing table engines instead, as
 in the JAX package: `YakEngine` on one device and `MeshYakEngine` on the
 mesh or across processes.  Each block's bloom gate and insert go into a
@@ -49,6 +57,7 @@ from ..kernels.bloom import BLK_SHIFT, BloomSpec
 from ..kernels.keys import SENT
 from ..table import count_table as ct
 from ..table.compactor import KmerCompactor
+from ..utils import trace
 from ..utils.log import warn
 from .counter import (GROW_LOAD, IngestStats, _extracted_blocks, mesh_steps,
                       use_mesh)
@@ -56,6 +65,10 @@ from .counter import (GROW_LOAD, IngestStats, _extracted_blocks, mesh_steps,
 YAK_COUNTER_BITS = 10  # yak-count.c:9
 YAK_N_COUNTS = 1 << YAK_COUNTER_BITS
 YAK_MAX_COUNT = YAK_N_COUNTS - 1
+# the largest bloom a device holds, log2 bits: the JAX package's, which
+# every engine but SortYakEngine keeps, and SortYakEngine's (32 GiB)
+CLAMP_SHIFT = 31
+SORT_MAX_SHIFT = 38
 
 
 def _yak_ingest_core(table: ct.CountTable, bits: torch.Tensor,
@@ -76,7 +89,7 @@ def _yak_ingest_core(table: ct.CountTable, bits: torch.Tensor,
                                 plain_kernels=plain_kernels)
         return table, bits, torch.zeros_like(n_dead), n_dead
     if use_bloom:
-        ins = bloom.insert_sequential if exact_bloom else bloom.insert
+        ins = _insert_fn(exact_bloom, plain_kernels)
         bits, preset = ins(bits, keys, valid, spec)
         table, n_new, n_dead = ct.insert_gated(table, keys, valid, preset,
                                                YAK_MAX_COUNT, plain_kernels)
@@ -86,12 +99,23 @@ def _yak_ingest_core(table: ct.CountTable, bits: torch.Tensor,
     return table, bits, n_new, n_dead
 
 
-def _clamp_bf_shift(bf_shift: int, owner_bits: int = 0) -> int:
-    """The largest bloom is 2^31 bits per device (the JAX package's
-    byte-per-bit layout, kept so both admit the same keys); a larger -b
-    clamps with a warning (yak.py:105-124).  Single-file output does not
-    depend on the bloom's size."""
-    cap = 31 + owner_bits
+def _insert_fn(exact_bloom: bool, plain_kernels: bool):
+    """The bloom's test-and-set: sequential with exact_bloom, else
+    batched; the plain version under plain_kernels."""
+    if exact_bloom:
+        return (bloom.insert_sequential_plain if plain_kernels
+                else bloom.insert_sequential)
+    return bloom.insert_plain if plain_kernels else bloom.insert
+
+
+def _clamp_bf_shift(bf_shift: int, owner_bits: int = 0,
+                    max_shift: int = CLAMP_SHIFT) -> int:
+    """The largest bloom is 2^max_shift bits per device: 2^31 for every
+    engine but SortYakEngine (the JAX package's limit, kept so both
+    admit the same keys), 2^38 for it; a larger -b clamps with a warning
+    (yak.py:105-124).  Single-file output does not depend on the bloom's
+    size."""
+    cap = max_shift + owner_bits
     if bf_shift > cap:
         warn("yak_count",
              f"bloom size 2^{bf_shift} exceeds the per-device budget; "
@@ -100,11 +124,12 @@ def _clamp_bf_shift(bf_shift: int, owner_bits: int = 0) -> int:
     return bf_shift
 
 
-def _bloom_geometry_ok(bf_shift: int, pre: int, owner_bits: int = 0) -> bool:
+def _bloom_geometry_ok(bf_shift: int, pre: int, owner_bits: int = 0,
+                       max_shift: int = CLAMP_SHIFT) -> bool:
     """True when the (possibly clamped) bloom still holds at least one
     512-bit block per -p subtable; else the bloom is disabled with a
     warning (yak.py:141-155)."""
-    clamped = min(bf_shift, 31 + owner_bits)
+    clamped = min(bf_shift, max_shift + owner_bits)
     if clamped - pre >= BLK_SHIFT:
         return True
     warn("yak_count",
@@ -123,21 +148,22 @@ def _exact_bloom_default(use_bloom: bool) -> bool:
 
 
 def _make_bloom(pre: int, bf_shift: int, bf_n_hash: int,
-                make_bits_array: bool = True, device=None):
+                make_bits_array: bool = True, device=None,
+                max_shift: int = CLAMP_SHIFT):
     """The one bloom-geometry gate of both yak paths (yak.py:160-185):
     (use_bloom, bf_shift, spec, bits, exact_bloom).  The gates mirror
     yak_ch_init (n_shift > pre) and yak_bf_init (BLK_SHIFT <= n_shift -
-    pre).  bits is the bloom's zeroed bits array on `device`, an 8-byte
-    dummy without a bloom, and None with make_bits_array=False (the
-    single-file tap needs the spec only)."""
+    pre); -b clamps at max_shift.  bits is the bloom's zeroed packed bits
+    array on `device`, an 8-byte dummy without a bloom, and None with
+    make_bits_array=False (the single-file tap needs the spec only)."""
     use_bloom = (
         bf_n_hash > 0
         and bf_shift > pre
         and (bf_shift - pre) >= BLK_SHIFT
-        and _bloom_geometry_ok(bf_shift, pre)
+        and _bloom_geometry_ok(bf_shift, pre, max_shift=max_shift)
     )
     if use_bloom:
-        bf_shift = _clamp_bf_shift(bf_shift)
+        bf_shift = _clamp_bf_shift(bf_shift, max_shift=max_shift)
         spec = BloomSpec(pre, bf_shift, bf_n_hash)
         bits = bloom.make_bits(spec, device) if make_bits_array else None
     else:
@@ -147,19 +173,18 @@ def _make_bloom(pre: int, bf_shift: int, bf_n_hash: int,
     return use_bloom, bf_shift, spec, bits, _exact_bloom_default(use_bloom)
 
 
-def _tap_admit(bits, keys, spec, use_bloom, exact_bloom):
+def _tap_admit(bits, keys, spec, use_bloom, exact_bloom,
+               plain_kernels: bool = False):
     """Per-lane admission of pass 1 (yak.py:188-204): a lane is admitted
     iff the reference's yak_bf_insert would return n_hash for it (all
     its bits set before it, by earlier blocks or, under the sequential
     semantics, earlier lanes of this block); the rest become the
-    sentinel.  Without a bloom every valid lane is admitted.  Returns
-    (keys, bits), bits updated in place."""
+    sentinel (bloom.admit: one kernel call on the card, the plain
+    version under plain_kernels).  Without a bloom every valid lane is
+    admitted.  Returns (keys, bits), bits updated in place."""
     if not use_bloom:
         return keys, bits
-    valid = keys != SENT
-    ins = bloom.insert_sequential if exact_bloom else bloom.insert
-    bits, preset = ins(bits, keys, valid, spec)
-    return torch.where(valid & preset, keys, SENT), bits
+    return bloom.admit(bits, keys, spec, exact_bloom, plain_kernels), bits
 
 
 class YakSimTap:
@@ -353,14 +378,16 @@ class YakEngine:
     def save_checkpoint(self, path: str) -> None:
         """The table and the bloom's bits in the JAX package's npz layout
         (yak.py:463-482): state uint8, key_hi / key_lo / cnt uint32, bits
-        uint8, meta = int64[k, pre, bf_shift, bf_n_hash, n_full, tot,
-        use_bloom, chunk_size]; written to a temporary file and renamed.
-        Between the passes, so a killed pass 2 resumes without pass 1."""
+        uint8 one byte a bit (the packed array unpacked), meta =
+        int64[k, pre, bf_shift, bf_n_hash, n_full, tot, use_bloom,
+        chunk_size]; written to a temporary file and renamed.  Between
+        the passes, so a killed pass 2 resumes without pass 1."""
         state, hi, lo, cnt = ct.to_jax_planes(self.table)
         tmp = path + ".tmp.npz"
         np.savez_compressed(
             tmp, state=state, key_hi=hi, key_lo=lo, cnt=cnt,
-            bits=self.bits.cpu().numpy(),
+            bits=(bloom.unpack_bits(self.bits) if self.use_bloom
+                  else self.bits).cpu().numpy(),
             meta=np.asarray(
                 [self.k, self.pre, self.bf_shift, self.bf_n_hash,
                  int(self.table.n_full), self.tot, int(self.use_bloom),
@@ -381,7 +408,8 @@ class YakEngine:
                                        z["cnt"], n_full, eng.device)
         eng.tot = tot
         if use_bloom:
-            eng.bits = torch.from_numpy(z["bits"]).to(eng.device)
+            eng.bits = bloom.pack_bits(torch.from_numpy(z["bits"])).to(
+                eng.device)
         else:
             eng.destroy_bloom()
         return eng
@@ -436,7 +464,14 @@ class SortYakEngine:
     multiplicities of the bloom-admitted lanes: those flow through a
     sort-based compactor (`comp1`) directly.  Pass 2 counts file 2 in a
     second compactor (`comp2`), and `shrink` joins the pass-1 keys
-    against it (`_shrink_join_core`).
+    against it (`_shrink_join_core`).  The bloom is the size asked for,
+    up to 2^SORT_MAX_SHIFT bits, packed (16 GiB at -b37).
+
+    Spans (utils/trace.py): `yak.pass` a pass (`pass` 1 or 2, `bases`
+    read), the count loop's span for the reader's, staging's and
+    dispatch's spans under it, as SortCountEngine.count_paths's
+    `count.loop` is; `yak.bloom` a block's admission (`lanes`, the
+    block's valid lanes, a 0-dim tensor); `yak.shrink` the shrink.
 
     `device` defaults to default_device(); `plain_kernels` makes both
     compactors call the kernels' plain versions (and extraction too), as
@@ -462,7 +497,8 @@ class SortYakEngine:
                               if plain_kernels else extract.extract_keys_rows)
         (self.use_bloom, self.bf_shift, self.spec, self.bits,
          self.exact_bloom) = _make_bloom(pre, bf_shift, bf_n_hash,
-                                         device=self.device)
+                                         device=self.device,
+                                         max_shift=SORT_MAX_SHIFT)
         self.comp1 = self._mk()  # admitted-occurrence stream (pass 1)
         self.comp2 = None        # file 2's occurrence stream (pass 2)
         self.tot = 0
@@ -485,26 +521,32 @@ class SortYakEngine:
         st = IngestStats()
         self.stats.append(st)
         t_loop = time.perf_counter()
-        for keys, _nk, _nb, n_seqs, batch_end in _extracted_blocks(
-                paths, self.k, self.chunk_size, self.capacity_block,
-                ("resume", self.k, 3), self.device, True, self._extract,
-                self._extract_rows, st):
-            t1 = time.perf_counter()
-            if create_new:
-                keys, self.bits = _tap_admit(
-                    self.bits, keys, self.spec, self.use_bloom,
-                    self.exact_bloom)
-                self.comp1.add_raw(keys)
-            else:
-                self.comp2.add_raw(keys)
-            self._batch_seqs += int(n_seqs)
-            pending = True
-            if batch_end:
+        bases = 0
+        with trace.span("yak.pass", **{"pass": 1 if create_new else 2}) \
+                as sp:
+            for keys, nk, nb, n_seqs, batch_end in _extracted_blocks(
+                    paths, self.k, self.chunk_size, self.capacity_block,
+                    ("resume", self.k, 3), self.device, True, self._extract,
+                    self._extract_rows, st, sp):
+                with trace.timed("ingest.dispatch", sp) as d:
+                    bases += int(nb)
+                    if create_new:
+                        with trace.span("yak.bloom", lanes=nk):
+                            keys, self.bits = _tap_admit(
+                                self.bits, keys, self.spec, self.use_bloom,
+                                self.exact_bloom, self.plain_kernels)
+                        self.comp1.add_raw(keys)
+                    else:
+                        self.comp2.add_raw(keys)
+                    self._batch_seqs += int(n_seqs)
+                    pending = True
+                    if batch_end:
+                        self._flush_batch(create_new)
+                        pending = False
+                st.dispatch_s += d.seconds
+            if pending:
                 self._flush_batch(create_new)
-                pending = False
-            st.dispatch_s += time.perf_counter() - t1
-        if pending:
-            self._flush_batch(create_new)
+            sp.set(bases=bases)
         st.loop_s = time.perf_counter() - t_loop
 
     def _flush_batch(self, create_new: bool) -> None:
@@ -533,6 +575,10 @@ class SortYakEngine:
         """Resolve the pass-1 key set against the pass-2 counts (the
         yak_ch_shrink rebuild, yak-count.c:243-277); stores the final
         histogram and tot."""
+        with trace.span("yak.shrink"):
+            self._shrink(min_count, max_count)
+
+    def _shrink(self, min_count: int, max_count: int) -> None:
         self.comp1.compact()
         keys1, c1 = self.comp1.runs[0]
         if self.comp2 is None:

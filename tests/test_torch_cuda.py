@@ -603,6 +603,99 @@ def test_bloom_on_card_matches_cpu(dev, fn, n_hashes):
     assert pg.any() and not pg.all()
 
 
+@pytest.mark.parametrize("sequential", [True, False])
+def test_bloom_kernel_matches_twin_at_b37(dev, sequential):
+    """csrc/bloom.cu against its plain twin on the card at -b37 (two
+    16 GiB packed arrays), lane for lane and byte for byte over four
+    2^21-lane blocks: repeats within and across blocks, sentinel lanes,
+    a hot key in a tenth of a block's lanes; the last block through
+    `admit`, the tool's gate, under which the card runs csrc/bloom.cu's
+    three kernels, one entry call, and nothing else."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from kmer_tpu_torch.kernels import _build, bloom
+    from kmer_tpu_torch.kernels.keys import from_u64
+
+    spec = bloom.BloomSpec(10, 37, 4)
+    bits, twin = bloom.make_bits(spec, dev), bloom.make_bits(spec, dev)
+    assert bits.shape[0] == 1 << 34
+    fn = "insert_sequential" if sequential else "insert"
+    rng = np.random.default_rng(37 + sequential)
+    pool = rng.integers(0, 1 << 64, 1 << 22, dtype=np.uint64)
+    verdicts = set()
+    for block in range(4):
+        k = pool[rng.integers(0, pool.shape[0], 1 << 21)]
+        k[rng.random(k.shape[0]) < 0.1] = pool[block]
+        k[rng.random(k.shape[0]) < 0.05] = np.uint64((1 << 64) - 1)
+        keys = torch.from_numpy(from_u64(k)).to(dev)
+        _, want = getattr(bloom, fn + "_plain")(twin, keys, keys != SENT,
+                                                spec)
+        if block < 3:
+            _, got = getattr(bloom, fn)(bits, keys, keys != SENT, spec)
+            assert torch.equal(got, want)
+        else:
+            _build.reset_launches()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                admitted = bloom.admit(bits, keys, spec, sequential)
+                torch.cuda.synchronize()
+            assert torch.equal(admitted, torch.where(want, keys, SENT))
+            names = {e.name for e in prof.events()
+                     if e.device_type == DeviceType.CUDA}
+            assert names and all(
+                any(k in n for k in ("bloom_clear_kernel",
+                                     "bloom_probe_kernel",
+                                     "bloom_admit_kernel"))
+                for n in names), names
+            assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
+                "bloom": 1}
+        assert torch.equal(bits, twin)
+        verdicts |= set(want.unique().tolist())
+    assert verdicts == {False, True}  # batched: none preset in block 0
+
+
+def test_yak_two_names_on_card(dev, tmp_path, capsys, monkeypatch):
+    """Two-file yak-count given one two-member FASTQ.gz under two names
+    (the benchmark's reads_twice data, 30,000 reads of 150 bases) on the
+    card: at -b37 SortYakEngine holds a 16 GiB packed bloom, prints no
+    clamp warning, and its stdout and `[M` lines equal the plain
+    reference (h100bench/reference/yak_wide.py); at -b32 they equal the
+    CPU's."""
+    from h100bench.data import reads_twice
+    from h100bench.reference import yak_wide
+    from kmer_tpu_torch.tools import get_tool, yak_count
+
+    cfg = {"k": 31, "genome": {"bases": 400_000, "gc": 0.41},
+           "reads": {"count": 30_000, "members": 2, "length": 150,
+                     "format": "fastq", "substitution_rate": 0.005,
+                     "n_rate": 0.0001, "reverse_strand_share": 0.5},
+           "gzip_level": 1}
+    inputs = reads_twice.make(cfg, 2**33 + 25, str(tmp_path), 150, "cpu")
+    paths = [f.path for f in inputs.files]
+    made, real = [], yak_count.make_yak_engine
+    monkeypatch.setattr(yak_count, "make_yak_engine",
+                        lambda **kw: made.append(real(**kw)) or made[-1])
+
+    def run(plat, b):
+        monkeypatch.setenv("KMER_TPU_PLATFORM", plat)
+        assert get_tool("yak-count")(["-k31", "-p10", f"-b{b}", "-H4",
+                                      "-K1000000", *paths]) == 0
+        cap = capsys.readouterr()
+        assert "[W::" not in cap.err
+        return cap.out + "".join(ln + "\n" for ln in cap.err.splitlines()
+                                 if ln.startswith("[M"))
+
+    got = run("cuda", 37)
+    eng = made.pop()
+    assert type(eng).__name__ == "SortYakEngine" and eng.bf_shift == 37
+    assert eng.device.type == "cuda"
+    del eng
+    assert got == yak_wide.expected(inputs.files[0].reads, 31, 10, 37, 4,
+                                    1_000_000, "cpu")
+    assert run("cuda", 32) == run("cpu", 32)
+
+
 def test_shrink_join_on_card_matches_cpu(dev):
     from kmer_tpu_torch.kernels.keys import from_u64
     from kmer_tpu_torch.pipeline.yak import _shrink_join_core

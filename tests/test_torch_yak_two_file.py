@@ -58,14 +58,15 @@ SPECS = [(0, 9, 4), (4, 14, 4), (4, 20, 3), (10, 22, 1), (4, 16, 40)]
 @pytest.mark.parametrize("pre,n_shift,n_hashes", SPECS)
 def test_bloom_matches_jax(fn, pre, n_shift, n_hashes):
     """Over three blocks that carry the bits array: each lane's verdict
-    and, after each block, the whole bits array equal JAX's; keys with
-    the top bit set (k = 32), repeats across and within blocks, invalid
-    lanes, and -H40, where one key probes one bit twice."""
+    and, after each block, the whole bits array (unpacked: the port's is
+    packed, JAX's a byte a bit) equal JAX's; keys with the top bit set
+    (k = 32), repeats across and within blocks, invalid lanes, and -H40,
+    where one key probes one bit twice."""
     rng = np.random.default_rng(pre * 1000 + n_shift * 10 + n_hashes)
     jspec, spec = _specs(pre, n_shift, n_hashes)
     jbits = jbloom.make_bits(jspec)
     bits = bloom.make_bits(spec)
-    assert bits.dtype == torch.uint8 and bits.shape == jbits.shape
+    assert bits.dtype == torch.uint8 and bits.shape[0] * 8 == jbits.shape[0]
     assert not bits.any()
     # one pool for all blocks, half of it with the top bit set
     allk = _keys(rng, 9000, 1500, key_bits=40)
@@ -90,7 +91,8 @@ def test_bloom_matches_jax(fn, pre, n_shift, n_hashes):
             out, got = getattr(bloom, fn)(bits, tk, tv, spec)
             assert out is bits
         assert np.array_equal(got.numpy(), np.asarray(want))
-        assert np.array_equal(bits.numpy(), np.asarray(jbits))
+        assert np.array_equal(bloom.unpack_bits(bits).numpy(),
+                              np.asarray(jbits))
     if fn != "test":
         assert got.any() and not got.all()
 
@@ -119,7 +121,7 @@ def test_insert_sequential_matches_lane_by_lane_oracle(n_hashes):
     spec = bloom.BloomSpec(pre=0, n_shift=9, n_hashes=n_hashes)
     rng = np.random.default_rng(42 + n_hashes)
     bits = bloom.make_bits(spec)
-    want_bits = np.zeros(bits.shape[0], np.uint8)
+    want_bits = np.zeros(bits.shape[0] * 8, np.uint8)
     batched_differs = False
     for _ in range(2):
         n = 1500
@@ -136,7 +138,7 @@ def test_insert_sequential_matches_lane_by_lane_oracle(n_hashes):
         want_bits, want = _sequential_oracle(want_bits, idxs, valid)
         _, got = bloom.insert_sequential(bits, tk, tv, spec)
         assert np.array_equal(got.numpy(), want)
-        assert np.array_equal(bits.numpy(), want_bits)
+        assert np.array_equal(bloom.unpack_bits(bits).numpy(), want_bits)
         batched_differs |= not np.array_equal(batched.numpy(), want)
     assert batched_differs
 
@@ -334,27 +336,46 @@ def test_two_file_device_failure_is_not_an_open_failure(capsys, monkeypatch):
 
 
 def test_make_bloom_and_exact_default(monkeypatch):
-    """_make_bloom's gates, clamp, bits array and exact flag equal JAX's
-    (bits: same length; the dummy is 8 bytes), KMER_TPU_EXACT_BLOOM
-    read as JAX reads it."""
+    """_make_bloom's gates, bits array and exact flag equal JAX's for a
+    bloom JAX holds (bits: packed, an eighth of JAX's length; the dummy
+    is 8 bytes), KMER_TPU_EXACT_BLOOM read as JAX reads it.  Above 2^31
+    bits (-b37 at -p25, -b33 at -p10) SortYakEngine's geometry keeps the
+    -b asked for and its packed bits are 2^(b - 3) bytes (made on the
+    meta device), where the clamping engines cut to 2^31 bits as JAX
+    does (at -p25 that leaves no block a subtable: no bloom)."""
     cases = [(10, 19, 4), (10, 15, 4), (10, 0, 4), (10, 20, 0), (25, 37, 4),
              (10, 33, 2)]
     for env in ("", "0", "off", "1", "yes"):
         if env:
             monkeypatch.setenv("KMER_TPU_EXACT_BLOOM", env)
         for pre, b, h in cases:
-            want = jyak._make_bloom(pre, b, h, make_bits_array=(b < 33))
-            got = yak._make_bloom(pre, b, h, make_bits_array=(b < 33),
-                                  device="cpu")
-            assert got[0] == want[0] and got[1] == want[1]
-            assert got[4] == want[4]
-            assert (got[2] is None) == (want[2] is None)
-            if got[2] is not None:
-                assert tuple(got[2]) == tuple(want[2])
-            if b < 33:
-                assert got[3].shape == want[3].shape and not got[3].any()
-            else:
-                assert got[3] is None and want[3] is None
+            if b > 31:
+                want = jyak._make_bloom(pre, b, h, make_bits_array=False)
+                got = yak._make_bloom(pre, b, h, device="meta",
+                                      max_shift=yak.SORT_MAX_SHIFT)
+                assert got[0] and got[1] == b
+                assert tuple(got[2]) == (pre, b, h, 0)
+                assert got[3].shape == (1 << (b - 3),)
+                assert got[3].dtype == torch.uint8
+                assert got[4] == jyak._exact_bloom_default(True)
+                clamped = yak._make_bloom(pre, b, h, make_bits_array=False)
+                assert clamped[:2] == want[:2] and clamped[4] == want[4]
+                assert (None if clamped[2] is None else tuple(clamped[2])) \
+                    == (None if want[2] is None else tuple(want[2]))
+                continue
+            want = jyak._make_bloom(pre, b, h)
+            for max_shift in (yak.CLAMP_SHIFT, yak.SORT_MAX_SHIFT):
+                got = yak._make_bloom(pre, b, h, device="cpu",
+                                      max_shift=max_shift)
+                assert got[0] == want[0] and got[1] == want[1]
+                assert got[4] == want[4]
+                assert (got[2] is None) == (want[2] is None)
+                if got[2] is not None:
+                    assert tuple(got[2]) == tuple(want[2])
+                    assert got[3].shape[0] * 8 == want[3].shape[0]
+                else:
+                    assert got[3].shape == want[3].shape
+                assert not got[3].any()
 
 
 def test_tap_admit_matches_jax():
@@ -377,4 +398,5 @@ def test_tap_admit_matches_jax():
             hi, lo = keys.to_hi_lo(got)
             assert np.array_equal(hi, np.asarray(jhi))
             assert np.array_equal(lo, np.asarray(jlo))
-            assert np.array_equal(bits.numpy(), np.asarray(jbits))
+            assert np.array_equal(bloom.unpack_bits(bits).numpy(),
+                                  np.asarray(jbits))
